@@ -1,0 +1,195 @@
+"""Kernel functions and row providers, dense half (twin of
+``repro.core.kernel_fns``).
+
+The paper (Sec. 4.1) uses the Gaussian kernel K(x, z) = exp(-|x - z|^2 /
+(2 sigma^2)); linear and polynomial kernels are provided for completeness
+(``inv_2s2`` doubles as the polynomial scale). Kernel *rows* K(z, X) over
+the active buffer are the hot path of SMO, and all row production goes
+through a row provider: :class:`DenseRowProvider` computes with plain
+PyTorch ops, :class:`DenseKernelRowProvider` routes the RBF rows, the fused
+Eq. 6 update and the serve-time accumulate through the hand-written CUDA
+kernels (``kernels/ops.py``; plain versions on CPU tensors).
+
+The reference's ``optimization_barrier`` / degenerate-``lax.cond`` islands
+are not ported: they pin XLA CPU code generation, which eager PyTorch does
+not have — the same op on the same shapes runs the same code in every
+context.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+KernelRowFn = Callable[..., torch.Tensor]
+
+
+def rbf_row(X, sq_norms, z, inv_2s2):
+    """K(z, X_i) = exp(-|X_i - z|^2 * inv_2s2) for all rows i."""
+    d2 = sq_norms - 2.0 * (X @ z) + torch.dot(z, z)
+    return torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
+
+
+def rbf_rows2(X, sq_norms, z2, inv_2s2):
+    """Two-row RBF K([z_up; z_low], X) in one pass over X. (N, 2)."""
+    prods = X @ z2.T
+    zn = torch.sum(z2 * z2, dim=-1)
+    d2 = sq_norms[:, None] - 2.0 * prods + zn[None, :]
+    return torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
+
+
+def linear_row(X, sq_norms, z, inv_2s2):
+    return X @ z
+
+
+def linear_rows2(X, sq_norms, z2, inv_2s2):
+    return X @ z2.T
+
+
+def poly_row(X, sq_norms, z, inv_2s2, degree: int = 3, coef0: float = 1.0):
+    return (inv_2s2 * (X @ z) + coef0) ** degree
+
+
+def poly_rows2(X, sq_norms, z2, inv_2s2, degree: int = 3, coef0: float = 1.0):
+    return (inv_2s2 * (X @ z2.T) + coef0) ** degree
+
+
+def self_kernel(kernel: str) -> Callable:
+    """K(x, x) on a (k, d) block of rows -> (k,). For RBF identically 1,
+    which spares two kernel evaluations per iteration (Eq. 12 needs K(up,up)
+    and K(low,low))."""
+    if kernel == "rbf":
+        return lambda Z, inv_2s2: torch.ones(Z.shape[0], dtype=Z.dtype,
+                                             device=Z.device)
+    if kernel == "linear":
+        return lambda Z, inv_2s2: torch.sum(Z * Z, dim=-1)
+    if kernel == "poly":
+        return lambda Z, inv_2s2: (inv_2s2 * torch.sum(Z * Z, dim=-1)
+                                   + 1.0) ** 3
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+_ROWS2 = {"rbf": rbf_rows2, "linear": linear_rows2, "poly": poly_rows2}
+_ROW = {"rbf": rbf_row, "linear": linear_row, "poly": poly_row}
+
+
+def get_rows2(kernel: str) -> KernelRowFn:
+    try:
+        return _ROWS2[kernel]
+    except KeyError:
+        raise ValueError(f"unknown kernel {kernel!r}") from None
+
+
+def get_row(kernel: str) -> KernelRowFn:
+    try:
+        return _ROW[kernel]
+    except KeyError:
+        raise ValueError(f"unknown kernel {kernel!r}") from None
+
+
+def full_kernel_matrix(kernel: str, X: torch.Tensor, Z: torch.Tensor,
+                       inv_2s2: float) -> torch.Tensor:
+    """K(X_i, Z_j) — (nX, nZ). A predict/reconstruction-time helper; never
+    formed in training (the paper's no-kernel-cache doctrine, Sec. 3.1.1)."""
+    if kernel == "linear":
+        return X @ Z.T
+    if kernel == "poly":
+        return (inv_2s2 * (X @ Z.T) + 1.0) ** 3
+    xn = torch.sum(X * X, dim=-1)
+    zn = torch.sum(Z * Z, dim=-1)
+    d2 = xn[:, None] - 2.0 * (X @ Z.T) + zn[None, :]
+    return torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseRowProvider:
+    """Kernel-row production over a :class:`~dataplane.DenseData` buffer
+    with plain PyTorch ops.
+
+    ``rows2`` K([z_up; z_low], buffer) (M, 2); ``matrix`` K(Z_j, buffer_i)
+    (nZ, M); ``gamma_update`` the fused Eq. 6; ``diag`` K(x_i, x_i);
+    ``accumulate`` sum_i coef[i] K(Z_j, buffer_i) (nZ,) — the serving
+    plane's one hot call.
+    """
+    kernel: str
+    inv_2s2: float
+
+    def rows2(self, data, z2):
+        return _ROWS2[self.kernel](data.X, data.sq_norms, z2, self.inv_2s2)
+
+    def matrix(self, data, Z):
+        return full_kernel_matrix(self.kernel, Z, data.X, self.inv_2s2)
+
+    def gamma_update(self, data, gamma, z2, coef2):
+        return gamma + self.rows2(data, z2) @ coef2
+
+    def diag(self, data):
+        sq = data.sq_norms
+        if self.kernel == "rbf":
+            return torch.ones_like(sq)
+        if self.kernel == "linear":
+            return sq
+        return (self.inv_2s2 * sq + 1.0) ** 3
+
+    def accumulate(self, data, Z, coef):
+        return self.matrix(data, Z) @ coef
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseKernelRowProvider(DenseRowProvider):
+    """Dense storage, hand-written kernel backend (twin of
+    ``DensePallasRowProvider``): ``rows2`` -> ``rbf_rows2``,
+    ``gamma_update`` -> ``gamma_update``, ``accumulate`` ->
+    ``rbf_accumulate`` on CUDA tensors. ``matrix`` stays plain:
+    reconstruction blocks are plain products in the reference too. There
+    is no single-row kernel; single rows go through :func:`row_via_rows2`.
+    """
+
+    def rows2(self, data, z2):
+        from repro_torch.kernels import ops
+        return ops.kernel_rows2(self.kernel, data.X, data.sq_norms, z2,
+                                self.inv_2s2)
+
+    def gamma_update(self, data, gamma, z2, coef2):
+        from repro_torch.kernels import ops
+        return ops.fused_gamma_update(self.kernel, data.X, data.sq_norms,
+                                      gamma, z2, coef2, self.inv_2s2)
+
+    def accumulate(self, data, Z, coef):
+        from repro_torch.kernels import ops
+        if self.kernel != "rbf":    # the accumulate kernel is RBF-only
+            return super().accumulate(data, Z, coef)
+        return ops.rbf_accumulate(data.X, data.sq_norms, coef, Z,
+                                  self.inv_2s2)
+
+
+def recon_block(provider: DenseRowProvider, sv_data, Zi: torch.Tensor,
+                coef: torch.Tensor) -> torch.Tensor:
+    """One Alg. 6 block: K(Zi, sv_data) @ coef — (nZ,) partial gammas, in
+    fp64. A reconstructed gamma is a sum over every support vector whose
+    signed terms mostly cancel; fp32 would leave errors of ~1e-4 at a9a
+    size, the order of the Eq. 9 margin. The one block computation both
+    reconstruction backends (host streaming and the device mirror) run, so
+    they produce the same bits."""
+    sv64 = type(sv_data)(sv_data.X.double(), sv_data.sq_norms.double())
+    return provider.matrix(sv64, Zi.double()) @ coef.double()
+
+
+def row_via_rows2(provider: DenseRowProvider, data,
+                  z: torch.Tensor) -> torch.Tensor:
+    """K(z, buffer) as column 0 of the two-row kernel on a duplicated query
+    — (M,). The rows2 columns are position-symmetric (the CUDA kernel
+    computes both with identical code), so this single row has the same
+    bits as the same row produced in either slot of a pair."""
+    return provider.rows2(data, torch.stack([z, z]))[:, 0]
+
+
+def make_provider(kernel: str, use_kernels: bool = True,
+                  inv_2s2: float = 1.0) -> DenseRowProvider:
+    """Row provider for a (kernel, backend) pair: the hand-written kernels
+    (``use_kernels=True``) or plain PyTorch ops."""
+    if kernel not in _ROW:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    cls = DenseKernelRowProvider if use_kernels else DenseRowProvider
+    return cls(kernel, float(inv_2s2))

@@ -18,3 +18,8 @@ def make_blobs(n=400, d=5, sep=1.0, seed=0):
                         -np.ones(n - n // 2)]).astype(np.float32)
     p = r.permutation(n)
     return X[p], y[p]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skips without")
