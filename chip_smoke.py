@@ -7,16 +7,28 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/``, holds each kernel against its plain PyTorch version at the
-main path's shapes, then drives the port's main path through the entry
-points a user calls: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc,
-wss1) to convergence, a Single-policy wss2 fit at scale 0.2, and
-``SVMModel.predict`` over the test rows; both fits must pass Eq. 9 over
-all samples on gamma recomputed in fp64. Kernel launch counts are reset just before the main path and read
+main paths' shapes, then drives the port's two main paths through the entry
+points a user calls:
+
+* dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
+  convergence, a Single-policy wss2 fit at scale 0.2, and
+  ``SVMModel.predict`` over the test rows;
+* sparse (block-ELL, CSR input): a full-size ``w7a`` fit fed as CSR
+  (C=32, sigma2=64, multi5pc, wss1, ``format='ell'``) to convergence, a
+  Single-policy wss2 fit at scale 0.2, one ``ELLKernelRowProvider.row``
+  over the training buffer, and ``SVMModel.predict`` over the CSR test
+  rows.
+
+Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
+Kernel launch counts are reset just before each phase of a path and read
 just after, so the run shows that training and serving went through the
-kernels. Every phase prints its own line; any failure exits non-zero with
-no result. The second-to-last line is the card's name and power limit, the
-line before it the per-kernel JSON record, the last line the device JSON.
-It imports nothing of the JAX package.
+kernels. Kernel times are device times with the inputs read from device
+memory (``DeviceTimer``), the condition the bytes bound assumes. Every
+phase prints its own line; a failure prints the phase and its reason (with
+the traceback) to standard output and exits non-zero with no result. The
+second-to-last line is the card's name and power limit, the line before it
+the per-kernel JSON record, the last line the device JSON. It imports
+nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -33,8 +46,18 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, same source
 
 
+PHASE = "start"
+
+
+def phase(name: str) -> None:
+    """Name the phase that runs now (printed if it fails)."""
+    global PHASE
+    PHASE = name
+
+
 def fail(msg: str) -> None:
-    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    print(f"FAIL [{PHASE}]: {msg}", flush=True)
+    print(f"FAIL [{PHASE}]: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -46,24 +69,44 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def nbytes_of(t) -> int:
+    """Bytes held by a dense or sparse CSR tensor."""
+    if t.is_sparse_csr:
+        return sum(nbytes_of(p) for p in (t.crow_indices(), t.col_indices(),
+                                          t.values()))
+    return t.numel() * t.element_size()
+
+
 class DeviceTimer:
-    """Device time of one call of ``fn`` (ms), from CUDA events around
-    ``reps`` back-to-back calls. These kernels run for less time than one
-    Python launch takes, so events around a plain loop would time the
-    host's launch rate: the timer first queues fp32 matmuls that keep the
-    card busy while the host enqueues the timed calls, and checks that the
-    card was still inside them when the host finished (else it retries
-    with a longer lead)."""
+    """Device time of one call ``fn(*inputs)`` (ms), from CUDA events around
+    ``reps`` back-to-back calls. ``cold`` (the default) reads the inputs
+    from device memory, not from L2, as the HBM bound each time is held
+    against assumes: the calls cycle through copies of ``inputs`` that
+    together hold more than twice the L2 cache, so a copy was evicted
+    before it is read again. ``cold=False`` repeats the same inputs, which
+    stay in L2 when they fit, as the SMO loop finds its buffer. These
+    kernels run for less time than one Python launch takes, so events
+    around a plain loop would time the host's launch rate: the timer first
+    queues fp32 matmuls that keep the card busy while the host enqueues the
+    timed calls, and checks that the card was still inside them when the
+    host finished (else it retries with a longer lead)."""
 
     def __init__(self, torch, dev):
         self.torch = torch
         g = torch.Generator(device=dev).manual_seed(1)
         self.a = torch.randn(4096, 4096, generator=g, device=dev)
+        self.l2 = getattr(torch.cuda.get_device_properties(dev),
+                          "L2_cache_size", 50 << 20)
 
-    def __call__(self, fn, reps: int, warmup: int = 3) -> float:
+    def __call__(self, fn, inputs, reps: int, warmup: int = 3,
+                 cold: bool = True) -> float:
         torch = self.torch
-        for _ in range(warmup):
-            fn()
+        held = sum(nbytes_of(t) for t in inputs)
+        n = 1 + min(64, -(-2 * self.l2 // max(held, 1))) if cold else 1
+        sets = [tuple(inputs)] + [tuple(t.clone() for t in inputs)
+                                  for _ in range(n - 1)]
+        for i in range(warmup):
+            fn(*sets[i % n])
         torch.cuda.synchronize()
         for lead in (2, 8, 32):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -71,8 +114,8 @@ class DeviceTimer:
             for _ in range(lead):
                 self.a @ self.a
             e0.record()
-            for _ in range(reps):
-                fn()
+            for i in range(reps):
+                fn(*sets[i % n])
             e1.record()
             ahead = not e0.query()
             e1.synchronize()
@@ -114,6 +157,518 @@ def eq9_gap(torch, X, y, alpha, C, inv_2s2, dev, block=4096) -> float:
     return float(b_low - b_up)
 
 
+A9A_BUFFER = 32768    # the full-size a9a buffer after full_m_per
+W7A_BUFFER = 32768    # the full-size w7a buffer after full_m_per
+SRC_RBF_ROWS = "src/repro_torch/kernels/csrc/rbf_rows.cu"
+SRC_RBF_ACC = "src/repro_torch/kernels/csrc/rbf_accumulate.cu"
+SRC_ELL_ROWS = "src/repro_torch/kernels/csrc/ell_rows.cu"
+SRC_ELL_ACC = "src/repro_torch/kernels/csrc/ell_accumulate.cu"
+INV = 1.0 / (2.0 * 64.0)          # sigma2 = 64, the paper's a9a / w7a value
+
+
+def check_dense(torch, np, dev, time_ms, kernels) -> None:
+    """The three dense kernels against their plain versions at the a9a
+    buffer (32,768 x 123) and a serve bucket (B = 4,096 x ~18k SVs)."""
+    from repro_torch.data import make
+    from repro_torch.kernels import ops, ref
+    X, _, Xt, _ = make("a9a", 1.0, seed=0)
+    m, d = A9A_BUFFER, X.shape[1]
+    Xb = np.zeros((m, d), np.float32)
+    Xb[: min(m, X.shape[0])] = X[:m]
+    Xd = torch.as_tensor(Xb, device=dev)
+    sq = (Xd * Xd).sum(1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    gam = torch.randn(m, generator=g, device=dev)
+    z2 = Xd[torch.tensor([5, 1000], device=dev)].contiguous()
+    coef2 = torch.randn(2, generator=g, device=dev)
+
+    got = ops.fused_gamma_update("rbf", Xd, sq, gam, z2, coef2, INV)
+    want = ref.gamma_update(Xd, sq, gam, z2, coef2, INV)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    ins = (Xd, sq, gam, z2, coef2)
+    t_k = time_ms(lambda *a: ops.fused_gamma_update("rbf", *a, INV), ins,
+                  reps=100)
+    t_w = time_ms(lambda *a: ops.fused_gamma_update("rbf", *a, INV), ins,
+                  reps=100, cold=False)
+    t_p = time_ms(lambda *a: ref.gamma_update(*a, INV), ins, reps=20)
+    t_mm = time_ms(lambda x, z: x @ z.T, (Xd, z2), reps=100)
+    b_ms, b_by = bound(4.0 * (m * d + 3 * m + 2 * d + 2),
+                       m * (4.0 * d + 14.0), H100_FP32_FLOPS)
+    kernels["gamma_update"] = dict(
+        route="cuda", source=SRC_RBF_ROWS,
+        replaces="src/repro/kernels/gamma_update.py:37", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        matmul_ms=t_mm, warm_ms=t_w, shape=f"X {m}x{d}")
+    print(f"[check] gamma_update m={m} d={d}: max_abs_err={err:.3e} "
+          f"(rtol/atol 1e-4) kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), "
+          f"plain {t_p*1e3:.2f} "
+          f"us, X@z2.T {t_mm*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})",
+          flush=True)
+
+    got = ops.kernel_rows2("rbf", Xd, sq, z2, INV)
+    want = ref.kernel_rows2(Xd, sq, z2, INV)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    zz = torch.stack([z2[1], z2[1]])
+    same = ops.kernel_rows2("rbf", Xd, sq, zz, INV)
+    swap = ops.kernel_rows2("rbf", Xd, sq, z2.flip(0).contiguous(), INV)
+    torch.cuda.synchronize()
+    if not (torch.equal(same[:, 0], same[:, 1])
+            and torch.equal(swap[:, 0], got[:, 1])
+            and torch.equal(swap[:, 1], got[:, 0])):
+        fail("rbf_rows2 columns are not bitwise position-symmetric")
+    ins = (Xd, sq, z2)
+    t_k = time_ms(lambda *a: ops.kernel_rows2("rbf", *a, INV), ins,
+                  reps=100)
+    t_w = time_ms(lambda *a: ops.kernel_rows2("rbf", *a, INV), ins,
+                  reps=100, cold=False)
+    t_p = time_ms(lambda *a: ref.kernel_rows2(*a, INV), ins, reps=20)
+    b_ms, b_by = bound(4.0 * (m * d + m + 2 * d + 2 * m),
+                       m * (4.0 * d + 12.0), H100_FP32_FLOPS)
+    kernels["rbf_rows2"] = dict(
+        route="cuda", source=SRC_RBF_ROWS,
+        replaces="src/repro/kernels/rbf_row.py:51", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        matmul_ms=t_mm, warm_ms=t_w, shape=f"X {m}x{d}")
+    print(f"[check] rbf_rows2 m={m} d={d}: max_abs_err={err:.3e} "
+          f"(rtol 1e-5 / atol 1e-6), columns bitwise position-symmetric; "
+          f"kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), plain "
+          f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
+
+    B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
+    Xs = Xd[:M].contiguous()
+    sqs = sq[:M].contiguous()
+    cf = torch.rand(M, generator=g, device=dev) * 32.0   # positive: no
+    Zq = torch.as_tensor(np.resize(Xt, (B, d)), device=dev)  # cancellation
+    got = ops.rbf_accumulate(Xs, sqs, cf, Zq, INV)
+    want = ref.rbf_accumulate(Xs, sqs, cf, Zq, INV)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not rel <= 1e-5:
+        fail(f"rbf_accumulate relative error {rel:.3e} > 1e-5")
+    ins = (Xs, sqs, cf, Zq)
+    t_k = time_ms(lambda *a: ops.rbf_accumulate(*a, INV), ins, reps=10)
+    t_w = time_ms(lambda *a: ops.rbf_accumulate(*a, INV), ins, reps=10,
+                  cold=False)
+    t_p = time_ms(lambda *a: ref.rbf_accumulate(*a, INV), ins, reps=5)
+    t_mm = time_ms(lambda z, x: z @ x.T, (Zq, Xs), reps=10)
+    b_ms, b_by = bound(4.0 * (M * d + 2 * M + B * d + B),
+                       2.0 * B * M * d + 6.0 * B * M, H100_FP32_FLOPS)
+    kernels["rbf_accumulate"] = dict(
+        route="cuda", source=SRC_RBF_ACC,
+        replaces="src/repro/kernels/rbf_row.py:103", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        matmul_ms=t_mm, warm_ms=t_w, shape=f"B {B} x M {M} x d {d}")
+    print(f"[check] rbf_accumulate B={B} M={M} d={d}: max rel err "
+          f"{rel:.3e} (1e-5), kernel {t_k:.3f} ms (in L2 {t_w:.3f}), plain "
+          f"{t_p:.3f} ms, Z@X.T {t_mm:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+          flush=True)
+
+
+def ell_buffer(torch, np, dev, X, m):
+    """The w7a training set as a device ELL buffer of ``m`` rows (padding
+    rows all (0.0, 0), as the driver builds it), and its CSR form for the
+    cuSPARSE yardstick."""
+    from repro_torch.core import dataplane
+    from repro_torch.data import to_csr, to_ell
+    e = to_ell(X)
+    n, K = e.vals.shape
+    vals = np.zeros((m, K), np.float32)
+    cols = np.zeros((m, K), np.int32)
+    vals[:n], cols[:n] = e.vals, e.cols
+    put = lambda a: torch.as_tensor(a, device=dev)
+    data = dataplane.ELLData(put(vals), put(cols),
+                             put((vals * vals).sum(1)), X.shape[1])
+    c = to_csr(X)
+    indptr = np.concatenate([c.indptr, np.full(m - n, c.indptr[-1])])
+    spm = torch.sparse_csr_tensor(put(indptr), put(c.indices.astype(np.int64)),
+                                  put(c.data), size=(m, X.shape[1]))
+    return data, spm
+
+
+def spmm_ms(torch, time_ms, spm, dense, reps):
+    """Device ms of cuSPARSE's ``torch.sparse.mm`` of the same contraction
+    (the yardstick; the port never calls it), or None where this build of
+    PyTorch cannot run it."""
+    try:
+        spm @ dense
+        return time_ms(lambda a, b: a @ b, (spm, dense), reps=reps)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[check-ell] no cuSPARSE yardstick: {e}", flush=True)
+        return None
+
+
+def ell_bytes(m, K, nnz):
+    """Bytes an ELL pass must read of (vals, cols): every val (a zero is
+    only known once read), but only the cols of the nonzero slots."""
+    return 4.0 * (m * K + nnz)
+
+
+def ell_rows_bound(m, K, d, nnz, q, gamma):
+    """Least time for one ELL row pass: ``ell_bytes``, sq, the queries and
+    the outputs (gamma in and out for the update); 2 flops per nonzero and
+    query plus a 7-flop epilogue per row and query."""
+    nbytes = ell_bytes(m, K, nnz) + 4.0 * (
+        m + q * d + (2 * m if gamma else q * m))
+    return bound(nbytes, 2.0 * q * nnz + 7.0 * q * m + 4.0 * m * gamma,
+                 H100_FP32_FLOPS)
+
+
+def check_ell_rows(torch, np, dev, time_ms, kernels) -> dict:
+    """The three ELL row kernels against their plain versions at the w7a
+    buffer (32,768 x K = 128, d = 300), plus a ragged lane budget (K = 13)
+    and a large width (d = 16,384: the global-gather branch)."""
+    from repro_torch.data import make
+    from repro_torch.kernels import ops, ref
+    X, _, _, _ = make("w7a", 1.0, seed=0)
+    data, spm = ell_buffer(torch, np, dev, X, W7A_BUFFER)
+    v, c, s = data.vals, data.cols, data.sq_norms
+    m, K = v.shape
+    d = X.shape[1]
+    nnz = int((v != 0).sum())
+    g = torch.Generator(device=dev).manual_seed(2)
+    gam = torch.randn(m, generator=g, device=dev)
+    gam[X.shape[0]:] = float("inf")               # buffer padding rows
+    z2 = data.dense_rows(torch.tensor([5, X.shape[0] // 2], device=dev))
+    coef2 = torch.randn(2, generator=g, device=dev)
+    shape = f"ELL {m}x{K}, d {d}, nnz {nnz}"
+    t_sp = spmm_ms(torch, time_ms, spm, z2.T.contiguous(), reps=100)
+
+    got = ops.ell_fused_gamma_update("rbf", v, c, s, gam, z2, coef2, INV)
+    want = ref.ell_gamma_update(v, c, s, gam, z2, coef2, INV)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if not bool(torch.isinf(got[X.shape[0]:]).all()):
+        fail("ell_gamma_update: padding rows lost gamma = +inf")
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    ins = (v, c, s, gam, z2, coef2)
+    t_k = time_ms(lambda *a: ops.ell_fused_gamma_update("rbf", *a, INV),
+                  ins, reps=100)
+    t_w = time_ms(lambda *a: ops.ell_fused_gamma_update("rbf", *a, INV),
+                  ins, reps=100, cold=False)
+    t_p = time_ms(lambda *a: ref.ell_gamma_update(*a, INV), ins, reps=20)
+    b_ms, b_by = ell_rows_bound(m, K, d, nnz, 2, True)
+    kernels["ell_gamma_update"] = dict(
+        route="cuda", source=SRC_ELL_ROWS,
+        replaces="src/repro/kernels/sparse_ell.py:122", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        spmm_ms=t_sp, warm_ms=t_w, shape=shape)
+    print(f"[check-ell] ell_gamma_update m={m} K={K} d={d} nnz={nnz}: "
+          f"max_abs_err={err:.3e} (rtol/atol 1e-4), padding rows stay inf; "
+          f"kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), plain "
+          f"{t_p*1e3:.2f} us, cuSPARSE spmm "
+          f"{t_sp if t_sp is None else round(t_sp*1e3, 2)} us, "
+          f"bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
+
+    got = ops.ell_kernel_rows2(v, c, s, z2, INV)
+    want = ref.ell_kernel_rows2(v, c, s, z2, INV)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    zz = torch.stack([z2[1], z2[1]])
+    same = ops.ell_kernel_rows2(v, c, s, zz, INV)
+    swap = ops.ell_kernel_rows2(v, c, s, z2.flip(0).contiguous(), INV)
+    torch.cuda.synchronize()
+    if not (torch.equal(same[:, 0], same[:, 1])
+            and torch.equal(swap[:, 0], got[:, 1])
+            and torch.equal(swap[:, 1], got[:, 0])):
+        fail("ell_kernel_rows2 columns are not bitwise position-symmetric")
+    ins = (v, c, s, z2)
+    t_k = time_ms(lambda *a: ops.ell_kernel_rows2(*a, INV), ins, reps=100)
+    t_w = time_ms(lambda *a: ops.ell_kernel_rows2(*a, INV), ins, reps=100,
+                  cold=False)
+    t_p = time_ms(lambda *a: ref.ell_kernel_rows2(*a, INV), ins, reps=20)
+    b_ms, b_by = ell_rows_bound(m, K, d, nnz, 2, False)
+    kernels["ell_kernel_rows2"] = dict(
+        route="cuda", source=SRC_ELL_ROWS,
+        replaces="src/repro/kernels/sparse_ell.py:96", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        spmm_ms=t_sp, warm_ms=t_w, shape=shape)
+    print(f"[check-ell] ell_kernel_rows2 m={m} K={K} d={d}: max_abs_err="
+          f"{err:.3e} (rtol 1e-5 / atol 1e-6), columns bitwise "
+          f"position-symmetric; kernel {t_k*1e3:.2f} us (in L2 "
+          f"{t_w*1e3:.2f}), plain "
+          f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
+
+    z = z2[0].contiguous()
+    got = ops.ell_kernel_row(v, c, s, z, INV)
+    want = ref.ell_kernel_row(v, c, s, z, INV)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    ins = (v, c, s, z)
+    t_k = time_ms(lambda *a: ops.ell_kernel_row(*a, INV), ins, reps=100)
+    t_w = time_ms(lambda *a: ops.ell_kernel_row(*a, INV), ins, reps=100,
+                  cold=False)
+    t_p = time_ms(lambda *a: ref.ell_kernel_row(*a, INV), ins, reps=20)
+    t_sp1 = spmm_ms(torch, time_ms, spm, z[:, None].contiguous(), reps=100)
+    b_ms, b_by = ell_rows_bound(m, K, d, nnz, 1, False)
+    kernels["ell_kernel_row"] = dict(
+        route="cuda", source=SRC_ELL_ROWS,
+        replaces="src/repro/kernels/sparse_ell.py:45", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        spmm_ms=t_sp1, warm_ms=t_w, shape=shape)
+    print(f"[check-ell] ell_kernel_row m={m} K={K} d={d}: max_abs_err="
+          f"{err:.3e} (rtol 1e-5 / atol 1e-6); kernel {t_k*1e3:.2f} us (in "
+          f"L2 {t_w*1e3:.2f}), "
+          f"plain {t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})",
+          flush=True)
+
+    # ragged lane budget: the same rows at K = 13 (every row has 12)
+    v13, c13 = v[:, :13].contiguous(), c[:, :13].contiguous()
+    torch.testing.assert_close(
+        ops.ell_kernel_rows2(v13, c13, s, z2, INV),
+        ref.ell_kernel_rows2(v13, c13, s, z2, INV), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        ops.ell_fused_gamma_update("rbf", v13, c13, s, gam, z2, coef2, INV),
+        ref.ell_gamma_update(v13, c13, s, gam, z2, coef2, INV),
+        rtol=1e-4, atol=1e-4)
+    if not torch.equal(ops.ell_kernel_rows2(v13, c13, s, z2, INV),
+                       ops.ell_kernel_rows2(v, c, s, z2, INV)):
+        fail("ell_kernel_rows2 at K=13 differs from the same rows at K=128")
+    # large width: queries beyond shared memory, gathered from global
+    bv, bc, bs = ragged_ell(torch, dev, 8192, 128, 16384, seed=3)
+    # small queries keep the distances O(|x|^2), so K is not 0
+    bz = torch.randn(2, 16384, generator=g, device=dev) * 0.05
+    torch.testing.assert_close(ops.ell_kernel_rows2(bv, bc, bs, bz, INV),
+                               ref.ell_kernel_rows2(bv, bc, bs, bz, INV),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ops.ell_kernel_row(bv, bc, bs, bz[0], INV),
+                               ref.ell_kernel_row(bv, bc, bs, bz[0], INV),
+                               rtol=1e-5, atol=1e-6)
+    bg = torch.randn(bv.shape[0], generator=g, device=dev)
+    torch.testing.assert_close(
+        ops.ell_fused_gamma_update("rbf", bv, bc, bs, bg, bz, coef2, INV),
+        ref.ell_gamma_update(bv, bc, bs, bg, bz, coef2, INV),
+        rtol=1e-4, atol=1e-4)
+    print("[check-ell] ragged K=13 (rows bitwise equal to K=128) and "
+          "d=16384 (global gathers, 8192 rows): all three row kernels "
+          "within tolerance", flush=True)
+    return data
+
+
+def ragged_ell(torch, dev, m, K, d, seed):
+    """Random ELL rows with a random occupied prefix (<= K slots) each,
+    columns in [0, d); padding slots (0.0, 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ext = torch.randint(0, K + 1, (m, 1), generator=g, device=dev)
+    live = torch.arange(K, device=dev)[None, :] < ext
+    vals = torch.where(live, torch.randn(m, K, generator=g, device=dev), 0.0)
+    cols = torch.where(live, torch.randint(0, d, (m, K), generator=g,
+                                           device=dev), 0).to(torch.int32)
+    return vals.contiguous(), cols.contiguous(), (vals * vals).sum(1)
+
+
+def check_ell_accumulate(torch, np, dev, time_ms, kernels, model,
+                         Xt) -> None:
+    """``ell_rbf_accumulate`` against its plain version at B = 4,096 query
+    rows x the trained model's ELL support vectors (w7a), and at d =
+    16,384 (queries gathered from global memory)."""
+    from repro_torch.kernels import ops, ref
+    eng = model.serve_engine()
+    data, coef = eng._data, eng._coef
+    v, c, s = data.vals, data.cols, data.sq_norms
+    M, K = v.shape
+    Zq = torch.as_tensor(np.resize(Xt, (4096, Xt.shape[1])), device=dev)
+    B, d = Zq.shape
+    inv = model.config.inv_2s2
+    nnz = int((v != 0).sum())
+    got = ops.ell_rbf_accumulate(v, c, s, coef, Zq, inv)
+    want = ref.ell_rbf_accumulate(v, c, s, coef, Zq, inv)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    if not rel <= 1e-5:
+        fail(f"ell_rbf_accumulate error {rel:.3e} of max |sum| > 1e-5")
+    again = ops.ell_rbf_accumulate(v, c, s, coef, Zq, inv)
+    if not torch.equal(again, got):
+        fail("ell_rbf_accumulate is not identical from run to run")
+    ins = (v, c, s, coef, Zq)
+    t_k = time_ms(lambda *a: ops.ell_rbf_accumulate(*a, inv), ins, reps=10)
+    t_w = time_ms(lambda *a: ops.ell_rbf_accumulate(*a, inv), ins, reps=10,
+                  cold=False)
+    t_p = time_ms(lambda *a: ref.ell_rbf_accumulate(*a, inv), ins, reps=3)
+    sv_dense = np.zeros((M, d), np.float32)
+    sv_dense[: model.stats.n_sv] = model._sv_dense()
+    spm_sv = torch.as_tensor(sv_dense, device=dev).to_sparse_csr()
+    t_sp = spmm_ms(torch, time_ms, spm_sv, Zq.T.contiguous(), reps=10)
+    nbytes = ell_bytes(M, K, nnz) + 4.0 * (2 * M + B * d + B)
+    flops = 2.0 * B * nnz + 10.0 * B * M + 2.0 * B * d
+    b_ms, b_by = bound(nbytes, flops, H100_FP32_FLOPS)
+    kernels["ell_rbf_accumulate"] = dict(
+        route="cuda", source=SRC_ELL_ACC,
+        replaces="src/repro/kernels/rbf_row.py:163", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        spmm_ms=t_sp, warm_ms=t_w,
+        shape=f"B {B} x ELL SVs {M}x{K}, d {d}, nnz {nnz}")
+    print(f"[check-ell] ell_rbf_accumulate B={B} M={M} K={K} d={d} "
+          f"nnz={nnz}: max err {rel:.3e} of max |sum| (1e-5), identical "
+          f"across runs; kernel {t_k:.4f} ms (in L2 {t_w:.4f}), plain "
+          f"{t_p:.3f} ms, cuSPARSE "
+          f"spmm {t_sp if t_sp is None else round(t_sp, 4)} ms, bound "
+          f"{b_ms*1e3:.2f} us ({b_by})", flush=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    bv, bc, bs = ragged_ell(torch, dev, 2048, 128, 16384, seed=5)
+    bcoef = torch.randn(bv.shape[0], generator=g, device=dev)
+    bZ = torch.randn(256, 16384, generator=g, device=dev) * 0.05
+    got = ops.ell_rbf_accumulate(bv, bc, bs, bcoef, bZ, inv)
+    want = ref.ell_rbf_accumulate(bv, bc, bs, bcoef, bZ, inv)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= 1e-5:
+        fail(f"ell_rbf_accumulate at d=16384: error {rel:.3e} > 1e-5")
+    print(f"[check-ell] ell_rbf_accumulate d=16384 (global gathers, 256 "
+          f"queries x 2048 SVs): max err {rel:.3e} of max |sum| (1e-5)",
+          flush=True)
+
+
+# the kernel each phase of a main path must launch: (train, wss2, serve)
+HOT = {"dense": ("gamma_update", "rbf_rows2", "rbf_accumulate"),
+       "ell": ("ell_gamma_update", "ell_kernel_rows2", "ell_rbf_accumulate")}
+
+
+def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
+    """One main path through the entry points a user calls: a full-size
+    fit of ``dataset`` (C=32, sigma2=64, multi5pc, wss1) to convergence, a
+    Single-policy wss2 fit at scale 0.2, and ``SVMModel.predict`` over the
+    test rows. ``fmt='dense'`` feeds numpy rows; ``fmt='ell'`` feeds CSR to
+    ``format='ell'`` training and serving. Launch counts are reset just
+    before each phase and read just after it. Returns the trained model,
+    the launches of each phase's kernel and the test rows."""
+    from repro_torch.core import SVMConfig, SMOSolver
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    sfx = "" if fmt == "dense" else "-ell"
+    feed = (lambda a: a) if fmt == "dense" else to_csr
+    fed = "" if fmt == "dense" else " CSR in"
+    k_train, k_wss2, k_serve = HOT[fmt]
+    kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
+              device="cuda", **({} if fmt == "dense" else {"format": "ell"}))
+    launches = {}
+
+    phase("train" + sfx)
+    X, y, Xt, yt = make(dataset, 1.0, seed=0)
+    Xf, Xtf = feed(X), feed(Xt)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    model = SMOSolver(SVMConfig(**kw)).fit(Xf, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[k_train] = cuda.launches[k_train]
+    st = model.stats
+    gap = eq9_gap(torch, X, y, model.alpha, 32.0, INV, dev)
+    acc = float((model.predict(Xtf) == yt).mean())
+    lanes = (f"nnz/row={(X != 0).sum() / X.shape[0]:.1f} buffer_K="
+             f"{st.buffer_K} " if fmt == "ell" else "")
+    print(f"[train{sfx}] {dataset} n={X.shape[0]} d={X.shape[1]}{fed}: "
+          f"iterations={st.iterations} dispatches={st.dispatches} "
+          f"compactions={st.compactions} "
+          f"reconstructions={st.reconstructions} rechecks={st.eq9_rechecks}"
+          f" {lanes}buffer_sizes={st.buffer_sizes} SVs={st.n_sv} "
+          f"converged={st.converged} eq9_gap_all={gap:.3e} (<= 2eps 2e-03) "
+          f"wall={wall:.1f} s us/iter="
+          f"{1e6 * st.train_time / max(st.iterations, 1):.1f} "
+          f"test_accuracy={acc:.4f} {k_train} launches={launches[k_train]}",
+          flush=True)
+    if launches[k_train] <= 0:
+        fail(f"training did not launch {k_train}")
+    if not (st.converged and gap <= 2e-3):
+        fail(f"training: converged={st.converged}, gap {gap:.3e}")
+
+    # The Single policy's last phase ends without a reconstruction, so its
+    # verdict is the one the driver rechecks on recomputed gamma.
+    phase("wss2" + sfx)
+    X2, y2, _, _ = make(dataset, 0.2, seed=0)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    m2 = SMOSolver(SVMConfig(**dict(kw, selection="wss2",
+                                    heuristic="single5pc"))).fit(
+        feed(X2), y2)
+    torch.cuda.synchronize()
+    launches[k_wss2] = cuda.launches[k_wss2]
+    s2 = m2.stats
+    gap2 = eq9_gap(torch, X2, y2, m2.alpha, 32.0, INV, dev)
+    print(f"[wss2{sfx}] {dataset} scale 0.2 n={X2.shape[0]} single5pc{fed}: "
+          f"iterations={s2.iterations} reconstructions={s2.reconstructions} "
+          f"rechecks={s2.eq9_rechecks} converged={s2.converged} "
+          f"eq9_gap_all={gap2:.3e} (<= 2eps 2e-03) SVs={s2.n_sv} "
+          f"wall={time.perf_counter() - t0:.1f} s "
+          f"{k_wss2} launches={launches[k_wss2]}", flush=True)
+    if launches[k_wss2] <= 0:
+        fail(f"wss2 fit did not launch {k_wss2}")
+    if not (s2.converged and gap2 <= 2e-3):
+        fail(f"wss2 fit: converged={s2.converged}, gap {gap2:.3e}")
+
+    phase("serve" + sfx)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    pred = model.predict(Xtf)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    launches[k_serve] = cuda.launches[k_serve]
+    scores = model.decision_function(Xtf)
+    host = model.decision_function_host(Xtf)
+    serr = float(np.abs(scores - host).max() / np.abs(host).max())
+    acc = float((pred == yt).mean())
+    eng = model.serve_engine()
+    print(f"[serve{sfx}] {Xt.shape[0]} test rows{fed}, {st.n_sv} SVs "
+          f"({eng.describe()}, {eng.memory_bytes()} resident bytes): "
+          f"accuracy={acc:.4f} predict wall={t_pred:.3f} s "
+          f"max|score-host|/max|host|={serr:.3e} (<= 1e-4) "
+          f"max|score|={np.abs(scores).max():.3f} (> 0.5) "
+          f"{k_serve} launches={launches[k_serve]}", flush=True)
+    if launches[k_serve] <= 0:
+        fail(f"predict did not launch {k_serve}")
+    if not (serr <= 1e-4 and np.abs(scores).max() > 0.5):
+        fail("serving scores disagree with the host loop or are degenerate")
+    # the resident SVs stay in L2 from bucket to bucket, as they do for a
+    # serving engine under load; only the query buckets rotate
+    per_bucket = {}
+    b = eng.min_bucket
+    while b <= eng.max_bucket:
+        zb = torch.as_tensor(np.resize(Xt, (b, Xt.shape[1])), device=dev)
+        per_bucket[b] = time_ms(eng.score_bucket, (zb,), reps=20) * 1e3 / b
+        b *= 2
+    print(f"[serve{sfx}] device us/query by bucket: " + ", ".join(
+        f"{b}: {v:.3f}" for b, v in per_bucket.items()), flush=True)
+    return model, launches, Xt
+
+
+def row_path(torch, dev, data) -> dict:
+    """One ``ELLKernelRowProvider.row`` over the w7a buffer (no training or
+    serving path calls it; the provider API does): ``ell_kernel_row``,
+    held against the plain version and, bitwise, against column 0 of
+    ``rows2([z; z])``."""
+    from repro_torch.core import kernel_fns
+    from repro_torch.kernels import cuda, ref
+    phase("row-ell")
+    provider = kernel_fns.make_provider("rbf", "ell", True, INV)
+    z = data.dense_rows(torch.tensor([77], device=dev))[0]
+    cuda.reset_launches()
+    row = provider.row(data, z)
+    torch.cuda.synchronize()
+    launches = {"ell_kernel_row": cuda.launches["ell_kernel_row"]}
+    plain = ref.ell_kernel_row(data.vals, data.cols, data.sq_norms, z, INV)
+    via2 = kernel_fns.row_via_rows2(provider, data, z)
+    err = float((row - plain).abs().max())
+    torch.testing.assert_close(row, plain, rtol=1e-5, atol=1e-6)
+    print(f"[row-ell] ELLKernelRowProvider.row over the w7a buffer "
+          f"({data.m}x{data.K}): max_abs_err={err:.3e} vs plain (rtol 1e-5 "
+          f"/ atol 1e-6), bitwise equal to rows2([z; z])[:, 0]: "
+          f"{torch.equal(row, via2)}; ell_kernel_row launches="
+          f"{launches['ell_kernel_row']}", flush=True)
+    if not torch.equal(row, via2):
+        fail("ELLKernelRowProvider.row differs from rows2([z; z])[:, 0]")
+    if launches["ell_kernel_row"] <= 0:
+        fail("ELLKernelRowProvider.row did not launch ell_kernel_row")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -123,17 +678,14 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
     from repro_torch import device as devmod
-    from repro_torch.core import SVMConfig, SMOSolver
-    from repro_torch.data import make
-    from repro_torch.kernels import cuda, ops, ref
+    from repro_torch.kernels import cuda
 
     dev = devmod.resolve("cuda")
     card = card_line()
     t_all = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(0)
     time_ms = DeviceTimer(torch, dev)
 
-    # ---- 1. build -------------------------------------------------------
+    phase("build")
     t0 = time.perf_counter()
     rep = cuda.build()
     t_build = time.perf_counter() - t0
@@ -144,190 +696,33 @@ def main() -> None:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    print(f"[time] kernel times are device times with the inputs out of L2 "
+          f"({time_ms.l2 / 2**20:.0f} MiB on this card)", flush=True)
 
-    # ---- 2. kernels against their plain versions -----------------------
-    X, y, Xt, yt = make("a9a", 1.0, seed=0)
-    d = X.shape[1]
-    m = 32768                         # the a9a buffer after full_m_per
-    Xb = np.zeros((m, d), np.float32)
-    Xb[: min(m, X.shape[0])] = X[:m]
-    Xd = torch.as_tensor(Xb, device=dev)
-    sq = (Xd * Xd).sum(1)
-    inv = 1.0 / (2.0 * 64.0)
-    gam = torch.randn(m, generator=g, device=dev)
-    z2 = Xd[torch.tensor([5, 1000], device=dev)].contiguous()
-    coef2 = torch.randn(2, generator=g, device=dev)
     kernels = {}
+    phase("check")
+    check_dense(torch, np, dev, time_ms, kernels)
+    phase("check-ell")
+    w7a_buffer = check_ell_rows(torch, np, dev, time_ms, kernels)
 
-    got = ops.fused_gamma_update("rbf", Xd, sq, gam, z2, coef2, inv)
-    want = ref.gamma_update(Xd, sq, gam, z2, coef2, inv)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    t_k = time_ms(lambda: ops.fused_gamma_update(
-        "rbf", Xd, sq, gam, z2, coef2, inv), reps=100)
-    t_p = time_ms(lambda: ref.gamma_update(Xd, sq, gam, z2, coef2, inv),
-                  reps=20)
-    t_mm = time_ms(lambda: Xd @ z2.T, reps=100)
-    b_ms, b_by = bound(4.0 * (m * d + 3 * m + 2 * d + 2),
-                       m * (4.0 * d + 14.0), H100_FP32_FLOPS)
-    kernels["gamma_update"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/rbf_rows.cu",
-        replaces="src/repro/kernels/gamma_update.py:37", max_abs_err=err,
-        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        matmul_ms=t_mm, shape=f"X {m}x{d}")
-    print(f"[check] gamma_update m={m} d={d}: max_abs_err={err:.3e} "
-          f"(rtol/atol 1e-4) kernel {t_k*1e3:.1f} us, plain {t_p*1e3:.1f} us,"
-          f" X@z2.T {t_mm*1e3:.1f} us, bound {b_ms*1e3:.2f} us ({b_by})",
-          flush=True)
+    _, launches, _ = run_path(torch, np, dev, time_ms, "a9a", "dense")
+    model, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a", "ell")
+    launches.update(ell_launches)
+    phase("check-ell")
+    check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
+    launches.update(row_path(torch, dev, w7a_buffer))
 
-    got = ops.kernel_rows2("rbf", Xd, sq, z2, inv)
-    want = ref.kernel_rows2(Xd, sq, z2, inv)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    zz = torch.stack([z2[1], z2[1]])
-    same = ops.kernel_rows2("rbf", Xd, sq, zz, inv)
-    swap = ops.kernel_rows2("rbf", Xd, sq, z2.flip(0).contiguous(), inv)
-    torch.cuda.synchronize()
-    if not (torch.equal(same[:, 0], same[:, 1])
-            and torch.equal(swap[:, 0], got[:, 1])
-            and torch.equal(swap[:, 1], got[:, 0])):
-        fail("rbf_rows2 columns are not bitwise position-symmetric")
-    t_k = time_ms(lambda: ops.kernel_rows2("rbf", Xd, sq, z2, inv),
-                  reps=100)
-    t_p = time_ms(lambda: ref.kernel_rows2(Xd, sq, z2, inv), reps=20)
-    b_ms, b_by = bound(4.0 * (m * d + m + 2 * d + 2 * m),
-                       m * (4.0 * d + 12.0), H100_FP32_FLOPS)
-    kernels["rbf_rows2"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/rbf_rows.cu",
-        replaces="src/repro/kernels/rbf_row.py:51", max_abs_err=err,
-        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        matmul_ms=t_mm, shape=f"X {m}x{d}")
-    print(f"[check] rbf_rows2 m={m} d={d}: max_abs_err={err:.3e} "
-          f"(rtol 1e-5 / atol 1e-6), columns bitwise position-symmetric; "
-          f"kernel {t_k*1e3:.1f} us, plain {t_p*1e3:.1f} us, "
-          f"bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
-
-    B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
-    Xs = Xd[:M].contiguous()
-    sqs = sq[:M].contiguous()
-    cf = torch.rand(M, generator=g, device=dev) * 32.0   # positive: no
-    Zq = torch.as_tensor(np.resize(Xt, (B, d)), device=dev)  # cancellation
-    got = ops.rbf_accumulate(Xs, sqs, cf, Zq, inv)
-    want = ref.rbf_accumulate(Xs, sqs, cf, Zq, inv)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = float(((got - want).abs() / want.abs()).max())
-    if not rel <= 1e-5:
-        fail(f"rbf_accumulate relative error {rel:.3e} > 1e-5")
-    t_k = time_ms(lambda: ops.rbf_accumulate(Xs, sqs, cf, Zq, inv),
-                  reps=10)
-    t_p = time_ms(lambda: ref.rbf_accumulate(Xs, sqs, cf, Zq, inv),
-                  reps=5)
-    t_mm = time_ms(lambda: Zq @ Xs.T, reps=10)
-    b_ms, b_by = bound(4.0 * (M * d + 2 * M + B * d + B),
-                       2.0 * B * M * d + 6.0 * B * M, H100_FP32_FLOPS)
-    kernels["rbf_accumulate"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/rbf_accumulate.cu",
-        replaces="src/repro/kernels/rbf_row.py:103", max_abs_err=err,
-        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        matmul_ms=t_mm, shape=f"B {B} x M {M} x d {d}")
-    print(f"[check] rbf_accumulate B={B} M={M} d={d}: max rel err "
-          f"{rel:.3e} (1e-5), kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-          f"Z@X.T {t_mm:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
-
-    # ---- 3. full-size training (main path) ------------------------------
-    cuda.reset_launches()
-    kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
-              device="cuda")
-    t0 = time.perf_counter()
-    model = SMOSolver(SVMConfig(**kw)).fit(X, y)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    st = model.stats
-    train_launches = dict(cuda.launches)
-    gap = eq9_gap(torch, X, y, model.alpha, 32.0, inv, dev)
-    print(f"[train] a9a n={X.shape[0]} d={d}: iterations={st.iterations} "
-          f"dispatches={st.dispatches} compactions={st.compactions} "
-          f"reconstructions={st.reconstructions} SVs={st.n_sv} "
-          f"rechecks={st.eq9_rechecks} converged={st.converged} "
-          f"eq9_gap_all={gap:.3e} (<= 2eps "
-          f"{2e-3:.0e}) wall={wall:.1f} s "
-          f"us/iter={1e6 * st.train_time / max(st.iterations, 1):.1f} "
-          f"gamma_update launches={train_launches['gamma_update']}",
-          flush=True)
-    if train_launches["gamma_update"] <= 0:
-        fail("training did not launch gamma_update")
-    if not (st.converged and gap <= 2e-3):
-        fail(f"training: converged={st.converged}, gap {gap:.3e}")
-
-    # ---- 4. wss2, Single policy -------------------------------------------
-    # The Single policy's last phase ends without a reconstruction, so its
-    # verdict is the one the driver rechecks on recomputed gamma.
-    X2, y2, _, _ = make("a9a", 0.2, seed=0)
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    m2 = SMOSolver(SVMConfig(**dict(kw, selection="wss2",
-                                    heuristic="single5pc"))).fit(X2, y2)
-    torch.cuda.synchronize()
-    wss2_launches = dict(cuda.launches)
-    s2 = m2.stats
-    gap2 = eq9_gap(torch, X2, y2, m2.alpha, 32.0, inv, dev)
-    print(f"[wss2] a9a scale 0.2 n={X2.shape[0]} single5pc: "
-          f"iterations={s2.iterations} reconstructions={s2.reconstructions} "
-          f"rechecks={s2.eq9_rechecks} converged={s2.converged} "
-          f"eq9_gap_all={gap2:.3e} (<= 2eps {2e-3:.0e}) SVs={s2.n_sv} "
-          f"wall={time.perf_counter() - t0:.1f} s "
-          f"rbf_rows2 launches={wss2_launches['rbf_rows2']}", flush=True)
-    if wss2_launches["rbf_rows2"] <= 0:
-        fail("wss2 fit did not launch rbf_rows2")
-    if not (s2.converged and gap2 <= 2e-3):
-        fail(f"wss2 fit: converged={s2.converged}, gap {gap2:.3e}")
-
-    # ---- 5. serving ------------------------------------------------------
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    pred = model.predict(Xt)
-    torch.cuda.synchronize()
-    t_pred = time.perf_counter() - t0
-    serve_launches = dict(cuda.launches)
-    scores = model.decision_function(Xt)
-    host = model.decision_function_host(Xt)
-    serr = float(np.abs(scores - host).max() / np.abs(host).max())
-    acc = float((pred == yt).mean())
-    print(f"[serve] {Xt.shape[0]} test rows, {model.stats.n_sv} SVs: "
-          f"accuracy={acc:.4f} predict wall={t_pred:.3f} s "
-          f"max|score-host|/max|host|={serr:.3e} (<= 1e-4) "
-          f"max|score|={np.abs(scores).max():.3f} (> 0.5) "
-          f"rbf_accumulate launches={serve_launches['rbf_accumulate']}",
-          flush=True)
-    if serve_launches["rbf_accumulate"] <= 0:
-        fail("predict did not launch rbf_accumulate")
-    if not (serr <= 1e-4 and np.abs(scores).max() > 0.5):
-        fail("serving scores disagree with the host loop or are degenerate")
-    eng = model.serve_engine()
-    per_bucket = {}
-    b = eng.min_bucket
-    while b <= eng.max_bucket:
-        zb = torch.as_tensor(np.resize(Xt, (b, d)), device=dev)
-        per_bucket[b] = time_ms(lambda: eng.score_bucket(zb),
-                                reps=20) * 1e3 / b
-        b *= 2
-    print("[serve] device us/query by bucket: " + ", ".join(
-        f"{b}: {v:.3f}" for b, v in per_bucket.items()), flush=True)
-
-    # ---- 6. kernels line ---------------------------------------------------
-    launches = {"gamma_update": train_launches["gamma_update"],
-                "rbf_rows2": wss2_launches["rbf_rows2"],
-                "rbf_accumulate": serve_launches["rbf_accumulate"]}
+    phase("report")
     record = []
     for name, k in kernels.items():
         record.append(dict(name=name, **{key: k[key] for key in (
             "route", "source", "replaces")}, launches=launches[name],
             **{key: k[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "matmul_ms", "shape")}, card=card))
+                "library_ms")},
+            **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
+                                       "shape")
+               if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(card, flush=True)
@@ -336,5 +731,18 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def run() -> None:
+    """``main`` with every failure reported on standard output: the phase
+    and the traceback, then a non-zero exit (nothing is caught and carried
+    on)."""
+    try:
+        main()
+    except Exception:
+        print(f"FAIL [{PHASE}]: uncaught exception", flush=True)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        sys.exit(1)
+
+
 if __name__ == "__main__":
-    main()
+    run()

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Device busy/idle share of the port's SMO training loop on one GPU.
 
-    python3 scripts/profile_torch_train.py [--scale 1.0] [--iters 1024]
+    python3 scripts/profile_torch_train.py [--dataset a9a|w7a] [--scale 1.0]
+                                           [--iters 1024]
 
-Trains the a9a stand-in (C=32, sigma2=64, multi5pc, wss1; by default the
-full-size one, n=32,561) with ``repro_torch`` on ``cuda`` twice: once
+Trains the a9a stand-in (dense) or the w7a stand-in (fed as CSR,
+``format='ell'``) — C=32, sigma2=64, multi5pc, wss1; by default the
+full-size set (a9a n=32,561, w7a n=24,692) — with ``repro_torch`` on
+``cuda`` twice: once
 unprofiled to build the kernels and warm up, then under ``torch.profiler``
 for the first ``--iters`` SMO iterations (the full buffer, before any
 compaction).
@@ -27,6 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", choices=("a9a", "w7a"), default="a9a")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--iters", type=int, default=1024)
     args = ap.parse_args()
@@ -37,11 +41,13 @@ def main() -> None:
         print("FAIL: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
     from repro_torch.core import SVMConfig, SMOSolver
-    from repro_torch.data import make
+    from repro_torch.data import make, to_csr
 
-    X, y, _, _ = make("a9a", args.scale, seed=0)
+    X, y, _, _ = make(args.dataset, args.scale, seed=0)
     kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", device="cuda",
               max_iters=args.iters)
+    if args.dataset == "w7a":                # the sparse path: CSR in
+        X, kw = to_csr(X), dict(kw, format="ell")
     SMOSolver(SVMConfig(**kw)).fit(X, y)          # build + warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -58,7 +64,7 @@ def main() -> None:
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
     iters = m.stats.iterations
-    print(f"[profile] {torch.cuda.get_device_name(0)}: a9a scale "
+    print(f"[profile] {torch.cuda.get_device_name(0)}: {args.dataset} scale "
           f"{args.scale} n={X.shape[0]}, {iters} SMO iterations in "
           f"{wall:.3f} s ({1e6 * wall / max(iters, 1):.1f} us/iter, "
           f"profiler on)")
@@ -70,7 +76,8 @@ def main() -> None:
     for name, (cnt, us) in top:
         print(f"[profile]   {us / 1e3:9.2f} ms  {cnt:7d} x  {name[:90]}")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "scale": args.scale,
+        "device": torch.cuda.get_device_name(0), "dataset": args.dataset,
+        "scale": args.scale,
         "iterations": iters, "wall_s": wall, "device_busy_ms": busy_us / 1e3,
         "busy_share": busy_us / (wall * 1e6), "kernel_launches": len(kernels),
         "launches_per_iter": len(kernels) / max(iters, 1),

@@ -48,18 +48,42 @@ def model(sv_x: np.ndarray, sv_coef: np.ndarray, beta: float,
                     float(beta), np.asarray(alpha, np.float32), FitStats())
 
 
+def ell_model(sv_vals: np.ndarray, sv_cols: np.ndarray, n_features: int,
+              sv_coef: np.ndarray, beta: float, alpha: np.ndarray,
+              config_fields: dict, device: str = "cuda") -> SVMModel:
+    """A port ``SVMModel`` scoring a reference ELL model's support set
+    (its ``sv_vals`` / ``sv_cols`` / ``n_features``)."""
+    return SVMModel(config(config_fields, device), None,
+                    np.ascontiguousarray(sv_coef, np.float32).reshape(-1),
+                    float(beta), np.asarray(alpha, np.float32), FitStats(),
+                    sv_vals=np.ascontiguousarray(sv_vals, np.float32),
+                    sv_cols=np.ascontiguousarray(sv_cols, np.int32),
+                    n_features=int(n_features))
+
+
 def solver_state(alpha: np.ndarray, gamma: np.ndarray, active: np.ndarray,
-                 X: np.ndarray, y: np.ndarray, sq_norms: np.ndarray,
-                 device: str = "cuda", gids: "np.ndarray | None" = None):
-    """The port's ``(DenseData, y, SMOState)`` for a reference buffer: its
-    alpha/gamma/active arrays, rows X, labels y and squared norms (taken
-    as given, not recomputed, so both packages see the same bits)."""
+                 X, y: np.ndarray, sq_norms: np.ndarray,
+                 device: str = "cuda", gids: "np.ndarray | None" = None,
+                 n_features: "int | None" = None):
+    """The port's ``(data, y, SMOState)`` for a reference buffer: its
+    alpha/gamma/active arrays, rows, labels y and squared norms (taken as
+    given, not recomputed, so both packages see the same bits). ``X`` is
+    the dense (M, d) rows (a ``DenseData`` buffer) or an ELL ``(vals,
+    cols)`` pair with ``n_features`` = d (an ``ELLData`` buffer)."""
     dev = devmod.resolve(device)
     # copies: the runner updates alpha in place, the caller's arrays stay
     put = lambda a, dt: torch.tensor(np.asarray(a, dt), device=dev)
     g = None if gids is None else put(gids, np.int64)
-    data = dataplane.DenseData(put(X, np.float32), put(sq_norms, np.float32),
-                               g)
+    if isinstance(X, (tuple, list)):
+        if n_features is None:
+            raise ValueError("an ELL (vals, cols) buffer needs n_features")
+        vals, cols = X
+        data = dataplane.ELLData(put(vals, np.float32), put(cols, np.int32),
+                                 put(sq_norms, np.float32), int(n_features),
+                                 g)
+    else:
+        data = dataplane.DenseData(put(X, np.float32),
+                                   put(sq_norms, np.float32), g)
     state = smo.init_state(put(alpha, np.float32), put(gamma, np.float32),
                            put(active, bool))
     return data, put(y, np.float32), state

@@ -1,5 +1,5 @@
-"""Core of the port: parallel SMO with adaptive shrinking, dense storage,
-one device. ``from repro_torch.core import train`` is the library
+"""Core of the port: parallel SMO with adaptive shrinking, dense or block-ELL
+storage, one device. ``from repro_torch.core import train`` is the library
 boundary."""
 from repro_torch.core.heuristics import (TABLE3, ShrinkHeuristic,
                                          get as get_heuristic)

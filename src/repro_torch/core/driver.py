@@ -1,5 +1,5 @@
 """Epoch driver — the paper's Algorithm 5 control flow (twin of
-``repro.core.driver``; single device, dense storage).
+``repro.core.driver``; single device, dense or block-ELL storage).
 
 Phases (faithful to Alg. 5):
 
@@ -36,6 +36,13 @@ un-shrink growth go through the device-resident full-set mirror
 (``mirror='auto'|'device'``) or the host-streaming oracle (``'host'``),
 bitwise equal as well.
 
+On block-ELL buffers the lane budget K is adaptive: every buffer build
+takes the bucketed max extent of exactly its rows
+(``_buffer_geometry``), and a device compaction takes it from the
+per-shard surviving extents the epoch summary carries (``shard_ext``), so
+eliminating samples shrinks both dimensions of the gamma pass
+(``FitStats.buffer_K`` / ``shard_K`` record the trajectory).
+
 Checkpoints, elastic resume, the straggler watchdog, chaos hooks and the
 row cache are later slices of the port; ``SVMConfig`` refuses them.
 """
@@ -50,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dataplane, mirror, smo
+from repro_torch.data import sparse as spfmt
 
 _P = 1   # shards a buffer is dealt over: one device (the dataplane layouts
          # take p, which the multi-GPU slice will set to the device count)
@@ -76,6 +84,10 @@ class FitStats:
     stalled: bool = False
     final_gap: float = 0.0
     buffer_sizes: list = dataclasses.field(default_factory=list)
+    buffer_K: list = dataclasses.field(default_factory=list)
+    # per-buffer ELL lane budget (the adaptive K trajectory); empty for dense
+    shard_K: list = dataclasses.field(default_factory=list)
+    # per-buffer tuple of each shard's lane-rounded K (one shard here)
     mirror: str = ""             # resolved full-set mirror mode of this fit
 
 
@@ -105,14 +117,16 @@ def _scatter_full(alpha_d, gamma_d, alpha_buf, gamma_buf, gids):
 
 
 def _compact_step(data, yb, state: smo.SMOState, alpha_d, gamma_d,
-                  n_active: int, interval: int, p: int, m_per: int):
+                  n_active: int, interval: int, p: int, m_per: int,
+                  K_new: "int | None" = None):
     """One device-side physical compaction: master writeback for the
-    outgoing buffer, the balanced gather plan, the row/vector gathers and
-    the fresh state (step counters carried)."""
+    outgoing buffer, the balanced gather plan, the row/vector gathers (ELL
+    rows truncated to ``K_new``) and the fresh state (step counters
+    carried)."""
     alpha_d, gamma_d = _scatter_full(alpha_d, gamma_d, state.alpha,
                                      state.gamma, data.gids)
     src, valid = dataplane.compact_plan(state.active, n_active, p, m_per)
-    data2 = dataplane.gather_rows(data, src, valid)
+    data2 = dataplane.gather_rows(data, src, valid, K_new)
     yb2 = torch.where(valid, yb[src], 1.0)     # padding: y=+1, alpha=0 -> I1
     alpha2 = torch.where(valid, state.alpha[src], 0.0)
     gamma2 = torch.where(valid, state.gamma[src], float("inf"))
@@ -138,6 +152,7 @@ class EpochDriver:
         self.idx: Optional[np.ndarray] = None   # host copy of data.gids;
                                                 # None = stale after a
                                                 # device compaction
+        self._last_shard_K: tuple = ()
 
     # -- buffer plumbing ---------------------------------------------------
     def _make_buffer(self, y, alpha, gamma, idx):
@@ -147,9 +162,9 @@ class EpochDriver:
         sv = self.s
         store = sv._store
         p = _P
-        m_per = mirror.full_m_per(idx.size, p, self.cfg.min_buffer)
+        m_per, K_buf = self._buffer_geometry(idx, p)
         m = m_per * p
-        buf = store.alloc(m)
+        buf = store.alloc(m, K_buf)
         yb = np.ones((m,), np.float32)          # padding: y=+1, alpha=0 -> I1
         ab = np.zeros((m,), np.float32)
         gb = np.full((m,), np.inf, np.float32)  # padding gamma never selected
@@ -168,18 +183,38 @@ class EpochDriver:
         state = smo.init_state(sv._put(ab), sv._put(gb), sv._put(valid))
         return data, sv._put(yb), state, idx_buf
 
+    def _buffer_geometry(self, idx: np.ndarray, p: int):
+        """The one buffer-shape rule: per-shard slots (pow2 bucketed) and,
+        for ELL stores, the adaptive lane budget of exactly ``idx`` (its
+        bucketed max extent, capped at the store budget; the store budget
+        itself with ``ell_adaptive=False``). Records each shard's
+        lane-rounded K for ``FitStats.shard_K``."""
+        cfg, store = self.cfg, self.s._store
+        m_per = mirror.full_m_per(idx.size, p, cfg.min_buffer)
+        K_buf = None
+        if store.fmt == "ell":
+            K_buf = (spfmt.bucket_lanes(store.buffer_K(idx), cfg.ell_lane,
+                                        cap=store.K)
+                     if cfg.ell_adaptive else store.K)
+            self._last_shard_K = tuple(
+                store.buffer_K(sub)
+                for _, sub in dataplane.deal(idx, p, m_per))
+        else:
+            self._last_shard_K = ()
+        return m_per, K_buf
+
     def _mirror_build(self, rows: np.ndarray):
         """Buffer build for global ``rows`` as a device gather from the
         mirror and the (n,) masters — same geometry, layout and bits as
         :meth:`_make_buffer`; only the keep mask goes up."""
         sv, mir = self.s, self.mirror
         p = mir.p
-        m_per = mirror.full_m_per(rows.size, p, self.cfg.min_buffer)
+        m_per, K_new = self._buffer_geometry(rows, p)
         keep = np.zeros((mir.idx.size,), bool)
         keep[mir.pos_of[rows]] = True
         data, yb, state = mirror.grow_step(
             mir.data, mir.y, self.alpha_d, self.gamma_d, sv._put(keep),
-            rows.size, p, m_per)
+            rows.size, p, m_per, K_new)
         idx_buf, _ = dataplane.full_layout(rows, p, m_per)
         return data, yb, state, idx_buf
 
@@ -197,6 +232,14 @@ class EpochDriver:
         if self.idx is None:
             self.idx = self.data.gids.cpu().numpy().astype(np.int64)
         return self.idx
+
+    def _note_buffer(self):
+        """Record the buffer's geometry: its size, and on ELL its lane
+        budget and per-shard K."""
+        self.stats.buffer_sizes.append(self.data.m)
+        if isinstance(self.data, dataplane.ELLData):
+            self.stats.buffer_K.append(self.data.K)
+            self.stats.shard_K.append(self._last_shard_K)
 
     # -- writeback ---------------------------------------------------------
     def _writeback_masters(self):
@@ -258,16 +301,28 @@ class EpochDriver:
         return self.stats.converged
 
     # -- physical compaction ----------------------------------------------
-    def _compact(self, n_active: int, p: int, m_per: int):
+    def _compact(self, n_active: int, p: int, m_per: int,
+                 shard_ext: tuple):
         """One physical compaction — device backend by default, host
-        backend (store rebuild) as the parity oracle."""
+        backend (store rebuild) as the parity oracle. On ELL buffers
+        ``shard_ext`` is the (p,) per-shard surviving extents the epoch
+        summary carried; their bucketed max is the new lane budget,
+        exactly as the host rebuild buckets ``store.buffer_K``."""
         cfg = self.cfg
         t0 = time.perf_counter()
         if cfg.compact_backend == "device":
+            K_new = None
+            if isinstance(self.data, dataplane.ELLData):
+                store = self.s._store
+                self._last_shard_K = tuple(
+                    spfmt.round_lanes(int(e), store.lane) for e in shard_ext)
+                K_new = (spfmt.bucket_lanes(max(shard_ext), store.lane,
+                                            cap=store.K)
+                         if cfg.ell_adaptive else self.data.K)
             (self.data, self.yb, self.state, self.alpha_d,
              self.gamma_d) = _compact_step(
                 self.data, self.yb, self.state, self.alpha_d, self.gamma_d,
-                n_active, self._interval, p, m_per)
+                n_active, self._interval, p, m_per, K_new)
             self.idx = None
         else:
             self._writeback()
@@ -284,25 +339,31 @@ class EpochDriver:
             torch.cuda.synchronize(self.state.alpha.device)
         self.stats.compactions += 1
         self.stats.compact_time += time.perf_counter() - t0
-        self.stats.buffer_sizes.append(self.data.m)
+        self._note_buffer()
 
     # -- main --------------------------------------------------------------
     def fit(self, X, y: np.ndarray):
-        """Run Alg. 5 on dense ``(X, y)``; returns ``(alpha, gamma, y,
-        stats)`` (host numpy) for the solver's finalize."""
+        """Run Alg. 5 on ``(X, y)``; returns ``(alpha, gamma, y, stats)``
+        (host numpy) for the solver's finalize. ``X`` is a dense (n, d)
+        matrix or, with ``format='ell'``, CSR input, which streams CSR->ELL
+        buffers and never allocates a dense X on the host."""
         cfg, h, sv = self.cfg, self.h, self.s
         if cfg.compact_backend not in ("device", "host"):
             raise ValueError(
                 f"unknown compact_backend {cfg.compact_backend!r} "
                 "(want 'device' or 'host')")
         t0 = time.perf_counter()
-        X = np.ascontiguousarray(X, np.float32)
+        if spfmt.is_csr_like(X):
+            X = spfmt.as_csr(X)      # normalizes scipy-like / tuple forms
+        else:
+            X = np.ascontiguousarray(X, np.float32)
         y = np.ascontiguousarray(y, np.float32)
         n = int(X.shape[0])
         if not set(np.unique(y).tolist()) <= {-1.0, 1.0}:
             raise ValueError("labels must be +-1")
-        sv._store = dataplane.make_store(X, cfg.format)
-        del X
+        sv._store = dataplane.make_store(X, cfg.format, cfg.ell_K,
+                                         cfg.ell_lane)
+        del X                                  # train from the store only
 
         self.y = y
         self.alpha = np.zeros((n,), np.float32)
@@ -320,10 +381,11 @@ class EpochDriver:
         runner = sv._runner(cfg, interval if shrink_on else 0)
         p = _P
 
-        mode, mir_m_per, _ = mirror.resolve(cfg, sv._store, p, shrink_on,
-                                            sv.device)
+        mode, mir_m_per, mir_K, _ = mirror.resolve(cfg, sv._store, p,
+                                                   shrink_on, sv.device)
         stats.mirror = mode
-        self.mirror = (mirror.build(sv._store, y, sv._put, p, mir_m_per)
+        self.mirror = (mirror.build(sv._store, y, sv._put, p, mir_m_per,
+                                    mir_K)
                        if mode == "device" else None)
         if self.mirror is not None:
             self._refresh_masters()     # the mirror build gathers alpha/gamma
@@ -331,7 +393,7 @@ class EpochDriver:
 
         self.data, self.yb, self.state, self.idx = self._build_buffer(
             np.arange(n))
-        stats.buffer_sizes.append(self.data.m)
+        self._note_buffer()
         if shrink_on:
             self.state = self.state.replace(
                 next_shrink=self.state.step + interval)
@@ -362,7 +424,7 @@ class EpochDriver:
                 if summ.need_compact:
                     m_per = mirror.full_m_per(summ.n_active, p,
                                               cfg.min_buffer)
-                    self._compact(summ.n_active, p, m_per)
+                    self._compact(summ.n_active, p, m_per, summ.shard_ext)
             stalled = stalled or summ.stalled
             stats.shrink_events = summ.n_shrinks
             if self.mirror is not None:
@@ -405,7 +467,7 @@ class EpochDriver:
             step_t, nshr_t = self.state.step, self.state.n_shrinks
             self.data, self.yb, self.state, self.idx = self._build_buffer(
                 np.arange(n))
-            stats.buffer_sizes.append(self.data.m)
+            self._note_buffer()
             if not shrink_on or h.policy == "single":
                 shrink_on = False
                 runner = sv._runner(cfg, 0)

@@ -1,15 +1,19 @@
 """Inference plane: batched, low-latency SVM scoring on one device (twin of
-``repro.core.serve``; dense SVs, fp32).
+``repro.core.serve``; dense or block-ELL SVs, fp32).
 
 A :class:`ServeEngine` holds a trained model's support vectors resident on
-the device, pads every request to a power-of-two microbatch bucket
-(``min_bucket..max_bucket``; large requests stream ``max_bucket`` chunks)
-and scores each bucket with ONE ``provider.accumulate`` call —
-f(Z) = K(Z, SV) @ (alpha*y) - beta, which on the card is one launch of the
-hand-written ``rbf_accumulate`` kernel, never forming the (B, M) kernel
-matrix. The SV set is padded to a multiple of 128 rows with coef-0 rows, an
-exact pad. bf16 SV storage, CSR queries and sharding over several cards
-are later slices of the port.
+the device (dense rows, or ELL (vals, cols) rows at the model's own lane
+budget), takes dense or CSR query batches, pads every request to a
+power-of-two microbatch bucket (``min_bucket..max_bucket``; large requests
+stream ``max_bucket`` chunks) and scores each bucket with ONE
+``provider.accumulate`` call — f(Z) = K(Z, SV) @ (alpha*y) - beta, which
+on the card is one launch of the hand-written ``rbf_accumulate`` or
+``ell_rbf_accumulate`` kernel, never forming the (B, M) kernel matrix. CSR
+queries are densified per bucket on the host (queries travel dense into
+the kernels either way, so the ingest format never changes a score). The
+SV set is padded to a multiple of 128 rows with coef-0 rows, an exact pad.
+bf16 SV storage and sharding over several cards are later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -18,10 +22,21 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.core import dataplane, kernel_fns, smo, util
+from repro_torch.data import sparse as sp
 
 __all__ = ["ServeEngine"]
 
 _LANE = 128          # SV padding multiple
+
+
+def _csr_dense_block(csr: "sp.CSRMatrix", lo: int, hi: int,
+                     out: np.ndarray) -> None:
+    """Densify CSR rows [lo, hi) into the zeroed prefix of ``out``."""
+    base = int(csr.indptr[lo])
+    idx = np.arange(base, int(csr.indptr[hi]))
+    counts = np.diff(csr.indptr[lo: hi + 1]).astype(np.int64)
+    rows = np.repeat(np.arange(hi - lo), counts)
+    out[rows, csr.indices[idx]] = csr.data[idx]
 
 
 class ServeEngine:
@@ -50,21 +65,38 @@ class ServeEngine:
         self.min_bucket = int(min_bucket)
         self.max_bucket = int(max_bucket)
         self.beta = smo.f32(model.beta)
-        self._provider = kernel_fns.make_provider(cfg.kernel, True,
+        self.fmt = "ell" if getattr(model, "sv_vals", None) is not None \
+            else "dense"
+        self._provider = kernel_fns.make_provider(cfg.kernel, self.fmt, True,
                                                   cfg.inv_2s2)
         coef = np.asarray(model.sv_coef, np.float32).reshape(-1)
-        sv = np.asarray(model.sv_x, np.float32)
         self.n_sv = int(coef.shape[0])
-        self.n_features = int(sv.shape[1])
         self.m_pad = _LANE * max(1, -(-self.n_sv // _LANE))
-        x_p = np.zeros((self.m_pad, self.n_features), np.float32)
-        x_p[: self.n_sv] = sv
         coef_p = np.zeros((self.m_pad,), np.float32)
         coef_p[: self.n_sv] = coef
-        put = lambda a: torch.as_tensor(a, device=self.device)
-        self._data = dataplane.DenseData(put(x_p),
-                                         put((x_p * x_p).sum(axis=1)))
+        put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                        device=self.device)
+        if self.fmt == "dense":
+            sv = np.asarray(model.sv_x, np.float32)
+            self.n_features = int(sv.shape[1])
+            self.K = 0
+            x_p = np.zeros((self.m_pad, self.n_features), np.float32)
+            x_p[: self.n_sv] = sv
+            self._data = dataplane.DenseData(put(x_p),
+                                             put((x_p * x_p).sum(axis=1)))
+        else:
+            vals = np.asarray(model.sv_vals, np.float32)
+            self.n_features = int(model.n_features)
+            self.K = int(vals.shape[1])
+            v_p = np.zeros((self.m_pad, self.K), np.float32)
+            c_p = np.zeros((self.m_pad, self.K), np.int32)
+            v_p[: self.n_sv] = vals
+            c_p[: self.n_sv] = np.asarray(model.sv_cols, np.int32)
+            self._data = dataplane.ELLData(put(v_p), put(c_p),
+                                           put((v_p * v_p).sum(axis=1)),
+                                           self.n_features)
         self._coef = put(coef_p)
+        self._buckets: set = set()
 
     def _bucket_of(self, remaining: int) -> int:
         return util.bucket_pow2(min(remaining, self.max_bucket),
@@ -73,16 +105,23 @@ class ServeEngine:
     def score_bucket(self, zb: torch.Tensor) -> torch.Tensor:
         """Scores of one padded (b, d) query bucket already on the device —
         one ``accumulate`` call."""
+        self._buckets.add(int(zb.shape[0]))
         return self._provider.accumulate(self._data, zb, self._coef) \
             - self.beta
 
     def decision_function(self, Z) -> np.ndarray:
-        """Scores for a dense (n, d) batch: chopped into pow2 buckets, one
-        device call per bucket."""
-        Z = np.asarray(Z, np.float32)
-        if Z.ndim == 1:
-            Z = Z[None, :]
-        n, d = Z.shape
+        """Scores for a dense (n, d) batch or CSR-like queries (a
+        ``data.sparse.CSRMatrix``, a scipy-like csr object or a
+        ``(data, indices, indptr, shape)`` tuple): chopped into pow2
+        buckets, CSR densified per bucket, one device call per bucket."""
+        csr = sp.as_csr(Z) if sp.is_csr_like(Z) else None
+        if csr is not None:
+            n, d = csr.shape
+        else:
+            Z = np.asarray(Z, np.float32)
+            if Z.ndim == 1:
+                Z = Z[None, :]
+            n, d = Z.shape
         if d != self.n_features:
             raise ValueError(f"query dim {d} != model dim {self.n_features}")
         out = np.empty((n,), np.float32)
@@ -91,7 +130,10 @@ class ServeEngine:
             b = self._bucket_of(n - s)
             take = min(n - s, b)
             zb = np.zeros((b, d), np.float32)
-            zb[:take] = Z[s: s + take]
+            if csr is not None:
+                _csr_dense_block(csr, s, s + take, zb)
+            else:
+                zb[:take] = Z[s: s + take]
             f = self.score_bucket(torch.as_tensor(zb, device=self.device))
             out[s: s + take] = f.cpu().numpy()[:take]
             s += take
@@ -100,3 +142,18 @@ class ServeEngine:
     def predict(self, Z) -> np.ndarray:
         return np.where(self.decision_function(Z) >= 0.0, 1.0,
                         -1.0).astype(np.float32)
+
+    def memory_bytes(self) -> int:
+        """Resident SV bytes on the device (rows or (vals, cols), sq and
+        coef)."""
+        d = self._data
+        arrays = (d.X,) if self.fmt == "dense" else (d.vals, d.cols)
+        return int(sum(a.numel() * a.element_size()
+                       for a in (*arrays, d.sq_norms, self._coef)))
+
+    def describe(self) -> dict:
+        return {"fmt": self.fmt, "dtype": "float32", "shards": 1,
+                "n_sv": self.n_sv, "m_pad": self.m_pad, "K": self.K,
+                "n_features": self.n_features, "device": str(self.device),
+                "buckets": sorted(self._buckets),
+                "memory_bytes": self.memory_bytes()}

@@ -1,6 +1,6 @@
 """SMO (Keerthi Modification-2) fused-epoch inner loop with in-loop
-adaptive shrinking (twin of ``repro.core.smo``; dense storage, no row
-cache).
+adaptive shrinking (twin of ``repro.core.smo``; dense or block-ELL
+storage, no row cache).
 
 One iteration of the paper's Algorithm 1:
 
@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import kernel_fns, util
+from repro_torch.core import dataplane, kernel_fns, util
 
 _INF = float("inf")
 _TAU = 1e-12  # libsvm-style guard for non-PD pair curvature
@@ -90,12 +90,15 @@ class EpochSummary(NamedTuple):
     converged: bool    # Eq. 9 at the dispatch tolerance
     stalled: bool      # progress guard tripped
     need_compact: bool  # device-evaluated compaction predicate
+    shard_ext: tuple    # (p,) per-shard surviving ELL extents when
+                        # need_compact fired on an ELL buffer, else zeros
 
     @classmethod
     def from_tensor(cls, t: torch.Tensor) -> "EpochSummary":
         v = t.tolist()
         return cls(int(v[0]), int(v[1]), int(v[2]), int(v[3]), int(v[4]),
-                   bool(v[5]), bool(v[6]), bool(v[7]))
+                   bool(v[5]), bool(v[6]), bool(v[7]),
+                   tuple(int(e) for e in v[8:]))
 
 
 def _sets(alpha, pos, active, thr0, thr1):
@@ -183,7 +186,8 @@ def _wss2(gamma, alpha, pos, active, thr0, thr1, g_up, row_up, kdiag, k_uu):
 
 
 def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
-                      shrink_interval: int, selection: str = "wss1"):
+                      shrink_interval: int, selection: str = "wss1",
+                      fmt: str = "dense"):
     """Build the fused-epoch runner::
 
         state, summary = run_epoch(data, y, state, tol, k, chunk_iters,
@@ -193,8 +197,9 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
     each — a segment's iterations stop (become no-ops) on Eq. 9
     convergence over the active set, the stall guard or the iteration
     limit, and the epoch's segments stop on any hard exit or the moment the
-    compaction predicate fires. ``summary`` is an (8,) int64 device tensor
-    (:meth:`EpochSummary.from_tensor` reads it in one sync).
+    compaction predicate fires. ``summary`` is a (9,) int64 device tensor
+    (:meth:`EpochSummary.from_tensor` reads it in one sync); its last
+    entry is the (p = 1,) ``shard_ext`` lane.
 
     ``state.alpha`` is updated in place (the reference donates the state),
     which saves an (M,) copy per iteration; the other fields are replaced.
@@ -204,13 +209,19 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
     min(shrink_interval, n_active) further iterations (Sec. 3.3.1).
     ``selection``: 'wss1' = maximal violating pair (Eq. 8), with the fused
     ``gamma_update`` kernel for Eq. 6; 'wss2' = second-order pair
-    selection, two single-row passes per iteration through ``rbf_rows2``.
+    selection, two single-row passes per iteration through ``rows2``.
+
+    ``fmt`` is the buffer's storage: 'dense' (``DenseData``) or 'ell'
+    (``ELLData``, the paper's sparse storage, Sec. 2.2). Working-set rows
+    travel dense either way (``data.dense_rows``); the M-row passes stay in
+    the buffer's format, through the provider of (kernel, fmt) — on ELL
+    the fused ``ell_gamma_update`` (wss1) and ``ell_kernel_rows2`` (wss2).
     """
     if selection not in ("wss1", "wss2"):
         raise ValueError(f"unknown selection {selection!r}")
     row1 = kernel_fns.get_row(kernel)
     kself = kernel_fns.self_kernel(kernel)
-    provider = kernel_fns.make_provider(kernel, True, inv_2s2)
+    provider = kernel_fns.make_provider(kernel, fmt, True, inv_2s2)
     thr0, thr1 = bounds(C)
     Cf = f32(C)
 
@@ -333,10 +344,22 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
             n_act = torch.where(live, n_seg, n_act)
             segs = segs + live
             done = done | hard | nc
-        summary = torch.stack([s.step, segs, n_act, min_act, s.n_shrinks,
-                               s.converged.to(torch.int64),
-                               s.stalled.to(torch.int64),
-                               need_c.to(torch.int64)])
+        if fmt == "ell" and shrink_interval > 0:
+            # (p,) surviving extents ride the summary, so an ELL compaction
+            # needs no extra readback. The reference computes them under a
+            # lax.cond on need_compact; eager PyTorch cannot branch on a
+            # device flag without a sync, so they are computed once per
+            # dispatch and masked — the same values.
+            shard_ext = torch.where(
+                need_c, dataplane.ell_shard_extents_dyn(
+                    data.vals, s.active, n_act, 1), 0)
+        else:
+            shard_ext = torch.zeros((1,), dtype=torch.int64, device=dev)
+        summary = torch.cat([
+            torch.stack([s.step, segs, n_act, min_act, s.n_shrinks,
+                         s.converged.to(torch.int64),
+                         s.stalled.to(torch.int64),
+                         need_c.to(torch.int64)]), shard_ext])
         return s, summary
 
     return run_epoch

@@ -1,7 +1,7 @@
 """Synthetic stand-ins for the paper's seven evaluation datasets (copy of
-``repro.data.synthetic``: ``SPECS``, ``DatasetSpec``, ``make`` and the
-generators; outputs are byte-equal to the reference for the same
-(spec, scale, seed) — crc32 seeding).
+``repro.data.synthetic``: ``SPECS``, ``DatasetSpec``, ``make``,
+``make_sparse``, ``density`` and the generators; outputs are byte-equal to
+the reference for the same (spec, scale, seed) — crc32 seeding).
 
 The public datasets (Table 2 of the paper) are replaced by generators matched on the axes that drive SMO/shrinking
 behaviour: N, d, sparsity/density, feature type (binary categorical vs dense
@@ -192,3 +192,47 @@ def make(spec: "DatasetSpec | str", scale: float = 1.0, seed: int = 0):
         else:
             y[: n_tr // 2] = -y[0]
     return X[:n_tr], y[:n_tr], X[n_tr:], y[n_tr:]
+
+
+def density(X: np.ndarray) -> float:
+    return float(np.count_nonzero(X)) / X.size
+
+
+def make_sparse(n: int, d: int, density: float, seed: int = 0,
+                noise: float = 0.3, label_noise: float = 0.02,
+                margin: float = 0.0):
+    """Sparse continuous-feature dataset with *exact* controllable density.
+
+    Stand-in for the paper's large sparse workloads (rcv1/webspam class:
+    text n-gram features, density well under 1%). Every row gets exactly
+    ``round(density * d)`` nonzero features at uniform-random columns with
+    log-normal-ish magnitudes; labels come from a sparse linear teacher so
+    the SV fraction stays moderate. ``margin`` in [0, 1) discards that
+    fraction of borderline samples (closest to the teacher's boundary),
+    which lowers the SV fraction — the quantity shrinking heuristics key
+    on. Returns (X, y) with X dense (convert via ``repro_torch.data.to_ell`` /
+    ``format='ell'`` for sparse storage).
+    """
+    rng = np.random.default_rng(seed)
+    n_gen = int(np.ceil(n / max(1.0 - margin, 1e-6)))
+    nnz = max(1, int(round(density * d)))
+    # unique columns per row: argpartition of random keys (vectorized)
+    keys = rng.random((n_gen, d))
+    cols = np.argpartition(keys, nnz - 1, axis=1)[:, :nnz]
+    vals = rng.normal(size=(n_gen, nnz)).astype(np.float32) * \
+        np.exp(0.5 * rng.normal(size=(n_gen, nnz))).astype(np.float32)
+    X = np.zeros((n_gen, d), np.float32)
+    X[np.arange(n_gen)[:, None], cols] = vals
+    w = rng.normal(size=d) * (rng.random(d) < 0.5)
+    score = X @ w + noise * rng.normal(size=n_gen)
+    score -= np.median(score)
+    if margin > 0.0:
+        keep = np.argsort(-np.abs(score))[:n]    # widest-margin samples
+        keep = keep[rng.permutation(keep.size)]
+        X, score = X[keep], score[keep]
+    y = np.where(score > 0, 1.0, -1.0)
+    flip = rng.random(y.size) < label_noise
+    y = np.where(flip, -y, y).astype(np.float32)
+    if np.all(y == y[0]):
+        y[: y.size // 2] = -y[0]
+    return X[:n], y[:n]

@@ -27,10 +27,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"rbf_rows": "rbf_rows.cu",
-           "rbf_accumulate": "rbf_accumulate.cu"}
+           "rbf_accumulate": "rbf_accumulate.cu",
+           "ell_rows": "ell_rows.cu",
+           "ell_accumulate": "ell_accumulate.cu"}
 KERNELS = {"gamma_update": "rbf_rows",      # kernel -> library holding it
            "rbf_rows2": "rbf_rows",
-           "rbf_accumulate": "rbf_accumulate"}
+           "rbf_accumulate": "rbf_accumulate",
+           "ell_kernel_row": "ell_rows",
+           "ell_kernel_rows2": "ell_rows",
+           "ell_gamma_update": "ell_rows",
+           "ell_rbf_accumulate": "ell_accumulate"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -127,18 +133,35 @@ def entry(kernel: str, argtypes: list):
     return f
 
 
-def check(t: torch.Tensor, what: str, shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous f32 CUDA tensor of ``shape``."""
+def check(t: torch.Tensor, what: str, shape: tuple,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (f32 by
+    default) and ``shape``."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def check_ell(vals: torch.Tensor, cols: torch.Tensor,
+              sq_norms: torch.Tensor) -> tuple:
+    """Check a block-ELL operand triple — vals (N, K) f32, cols (N, K)
+    int32, sq_norms (N,) f32, contiguous, on the card — and return
+    ``(N, K)``."""
+    if not isinstance(vals, torch.Tensor) or vals.dim() != 2:
+        raise ValueError(f"vals: expected an (N, K) tensor, got "
+                         f"{tuple(getattr(vals, 'shape', ()))}")
+    n, K = vals.shape
+    check(vals, "vals", (n, K))
+    check(cols, "cols", (n, K), torch.int32)
+    check(sq_norms, "sq_norms", (n,))
+    return n, K
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,9 +1,11 @@
-"""Launchers of the two-row RBF kernel and the serve-time RBF accumulate
-(``csrc/rbf_rows.cu``, ``csrc/rbf_accumulate.cu``; replace
-``repro.kernels.rbf_row.rbf_rows2`` / ``rbf_accumulate``).
+"""Launchers of the two-row RBF kernel and the serve-time RBF accumulates
+(``csrc/rbf_rows.cu``, ``csrc/rbf_accumulate.cu``,
+``csrc/ell_accumulate.cu``; replace ``repro.kernels.rbf_row.rbf_rows2`` /
+``rbf_accumulate`` / ``ell_rbf_accumulate``).
 
-CUDA tensors only: ``ops.kernel_rows2`` / ``ops.rbf_accumulate`` dispatch
-between these kernels and their plain versions by tensor device.
+CUDA tensors only: ``ops.kernel_rows2`` / ``ops.rbf_accumulate`` /
+``ops.ell_rbf_accumulate`` dispatch between these kernels and their plain
+versions by tensor device.
 """
 from __future__ import annotations
 
@@ -54,4 +56,30 @@ def rbf_accumulate(X: torch.Tensor, sq_norms: torch.Tensor,
         float(inv_2s2), cuda.ptr(out), m, b, d, cuda.stream(X))
     cuda.raise_on(rc, "rbf_accumulate")
     cuda.launches["rbf_accumulate"] += 1
+    return out
+
+
+_ELL_ACCUM_ARGS = [_P, _P, _P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I,
+                   _P]
+
+
+def ell_rbf_accumulate(vals: torch.Tensor, cols: torch.Tensor,
+                       sq_norms: torch.Tensor, coef: torch.Tensor,
+                       Z: torch.Tensor, inv_2s2: float) -> torch.Tensor:
+    """(B,) decision partials sum_i coef[i] * K(Z[j], x_i) over block-ELL
+    SVs (``csrc/ell_accumulate.cu``; replaces
+    ``repro.kernels.rbf_row.ell_rbf_accumulate``). vals (M, K) f32, cols
+    (M, K) int32 in [0, d), Z (B, d). Deterministic (fixed order, no
+    atomics); rows with coef 0 contribute exactly 0."""
+    m, K = cuda.check_ell(vals, cols, sq_norms)
+    b, d = Z.shape
+    cuda.check(coef, "coef", (m,))
+    cuda.check(Z, "Z", (b, d))
+    out = torch.empty((b,), dtype=torch.float32, device=vals.device)
+    rc = cuda.entry("ell_rbf_accumulate", _ELL_ACCUM_ARGS)(
+        cuda.ptr(vals), cuda.ptr(cols), cuda.ptr(sq_norms), cuda.ptr(coef),
+        cuda.ptr(Z), float(inv_2s2), cuda.ptr(out), m, K, b, d,
+        cuda.stream(vals))
+    cuda.raise_on(rc, "ell_rbf_accumulate")
+    cuda.launches["ell_rbf_accumulate"] += 1
     return out

@@ -221,8 +221,8 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("format", "ell"), ("row_cache", True), ("checkpoint_dir", "ckpt"),
-    ("resume", True), ("watchdog_threshold", 2.0), ("ell_K", 128)])
+    ("row_cache_slots", 128), ("row_cache", True), ("checkpoint_dir", "ckpt"),
+    ("resume", True), ("watchdog_threshold", 2.0), ("ckpt_retries", 5)])
 def test_later_slice_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="slice"):
         tsolver.SVMConfig(**{field: value, "device": "cpu"})
