@@ -7,9 +7,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/``, holds each kernel against its plain PyTorch version at the
-main paths' shapes, then drives the port's two main paths through the entry
-points a user calls:
+main paths' shapes, then drives the port's three main paths through the
+entry points a user calls:
 
+* LM serving: full-size ``llama3-8b`` (32 layers, bf16, random weights
+  from a seed), 4 requests of 1,024 prompt tokens
+  and 32 new tokens through ``launch.serve.generate`` (the prefill step,
+  then greedy decode against the KV cache); and the same width at 2
+  layers in fp32, where the flash prefill must agree with the plain
+  blockwise one (the reference's attention without the kernel, swapped in
+  for the gate only) and the decode-built cache with the prefill;
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
   convergence, a Single-policy wss2 fit at scale 0.2, and
   ``SVMModel.predict`` over the test rows;
@@ -21,7 +28,7 @@ points a user calls:
 
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
-just after, so the run shows that training and serving went through the
+just after, so the run shows that serving and training went through the
 kernels. Kernel times are device times with the inputs read from device
 memory (``DeviceTimer``), the condition the bytes bound assumes. Every
 phase prints its own line; a failure prints the phase and its reason (with
@@ -32,6 +39,7 @@ nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -44,6 +52,7 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, same source
+H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, same source
 
 
 PHASE = "start"
@@ -163,6 +172,7 @@ SRC_RBF_ROWS = "src/repro_torch/kernels/csrc/rbf_rows.cu"
 SRC_RBF_ACC = "src/repro_torch/kernels/csrc/rbf_accumulate.cu"
 SRC_ELL_ROWS = "src/repro_torch/kernels/csrc/ell_rows.cu"
 SRC_ELL_ACC = "src/repro_torch/kernels/csrc/ell_accumulate.cu"
+SRC_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 INV = 1.0 / (2.0 * 64.0)          # sigma2 = 64, the paper's a9a / w7a value
 
 
@@ -527,6 +537,236 @@ def check_ell_accumulate(torch, np, dev, time_ms, kernels, model,
           flush=True)
 
 
+# -- LM serving (flash attention) -------------------------------------------
+
+LM_ARCH = "llama3-8b"          # the serving CLI's default arch
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
+LM_DECODE_CHECK = 256          # prompt tokens decoded one by one at bf16
+
+
+def attn_work(B, H, Hkv, L, Dh) -> tuple:
+    """(bytes, flops) of one causal bf16 attention call: q, k, v read and
+    out written once; 4·Dh flops (two products) per (query, key) pair the
+    mask keeps, L(L+1)/2 of them per head."""
+    return 2.0 * (2 * B * H * L * Dh + 2 * B * Hkv * L * Dh), \
+        4.0 * B * H * Dh * (L * (L + 1) // 2)
+
+
+def check_attention(torch, dev, time_ms, kernels) -> None:
+    """``flash_attention`` against its plain version (``ref.flash_attention``)
+    at the llama3-8b prefill shapes (B 4, H 32, Hkv 8, Dh 128, bf16, causal;
+    L 2,048 and the serving phase's 1,024), a ragged L = 1,000, fp32 at Dh
+    128 and L 1,024, the fp32 GQA and MHA shapes of the reference's kernel
+    tests, a bf16 one and a ragged non-causal one. Tolerances: 2e-5 fp32
+    (rtol and atol); bf16 rtol 2e-2 (the reference's) with atol 2e-3, a
+    tenth of the reference's, since most causal rows at L >= 1,000 have
+    outputs of a few hundredths. Each case also prints max |err| over
+    max |want|."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(4, 32, 8, 2048, 2048, 128, bf16, True),
+             (4, 32, 8, 1024, 1024, 128, bf16, True),
+             (2, 32, 8, 1000, 1000, 128, bf16, True),
+             (1, 32, 8, 1024, 1024, 128, f32, True),
+             (1, 4, 4, 128, 128, 32, f32, True),
+             (2, 4, 2, 256, 256, 64, f32, True),
+             (1, 8, 1, 256, 256, 64, f32, True),
+             (2, 4, 2, 128, 128, 64, bf16, True),
+             (1, 2, 2, 128, 200, 32, f32, False)]
+    timed = {}
+    for B, H, Hkv, Lq, Lk, Dh, dt, causal in cases:
+        mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, k, v = mk(B, H, Lq, Dh), mk(B, Hkv, Lk, Dh), mk(B, Hkv, Lk, Dh)
+        got = ops.flash_attention(q, k, v, causal)
+        want = ref.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        rtol, atol = (2e-2, 2e-3) if dt == bf16 else (2e-5, 2e-5)
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        print(f"[check-attn] B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} Dh={Dh} "
+              f"{str(dt)[6:]} causal={causal}: max_abs_err={err:.3e}, "
+              f"of max |want| {rel_err(got, want):.3e} (rtol {rtol:g}, "
+              f"atol {atol:g})", flush=True)
+        if dt == bf16 and Dh == 128 and Lq in (2048, 1024):
+            timed[Lq] = (q, k, v, err)
+    for L, (q, k, v, err) in sorted(timed.items(), reverse=True):
+        ins = (q, k, v)
+        t_k = time_ms(lambda *a: ops.flash_attention(*a, True), ins, reps=10)
+        t_w = time_ms(lambda *a: ops.flash_attention(*a, True), ins, reps=10,
+                      cold=False)
+        t_p = time_ms(lambda *a: ref.flash_attention(*a, True), ins, reps=3)
+        t_lib = time_ms(lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True), ins, reps=20)
+        nbytes, flops = attn_work(*q.shape[:2], k.shape[1], L, q.shape[3])
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        print(f"[check-attn] flash_attention B={q.shape[0]} H={q.shape[1]} "
+              f"Hkv={k.shape[1]} L={L} Dh=128 bf16 causal: kernel "
+              f"{t_k:.3f} ms (repeated inputs {t_w:.3f}), plain {t_p:.3f} ms, "
+              f"SDPA {t_lib:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"{flops / t_k / 1e9:.1f} TFLOP/s", flush=True)
+        if L == 2048:
+            kernels["flash_attention"] = dict(
+                route="cuda", source=SRC_FLASH,
+                replaces="src/repro/kernels/flash_attention.py:72",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_lib, warm_ms=t_w,
+                shape=f"B 4 H 32 Hkv 8 L {L} Dh 128 bf16 causal",
+                serve_shape_ms=None)
+        else:
+            kernels["flash_attention"]["serve_shape_ms"] = t_k
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention swapped for the plain path the reference takes
+    without the kernel (``blockwise_attention`` at a causal L that is a
+    multiple of 512 above it, else ``ref.mha``), for the flash-vs-plain
+    gates only; restored on exit."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import common
+    kernel_path = common.attention
+
+    def plain(q, k, v, *, causal=True):
+        L = q.shape[1]
+        if causal and L == k.shape[1] and L > 512 and L % 512 == 0:
+            return common.blockwise_attention(q, k, v, 512)
+        return ref.mha(q, k, v, causal=causal)
+
+    common.attention = plain
+    try:
+        yield
+    finally:
+        common.attention = kernel_path
+
+
+def decode_built_logits(torch, model, cfg, params, prompts):
+    """Last-position logits of the cache built the reference example's way:
+    one-token decode over the whole prompt."""
+    B, L = prompts.shape
+    cache = model.init_cache(cfg, B, L, prompts.device)
+    logits = None
+    for t in range(L):
+        logits, cache = model.decode(params, cfg, cache,
+                                     {"tokens": prompts[:, t: t + 1]})
+    return logits[:, -1]
+
+
+def serve_lm(torch, dev) -> dict:
+    """The LM serving path: full ``llama3-8b`` in bf16 with the flash
+    kernel, 4 requests x (1,024 prompt + 32 new tokens) through
+    ``launch.serve.generate``; then the full width at 2 layers in fp32
+    for the flash-vs-plain and decode-vs-prefill gates."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build
+
+    phase("serve-lm")
+    cfg = configs.full_config(LM_ARCH)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in ("ln_f", "unembed", "embed"))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompts, 2)          # warm-up (cuBLAS, ...)
+    cuda.reset_launches()
+    res = serve.generate(params, cfg, prompts, LM_NEW)
+    launches = {"flash_attention": cuda.launches["flash_attention"]}
+    toks = res["tokens"]
+    steps = LM_NEW - 1
+    print(f"[serve-lm] {cfg.name} full size: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_par / 1e9:.3f} B params "
+          f"{cfg.dtype} (init {t_init:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB); "
+          f"{LM_BATCH} requests x {LM_PROMPT} prompt + {LM_NEW} new tokens: "
+          f"prefill {res['prefill_s'] * 1e3:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / res['prefill_s']:.0f} prompt tok/s), "
+          f"decode {res['decode_s'] * 1e3 / steps:.2f} ms/token-step "
+          f"({LM_BATCH * steps / res['decode_s']:.1f} tok/s), end to end "
+          f"{LM_BATCH * LM_NEW / (res['prefill_s'] + res['decode_s']):.1f} "
+          f"new tok/s; flash_attention launches="
+          f"{launches['flash_attention']} (prefill: one per layer)",
+          flush=True)
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"serving launched flash_attention "
+             f"{launches['flash_attention']} times, not once per layer "
+             f"({cfg.n_layers})")
+    if not (toks.shape == (LM_BATCH, LM_NEW) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab_size):
+        fail(f"generated ids {tuple(toks.shape)} outside [0, "
+             f"{cfg.vocab_size})")
+    batch = {"tokens": prompts}
+    flash, _ = model.forward(params, cfg, batch)
+    last = flash[:, -1].float()
+    del flash
+    if not bool(torch.isfinite(last).all()):
+        fail("prefill logits are not finite")
+    with plain_attention():
+        plain, _ = model.forward(params, cfg, batch)
+    plain_last = plain[:, -1].float()
+    del plain
+    # the decode-built cache over a prefix (1,024 full-depth steps would
+    # add ~40 s): against the prefill of the same prefix
+    pre = prompts[:, :LM_DECODE_CHECK]
+    pre_last = model.forward(params, cfg, {"tokens": pre})[0][:, -1]
+    t0 = time.perf_counter()
+    dec_last = decode_built_logits(torch, model, cfg, params, pre)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    print(f"[serve-lm] bf16 full depth (printed, not gated): last-position "
+          f"logits flash vs plain blockwise {rel_err(last, plain_last):.3e}, "
+          f"decode-built cache ({LM_DECODE_CHECK} one-token steps, "
+          f"{t_dec:.1f} s) vs prefill of the same {LM_DECODE_CHECK} tokens "
+          f"{rel_err(dec_last, pre_last):.3e} of max |logit|; greedy ids "
+          f"equal flash/plain "
+          f"{float((last.argmax(-1) == plain_last.argmax(-1)).float().mean()):.2f}"
+          f", sample {toks[0, :8].tolist()}", flush=True)
+    del params, res, last, plain_last, pre_last, dec_last
+    torch.cuda.empty_cache()
+
+    phase("serve-lm-fp32")
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device=dev).manual_seed(2))
+    cuda.reset_launches()
+    flash, _ = model.forward(params, cfg32, batch)
+    n_fa = cuda.launches["flash_attention"]
+    with plain_attention():
+        plain, _ = model.forward(params, cfg32, batch)
+    e_flash = rel_err(flash, plain)
+    last = flash[:, -1].clone()
+    del flash, plain
+    dec_last = decode_built_logits(torch, model, cfg32, params, prompts)
+    e_dec = rel_err(dec_last, last)
+    print(f"[serve-lm-fp32] {cfg.name} width, 2 layers, fp32, {LM_BATCH} x "
+          f"{LM_PROMPT} tokens: prefill logits flash vs plain blockwise "
+          f"{e_flash:.3e} of max |logit| (<= 1e-4); last-position logits "
+          f"of the decode-built cache vs prefill {e_dec:.3e} (<= 5e-3); "
+          f"flash_attention launches={n_fa}", flush=True)
+    if not (n_fa == 2 and e_flash <= 1e-4 and e_dec <= 5e-3):
+        fail(f"fp32 gates: launches {n_fa}, flash vs plain {e_flash:.3e}, "
+             f"decode vs prefill {e_dec:.3e}")
+    del params, last, dec_last
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the kernel each phase of a main path must launch: (train, wss2, serve)
 HOT = {"dense": ("gamma_update", "rbf_rows2", "rbf_accumulate"),
        "ell": ("ell_gamma_update", "ell_kernel_rows2", "ell_rbf_accumulate")}
@@ -704,8 +944,12 @@ def main() -> None:
     check_dense(torch, np, dev, time_ms, kernels)
     phase("check-ell")
     w7a_buffer = check_ell_rows(torch, np, dev, time_ms, kernels)
+    phase("check-attn")
+    check_attention(torch, dev, time_ms, kernels)
 
-    _, launches, _ = run_path(torch, np, dev, time_ms, "a9a", "dense")
+    launches = serve_lm(torch, dev)
+    _, dense_launches, _ = run_path(torch, np, dev, time_ms, "a9a", "dense")
+    launches.update(dense_launches)
     model, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a", "ell")
     launches.update(ell_launches)
     phase("check-ell")
@@ -721,7 +965,7 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
-                                       "shape")
+                                       "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where the port's LM serving time goes on one GPU.
+
+    python3 scripts/profile_torch_serve.py
+
+Builds the full config of ``chip_smoke.py``'s serving arch (``LM_ARCH``,
+random bf16 weights from a seed) with ``repro_torch`` on ``cuda``, warms
+up with one short ``launch.serve.generate``, then traces under
+``torch.profiler`` one prefill step over the smoke's ``LM_BATCH`` prompts
+of ``LM_PROMPT`` tokens (which fills the KV cache) and ``STEPS`` greedy
+decode steps. For each phase it prints the
+wall time, the summed device time of the CUDA kernels (busy share = device
+time / wall time), the kernel launches, and the kernels with the most
+device time; the last line is a JSON summary. Needs a CUDA device; exits
+non-zero without one.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+from chip_smoke import LM_ARCH, LM_BATCH, LM_PROMPT  # noqa: E402
+
+STEPS = 8                      # decode steps traced
+
+
+def _phase(torch, profile, activities, fn) -> dict:
+    """Wall time, device kernel time and launches of ``fn()`` (traced)."""
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_us = sum(v[1] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+            "busy_share": busy_us / (wall * 1e6),
+            "launches": sum(v[0] for v in by_name.values()),
+            "top": [{"name": n, "count": c, "ms": us / 1e3}
+                    for n, (c, us) in top]}
+
+
+def main() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA device", file=sys.stderr)
+        sys.exit(1)
+    from repro_torch import configs
+    from repro_torch import device as devmod
+    from repro_torch.launch import serve, train_lib
+    from repro_torch.models.api import build
+
+    dev = devmod.resolve("cuda")
+    cfg = configs.full_config(LM_ARCH)
+    model = build(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (LM_BATCH, LM_PROMPT), generator=g,
+                            device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompts, 2)            # build + warm up
+    cache = model.init_cache(cfg, LM_BATCH, LM_PROMPT + STEPS,
+                             dev)
+    prefill = train_lib.make_prefill_step(cfg)
+    step = train_lib.make_serve_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    nxt = {}
+
+    def run_prefill():
+        nxt["t"] = prefill(params, {"tokens": prompts}, cache)
+
+    def run_decode():
+        c = cache
+        for _ in range(STEPS):
+            nxt["t"], c = step(params, c, {"tokens": nxt["t"][:, None]})
+
+    out["prefill"] = _phase(torch, profile, acts, run_prefill)
+    out["decode"] = _phase(torch, profile, acts, run_decode)
+    name = torch.cuda.get_device_name(0)
+    for ph, r in out.items():
+        per = "" if ph == "prefill" else (
+            f" = {r['wall_ms'] / STEPS:.2f} ms and "
+            f"{r['launches'] / STEPS:.0f} launches per step")
+        print(f"[profile-serve] {name}: {cfg.name} {ph} (B={LM_BATCH}, "
+              f"prompt {LM_PROMPT}{'' if ph == 'prefill' else f', {STEPS} steps'}): "
+              f"wall {r['wall_ms']:.1f} ms{per}, device kernel time "
+              f"{r['device_ms']:.1f} ms = {100 * r['busy_share']:.1f}% busy, "
+              f"{r['launches']} launches (profiler on)")
+        for t in r["top"]:
+            print(f"[profile-serve]   {t['ms']:9.2f} ms  {t['count']:6d} x  "
+                  f"{t['name'][:90]}")
+    print(json.dumps({"device": name, "arch": cfg.name,
+                      "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+                      "steps": STEPS, **out}))
+
+
+if __name__ == "__main__":
+    main()

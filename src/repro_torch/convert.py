@@ -1,8 +1,9 @@
 """Carry state from the JAX reference into the port.
 
 The functions take the reference's numpy arrays (and plain config values)
-and return the port's objects, so one model or one mid-fit solver state
-can be handed to both packages. Nothing here imports the reference.
+and return the port's objects, so one SVM model, one mid-fit solver state
+or one LM's weights can be handed to both packages. Nothing here imports
+the reference.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ from repro_torch import device as devmod
 from repro_torch.core import dataplane, smo
 from repro_torch.core.driver import FitStats
 from repro_torch.core.solver import SVMConfig, SVMModel
+from repro_torch.models.api import ModelConfig
 
 # Reference config fields with no counterpart here: the port always runs
 # its kernels, on CUDA tensors (their plain versions on CPU tensors).
-_DROP = ("use_pallas",)
+_DROP = ("use_pallas", "use_flash")
 
 
 def config(fields: dict, device: str = "cuda") -> SVMConfig:
@@ -87,3 +89,38 @@ def solver_state(alpha: np.ndarray, gamma: np.ndarray, active: np.ndarray,
     state = smo.init_state(put(alpha, np.float32), put(gamma, np.float32),
                            put(active, bool))
     return data, put(y, np.float32), state
+
+
+# -- LM substrate ------------------------------------------------------------
+
+def model_config(fields: dict) -> ModelConfig:
+    """A port ``ModelConfig`` from the reference config's fields
+    (``dataclasses.asdict(ref_cfg)``): the two types agree field for
+    field. ``use_flash`` is dropped (left at its default): the port's
+    attention does not read it."""
+    return ModelConfig(**{k: v for k, v in fields.items()
+                          if k not in _DROP})
+
+
+def lm_params(tree: dict, cfg: ModelConfig, device: str = "cuda") -> dict:
+    """The port's parameter tree from the reference's, given as nested
+    dicts of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``).
+    Leaves keep their type; bf16 leaves (``ml_dtypes.bfloat16`` arrays) go
+    through float32, which holds every bf16 value exactly. Dense
+    transformer trees only (``api.build(cfg)`` must accept ``cfg``)."""
+    from repro_torch.models.api import build
+    build(cfg)                          # refuses the families not ported
+    dev = devmod.resolve(device)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32),
+                                device=dev).to(torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in t.items()}
+
+    return walk(tree)

@@ -29,14 +29,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"rbf_rows": "rbf_rows.cu",
            "rbf_accumulate": "rbf_accumulate.cu",
            "ell_rows": "ell_rows.cu",
-           "ell_accumulate": "ell_accumulate.cu"}
+           "ell_accumulate": "ell_accumulate.cu",
+           "flash_attention": "flash_attention.cu"}
 KERNELS = {"gamma_update": "rbf_rows",      # kernel -> library holding it
            "rbf_rows2": "rbf_rows",
            "rbf_accumulate": "rbf_accumulate",
            "ell_kernel_row": "ell_rows",
            "ell_kernel_rows2": "ell_rows",
            "ell_gamma_update": "ell_rows",
-           "ell_rbf_accumulate": "ell_accumulate"}
+           "ell_rbf_accumulate": "ell_accumulate",
+           "flash_attention": "flash_attention"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
-"""Public kernel wrappers (twin of ``repro.kernels.ops``): dense and
-block-ELL.
+"""Public kernel wrappers (twin of ``repro.kernels.ops``): dense,
+block-ELL and attention.
 
 Dispatch is by the device of the tensors given: a CPU tensor runs the
 plain PyTorch version (``ref``), a CUDA tensor launches the hand-written
@@ -111,3 +111,20 @@ def ell_rbf_accumulate(vals: torch.Tensor, cols: torch.Tensor,
         return ref.ell_rbf_accumulate(vals, cols, sq_norms, coef, Z, inv_2s2)
     from repro_torch.kernels import rbf_row
     return rbf_row.ell_rbf_accumulate(vals, cols, sq_norms, coef, Z, inv_2s2)
+
+
+# -- attention (twin of ``repro.kernels.ops.flash_attention``) -------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """(B, H, L, Dh) GQA attention, forward only: the CUDA kernel on the
+    card, ``ref.flash_attention`` on the CPU. Causal needs Lq == Lk on both
+    (the kernel's mask is row >= col). The reference's oracle-recompute
+    backward (``custom_vjp``) comes with the training slice."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(f"causal attention needs Lq == Lk, got "
+                         f"{q.shape[2]} and {k.shape[2]}")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal)
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention(q, k, v, causal)

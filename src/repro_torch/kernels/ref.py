@@ -114,3 +114,36 @@ def ell_rbf_accumulate(vals: torch.Tensor, cols: torch.Tensor,
         k = torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
         out += k.double() @ coef[s: s + blk].double()
     return out.float()
+
+
+# -- attention (LM serving) ------------------------------------------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool = True, scale: "float | None" = None) -> torch.Tensor:
+    """Reference attention. q: (B, Lq, H, Dh), k/v: (B, Lk, Hkv, Dh) with
+    H a multiple of Hkv (GQA). Returns (B, Lq, H, Dh). fp32 softmax; the
+    causal mask has the decode-style offset: query i attends to keys
+    <= i + (Lk - Lq)."""
+    B, Lq, H, Dh = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    group = H // Hkv
+    qg = q.reshape(B, Lq, Hkv, group, Dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if causal:
+        rows = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+        mask = rows >= torch.arange(Lk, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Lq, H, Dh).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """The flash kernel's function in its (B, H, L, Dh) layout: ``mha`` on
+    the transposed operands (twin of ``repro.kernels.ops._fa_ref``)."""
+    o = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal)
+    return o.transpose(1, 2)

@@ -1,0 +1,117 @@
+"""Shared building blocks of the port's LM substrate (twin of
+``repro.models.common``): norms, RoPE, attention (GQA), the gated MLP and
+parameter init helpers.
+
+Functional like the reference: params are plain nested dicts of tensors.
+The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
+``repeat_kv``) are identities on one device and are left out, and so is
+``scan_or_unroll`` (a Python loop over layers does its job);
+``cross_entropy`` comes with the training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------- init utils
+def _normal(generator: torch.Generator, shape, dtype: torch.dtype,
+            scale: float) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in fp32 on the generator's device, then
+    cast to ``dtype``."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, scale: "float | None" = None
+               ) -> torch.Tensor:
+    scale = scale if scale is not None else d_in ** -0.5
+    return _normal(generator, (d_in, d_out), dtype, scale)
+
+
+# ------------------------------------------------------------------ norms
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device: "torch.device | str" = "cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, L, H, Dh); positions: (B, L) or (L,)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)              # (dh/2,)
+    ang = positions[..., None].float() * freqs           # (B?, L, dh/2)
+    if ang.dim() == 2:                                   # (L, dh/2)
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_q: int = 512) -> torch.Tensor:
+    """Causal GQA attention over q blocks of ``block_q`` rows: peak logits
+    memory is (B, bq, H, Lk) instead of (B, Lq, H, Lk). Exact. Operands in
+    their own type, products accumulated in fp32 (the reference's
+    ``preferred_element_type``: the operands are upcast, which is exact),
+    the probabilities rounded to v's type before the second product, as
+    there."""
+    B, L, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = Dh ** -0.5
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(L, device=q.device)
+    out = []
+    for s in range(0, L, block_q):
+        qg = q[:, s: s + block_q].reshape(B, block_q, Hkv, g, Dh)
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), kf) * scale
+        rows = s + torch.arange(block_q, device=q.device)
+        mask = rows[:, None] >= cols[None, :]
+        logits = logits.masked_fill(~mask[None, :, None, None, :],
+                                    float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), vf)
+        out.append(o.reshape(B, block_q, H, Dh))
+    return torch.cat(out, dim=1).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention. q: (B, Lq, H, Dh), k/v: (B, Lk, Hkv, Dh). More than
+    one query row goes through ``ops.flash_attention``, which launches the
+    kernel on a CUDA tensor and runs its plain version on a CPU tensor;
+    one row through ``ref.mha``. There is no option to choose the plain
+    path on the card (the reference's ``use_flash``): ``blockwise_attention``
+    and ``ref.mha`` stay as references that tests call directly."""
+    if q.shape[1] > 1:
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal)
+        return o.transpose(1, 2)
+    from repro_torch.kernels import ref
+    return ref.mha(q, k, v, causal=causal)
+
+
+# ------------------------------------------------------------------ MLPs
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down

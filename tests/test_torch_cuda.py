@@ -282,3 +282,95 @@ def test_cuda_ell_adaptive_K_drops_and_keeps_the_contracts(cuda_device):
     assert len(set(mf.stats.buffer_K)) == 1 and min(ks) < mf.stats.buffer_K[0]
     assert mf.stats.iterations == ma.stats.iterations
     np.testing.assert_allclose(mf.alpha, ma.alpha, atol=1e-6)
+
+
+# -- flash attention (LM serving) ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_cuda_flash_attention_matches_plain(cuda_device, dh, dtype):
+    """Each head-dim instance, fp32 and bf16, GQA, at ragged lengths (not
+    a multiple of the 64-row tiles), causal and not; the launch counter
+    moves with every launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(dh)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for B, H, Hkv, Lq, Lk, causal in [(2, 8, 2, 77, 77, True),
+                                      (1, 4, 4, 200, 200, True),
+                                      (2, 4, 1, 130, 67, False)]:
+        mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(
+            dtype)
+        q, k, v = mk(B, H, Lq, dh), mk(B, Hkv, Lk, dh), mk(B, Hkv, Lk, dh)
+        before = cuda.launches["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal)
+        assert cuda.launches["flash_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(),
+                                   ref.flash_attention(q, k, v,
+                                                       causal).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_bad_tensors(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros(1, 4, 32, 64, device=cuda_device)
+    k = torch.zeros(1, 2, 32, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                           k[..., :8].contiguous())
+    with pytest.raises(ValueError, match="Lq == Lk"):
+        ops.flash_attention(q, k[:, :, :16].contiguous(),
+                            k[:, :, :16].contiguous(), causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q.cpu(), k.cpu(), k.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "pixtral-12b"])
+def test_cuda_forward_flash_equals_plain(cuda_device, arch, monkeypatch):
+    """A smoke-config forward on the card through the flash kernel equals
+    the plain attention path (fp32, ``ref.mha`` swapped in for the
+    reference), and prefill launches the kernel once per layer."""
+    from repro_torch import configs
+    from repro_torch.models import common
+    from repro_torch.models.api import build
+    cfg = configs.smoke_config(arch)
+    model = build(cfg)
+    params = model.init(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    r = np.random.default_rng(0)
+    if cfg.frontend == "embeds":
+        batch = {"embeds": torch.as_tensor(r.normal(size=(2, 40, cfg.d_model))
+                                           .astype(np.float32),
+                                           device=cuda_device)}
+    else:
+        batch = {"tokens": torch.as_tensor(
+            r.integers(0, cfg.vocab_size, (2, 40)), device=cuda_device)}
+    cuda.reset_launches()
+    got, _ = model.forward(params, cfg, batch)
+    assert cuda.launches["flash_attention"] == cfg.n_layers
+    with monkeypatch.context() as m:
+        m.setattr(common, "attention",
+                  lambda q, k, v, causal=True: ref.mha(q, k, v, causal))
+        plain, _ = model.forward(params, cfg, batch)
+    assert cuda.launches["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cli_launches_flash_attention(cuda_device):
+    """The serving CLI on the card (its default device) runs the prefill's
+    attention through the kernel, once per layer, with the arch's config
+    as it is (no option turns the kernel on)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = configs.smoke_config("llama3-8b")
+    cuda.reset_launches()
+    res = serve.main(["--arch", "llama3-8b", "--tokens", "4", "--batch", "2"])
+    assert res["tokens"].device.type == "cuda"
+    assert cuda.launches["flash_attention"] == cfg.n_layers
