@@ -214,8 +214,8 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
     print(f"[check] gamma_update m={m} d={d}: max_abs_err={err:.3e} "
           f"(rtol/atol 1e-4) kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), "
           f"plain {t_p*1e3:.2f} "
-          f"us, X@z2.T {t_mm*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})",
-          flush=True)
+          f"us, X@z2.T {t_mm*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by}; "
+          f"the kernel at {b_ms / t_k:.2f} of it)", flush=True)
 
     got = ops.kernel_rows2("rbf", Xd, sq, z2, INV)
     want = ref.kernel_rows2(Xd, sq, z2, INV)
@@ -246,7 +246,8 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
     print(f"[check] rbf_rows2 m={m} d={d}: max_abs_err={err:.3e} "
           f"(rtol 1e-5 / atol 1e-6), columns bitwise position-symmetric; "
           f"kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), plain "
-          f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
+          f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by}; the kernel "
+          f"at {b_ms / t_k:.2f} of it)", flush=True)
 
     B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
     Xs = Xd[:M].contiguous()
@@ -557,11 +558,14 @@ def check_attention(torch, dev, time_ms, kernels) -> None:
     at the llama3-8b prefill shapes (B 4, H 32, Hkv 8, Dh 128, bf16, causal;
     L 2,048 and the serving phase's 1,024), a ragged L = 1,000, fp32 at Dh
     128 and L 1,024, the fp32 GQA and MHA shapes of the reference's kernel
-    tests, a bf16 one and a ragged non-causal one. Tolerances: 2e-5 fp32
+    tests, a bf16 one and a ragged non-causal one; and for the bf16 body's
+    128-row tiles, L = 129 (one row past a tile) with GQA 4 and a
+    non-causal Lq = 130 over Lk = 300. Tolerances: 2e-5 fp32
     (rtol and atol); bf16 rtol 2e-2 (the reference's) with atol 2e-3, a
     tenth of the reference's, since most causal rows at L >= 1,000 have
     outputs of a few hundredths. Each case also prints max |err| over
-    max |want|."""
+    max |want|; the timed shapes print their TFLOP/s and the share of the
+    bound the kernel reaches."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=dev).manual_seed(7)
@@ -574,7 +578,9 @@ def check_attention(torch, dev, time_ms, kernels) -> None:
              (2, 4, 2, 256, 256, 64, f32, True),
              (1, 8, 1, 256, 256, 64, f32, True),
              (2, 4, 2, 128, 128, 64, bf16, True),
-             (1, 2, 2, 128, 200, 32, f32, False)]
+             (1, 2, 2, 128, 200, 32, f32, False),
+             (2, 32, 8, 129, 129, 128, bf16, True),
+             (2, 8, 2, 130, 300, 128, bf16, False)]
     timed = {}
     for B, H, Hkv, Lq, Lk, Dh, dt, causal in cases:
         mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
@@ -607,7 +613,8 @@ def check_attention(torch, dev, time_ms, kernels) -> None:
               f"{t_k:.3f} ms (repeated inputs {t_w:.3f}), plain {t_p:.3f} ms, "
               f"SDPA {t_lib:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-              f"{flops / t_k / 1e9:.1f} TFLOP/s", flush=True)
+              f"{flops / t_k / 1e9:.1f} TFLOP/s, {b_ms / t_k:.3f} of the "
+              f"bound", flush=True)
         if L == 2048:
             kernels["flash_attention"] = dict(
                 route="cuda", source=SRC_FLASH,

@@ -12,35 +12,70 @@
 // _gamma_kernel; wrapper repro.kernels.ops.fused_gamma_update).
 //
 // What bounds them on this card: device memory. Per launch each streams X
-// once (N*d*4 bytes: 16.1 MB at the a9a buffer N=32768, d=123) plus sq
-// (and gamma), against 4*N*d flops — about 1 flop per byte, far below the
-// H100's ~20 flop/byte fp32 ridge. Across SMO iterations the same X is read
-// every time, and at a9a size it fits the 50 MB L2.
+// once (N*d*4 bytes: 16.1 MB at the a9a buffer N=32768, d=123, 4.8 us at
+// 3.35 TB/s) plus sq (and gamma), against 4*N*d flops — about 1 flop per
+// byte, far below the H100's ~20 flop/byte fp32 ridge. Across SMO
+// iterations the same X is read every time, and at a9a size it fits the
+// 50 MB L2. At that size a launch lasts microseconds: a bare read of X
+// takes ~8.4 us back to back out of L2 on the H100 (~4.4 us in L2), and
+// what the kernel adds on top is the reduction it cannot hide behind the
+// stream — so the design keeps the loads flowing and the per-row work
+// small.
 //
-// Design: one kernel body, two epilogues. One warp per sample row. Lanes
-// stride over d, so each warp load is 32 consecutive floats of one row
-// (coalesced, no alignment needed for any d); the ragged d edge is masked
-// by the loop bound and the ragged N edge by the row guard — no padding of
-// X is required. Both queries live in shared memory (2*d floats), loaded
-// once per block. The two dot products share the X load and reduce with
-// the same fixed xor-shuffle tree, so the result is deterministic, and the
-// two columns run the *identical* instruction sequence: a row made in slot
-// 0 is bitwise equal to the same row made in slot 1. Single-row production
+// Design: one pipelined stream over X, one kernel body, two epilogues.
+// Blocks of 128 threads, up to 6 per SM (the grid is sized by occupancy),
+// walk the tiles of R rows of X, grid-strided. X is row-major and
+// contiguous, so a tile is one span of R*d floats; R is a multiple of 4 /
+// gcd(d, 4), so a tile starts 16-byte aligned whenever X does, and holds
+// ~8 KB (16 rows at d = 123; 1 to 4 rows, by d's alignment, past d = 512). Each tile lands in a
+// 2-stage ring in shared memory by cp.async (16 bytes a thread where the
+// span is aligned, 4 bytes otherwise, e.g. for a misaligned X): the next
+// tile loads while a tile is reduced. Deeper rings and larger tiles were
+// slower on the H100: when every block asks for all of its rows at once,
+// every tile lands late and the reductions run after the stream instead
+// of beside it. A row wider than half of shared memory runs a 1-stage ring
+// (copy, reduce, repeat). The prologue runs once per block, while the
+// first tile loads: the queries and |z_0|^2, |z_1|^2. At d <= 128 each lane
+// keeps its own query entries in registers, so a row costs one shared
+// load per element; wider rows read the queries through L1. No padding of
+// N or d is needed: the ragged N edge shortens the last tile, d is the
+// loop bound.
+//
+// Reduction order, fixed and the same for both columns: G lanes per row (G
+// = 8 at d <= 128, 4 rows per warp at once; G = 32, one warp per row,
+// above, so no lane sums more than d / 32 terms); lane l of a row's group
+// sums x[k] * z_j[k] over k = l, l + G, ... in that order, then the group
+// adds its lanes by the same xor-shuffle tree for both queries (and for
+// |z_j|^2). So the result is deterministic, and a row made in slot 0 is
+// bitwise equal to the same row made in slot 1: single-row production
 // (kernel_fns.row_via_rows2: rows2([z, z])[:, 0]) relies on this position
 // symmetry. Distance, exp and the FMA into gamma stay in fp32 with
 // explicitly rounded operations (no contraction differences between
 // builds).
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 128;
+constexpr int kRegZ = 128;         // widest d whose queries live in registers
+constexpr int kTileFloats = 2048;  // target tile: 8 KB
+constexpr int kMaxRows = 256;      // rows per tile at small d
+constexpr int kBlocksPerSm = 6;    // resident blocks per SM, at most
+constexpr int kMaxSmem = 231424;   // dynamic shared memory per block: sm_90's
+                                   // 227 KB less 1 KB of the runtime's
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Sum over the G lanes of a row group by the same xor tree for every group
+// and every query (all 32 lanes of the warp take part).
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = G / 2; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;  // every lane holds the same bits (fp add commutes)
+  return v;  // every lane of the group holds the same bits
 }
 
 __device__ __forceinline__ float rbf(float sq, float dot, float zn,
@@ -49,51 +84,191 @@ __device__ __forceinline__ float rbf(float sq, float dot, float zn,
   return expf(__fmul_rn(-fmaxf(d2, 0.0f), inv_2s2));
 }
 
+// The queries as one lane of a G-lane row group reads them, and |z_0|^2,
+// |z_1|^2 (n0, n1) reduced as the row dots are. G = 8 (d <= kRegZ): the
+// lane's own z_j[sub + 8i] in registers; G = 32: read through L1 from z2.
+// dots() is this lane's share of <x, z_0> and <x, z_1>: the fmaf chain over
+// k = sub, sub + G, ... in that order, for both queries.
+template <int G>
+struct Queries;
+
+template <>
+struct Queries<8> {
+  static constexpr int kN = kRegZ / 8;
+  float z0[kN], z1[kN], n0, n1;
+  __device__ __forceinline__ Queries(const float* z2, int d, int sub) {
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int k = sub + 8 * i;
+      z0[i] = k < d ? z2[k] : 0.0f;
+      z1[i] = k < d ? z2[d + k] : 0.0f;
+      if (k < d) {
+        s0 = fmaf(z0[i], z0[i], s0);
+        s1 = fmaf(z1[i], z1[i], s1);
+      }
+    }
+    n0 = group_sum<8>(s0);
+    n1 = group_sum<8>(s1);
+  }
+  __device__ __forceinline__ float2 dots(const float* x, int d,
+                                         int sub) const {
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      if (sub + 8 * i < d) {
+        const float xv = x[sub + 8 * i];
+        a0 = fmaf(xv, z0[i], a0);
+        a1 = fmaf(xv, z1[i], a1);
+      }
+    }
+    return make_float2(a0, a1);
+  }
+};
+
+template <>
+struct Queries<32> {
+  const float* __restrict__ z2;
+  float n0, n1;
+  __device__ __forceinline__ Queries(const float* z, int d, int sub) : z2(z) {
+    n0 = group_sum<32>(dots(z2, d, sub).x);
+    n1 = group_sum<32>(dots(z2 + d, d, sub).y);
+  }
+  __device__ __forceinline__ float2 dots(const float* x, int d,
+                                         int sub) const {
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll 4
+    for (int k = sub; k < d; k += 32) {
+      const float xv = x[k];
+      a0 = fmaf(xv, z2[k], a0);
+      a1 = fmaf(xv, z2[d + k], a1);
+    }
+    return make_float2(a0, a1);
+  }
+};
+
+// Start copying floats [src, src + count) into shared memory at dst (all
+// threads of the block take part; the caller commits the group).
+__device__ __forceinline__ void stage(uint32_t dst, const float* src,
+                                      int count) {
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    head = count & ~3;
+    for (int c = threadIdx.x; c < head / 4; c += kThreads)
+      sm90::cp_async16(dst + 16u * c, src + 4 * c);
+  }
+  for (int i = head + threadIdx.x; i < count; i += kThreads)
+    sm90::cp_async4(dst + 4u * i, src + i);
+}
+
 // kGamma = false: write the (N, 2) rows; true: the Eq. 6 update into out.
-template <bool kGamma>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// G lanes per row; tiles of `rows` rows, kStages (1 or 2) of them in the
+// ring, one every `stride` floats.
+template <bool kGamma, int G, int kStages>
+__global__ void __launch_bounds__(kThreads)
 rbf_rows_kernel(const float* __restrict__ X, const float* __restrict__ sq,
                 const float* __restrict__ z2, float inv_2s2,
                 const float* __restrict__ gamma,
                 const float* __restrict__ coef2, float* __restrict__ out,
-                int n, int d) {
-  extern __shared__ float zs[];  // z_0 at [0, d), z_1 at [d, 2d)
-  __shared__ float zn[2];
-  for (int k = threadIdx.x; k < 2 * d; k += blockDim.x) zs[k] = z2[k];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp < 2) {  // |z_j|^2 with the same reduction as the row dots
-    const float* z = zs + warp * d;
-    float a = 0.0f;
-    for (int k = lane; k < d; k += 32) a = fmaf(z[k], z[k], a);
-    a = warp_sum(a);
-    if (lane == 0) zn[warp] = a;
-  }
-  __syncthreads();
-  const long row = (long)blockIdx.x * kWarpsPerBlock + warp;
-  if (row >= n) return;
-  const float* x = X + row * d;
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int k = lane; k < d; k += 32) {
-    const float xv = __ldg(x + k);
-    a0 = fmaf(xv, zs[k], a0);
-    a1 = fmaf(xv, zs[d + k], a1);
-  }
-  a0 = warp_sum(a0);
-  a1 = warp_sum(a1);
-  if (lane == 0) {
-    const float s = sq[row];
-    const float k0 = rbf(s, a0, zn[0], inv_2s2);
-    const float k1 = rbf(s, a1, zn[1], inv_2s2);
-    if constexpr (kGamma) {
-      out[row] = __fadd_rn(gamma[row], __fadd_rn(__fmul_rn(k0, coef2[0]),
-                                                 __fmul_rn(k1, coef2[1])));
-    } else {
-      out[2 * row] = k0;
-      out[2 * row + 1] = k1;
+                int n, int d, int rows, int stride) {
+  extern __shared__ float4 ring_raw[];
+  float* ring = reinterpret_cast<float*>(ring_raw);
+  const int n_tiles = (n + rows - 1) / rows;
+  const int mine = static_cast<int>(blockIdx.x) < n_tiles
+                       ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1
+                       : 0;
+  auto first_row = [&](int i) {  // of this block's i-th tile
+    return static_cast<long>(blockIdx.x + static_cast<long>(i) * gridDim.x) *
+           rows;
+  };
+  auto issue = [&](int i) {  // this block's i-th tile into stage i % kStages
+    if (i < mine) {
+      const long r0 = first_row(i);
+      const long nr = n - r0 < rows ? n - r0 : rows;
+      stage(sm90::smem_u32(ring + (i % kStages) * stride), X + r0 * d,
+            static_cast<int>(nr * d));
     }
+    sm90::cp_async_commit();
+  };
+
+  if constexpr (kStages == 2) issue(0);
+  // prologue, once per block while the first tile loads: the queries and
+  // their squared norms
+  const int grp = threadIdx.x / G;
+  const int sub = threadIdx.x % G;
+  const Queries<G> z(z2, d, sub);
+
+  for (int i = 0; i < mine; ++i) {
+    if constexpr (kStages == 1) issue(i);
+    sm90::cp_async_wait<0>();  // tile i has landed (this thread's copies)
+    __syncthreads();           // ... and everyone's; tile i - 1 is reduced
+    if constexpr (kStages == 2) issue(i + 1);
+    const float* tile = ring + (i % kStages) * stride;
+    const long r0 = first_row(i);
+    const int nr = static_cast<int>(n - r0 < rows ? n - r0 : rows);
+    for (int pass = 0; pass < nr; pass += kThreads / G) {
+      // every lane runs every pass (the shuffles need the whole warp); a
+      // group past the tile's last row reduces row 0 and stores nothing
+      const bool live = pass + grp < nr;
+      const int r = live ? pass + grp : 0;
+      const long row = r0 + r;
+      const float s = sq[row];  // loads in flight during the dots
+      const float g = kGamma ? gamma[row] : 0.0f;
+      const float2 a = z.dots(tile + static_cast<long>(r) * d, d, sub);
+      const float a0 = group_sum<G>(a.x), a1 = group_sum<G>(a.y);
+      if (sub == 0 && live) {
+        const float k0 = rbf(s, a0, z.n0, inv_2s2);
+        const float k1 = rbf(s, a1, z.n1, inv_2s2);
+        if constexpr (kGamma) {
+          out[row] = __fadd_rn(g, __fadd_rn(__fmul_rn(k0, coef2[0]),
+                                            __fmul_rn(k1, coef2[1])));
+        } else {
+          out[2 * row] = k0;
+          out[2 * row + 1] = k1;
+        }
+      }
+    }
+    if constexpr (kStages == 1) __syncthreads();  // before the stage refills
   }
+}
+
+// Blocks of `kernel` resident at once: min(occupancy, kBlocksPerSm) per
+// SM, times the SMs; cached for the last shared-memory size asked.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int smem, int* cached_smem,
+                    int* cached_blocks) {
+  if (*cached_smem == smem) return *cached_blocks;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  per_sm = per_sm < 1 ? 1 : per_sm > kBlocksPerSm ? kBlocksPerSm : per_sm;
+  *cached_smem = smem;
+  *cached_blocks = per_sm * (sms > 0 ? sms : 1);
+  return *cached_blocks;
+}
+
+template <bool kGamma, int G, int kStages>
+int run(const float* X, const float* sq, const float* z2, float inv_2s2,
+        const float* gamma, const float* coef2, float* out, int n, int d,
+        int rows, int stride, void* stream) {
+  auto kernel = rbf_rows_kernel<kGamma, G, kStages>;
+  static int raised_to = 48 * 1024, cached_smem = -1, cached_blocks = 0;
+  const int smem = kStages * stride * static_cast<int>(sizeof(float));
+  if (smem > raised_to) {  // the attribute is per function
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised_to = smem;
+  }
+  const int n_tiles = (n + rows - 1) / rows;
+  const int resident =
+      resident_blocks(kernel, smem, &cached_smem, &cached_blocks);
+  const int grid = n_tiles < resident ? n_tiles : resident;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      X, sq, z2, inv_2s2, gamma, coef2, out, n, d, rows, stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kGamma>
@@ -101,18 +276,35 @@ int launch(const float* X, const float* sq, const float* z2, float inv_2s2,
            const float* gamma, const float* coef2, float* out, int n, int d,
            void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rbf_rows_kernel<kGamma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  rbf_rows_kernel<kGamma><<<grid, kWarpsPerBlock * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      X, sq, z2, inv_2s2, gamma, coef2, out, n, d);
-  return static_cast<int>(cudaGetLastError());
+  if (d < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // rows per tile: ~kTileFloats floats, a multiple of `step` so that every
+  // tile starts 16-byte aligned (d % 4 == 0: any; d % 2 == 0: even; else
+  // a multiple of 4)
+  const int step = d % 4 == 0 ? 1 : d % 2 == 0 ? 2 : 4;
+  const int fit = d > 0 ? kTileFloats / d : kMaxRows;
+  int rows = (fit < kMaxRows ? fit : kMaxRows) / step * step;
+  if (rows < step) rows = step;
+  auto stride_of = [d](long r) {  // floats per stage, rounded to 16 bytes
+    return static_cast<int>((r * d + 3) / 4 * 4);
+  };
+  auto bytes = [](long stages, int stride) {
+    return stages * stride * static_cast<long>(sizeof(float));
+  };
+  if (d <= kRegZ)  // <= 8 KB tiles: a 2-stage ring always fits
+    return run<kGamma, 8, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d,
+                             rows, stride_of(rows), stream);
+  if (bytes(2, stride_of(rows)) <= kMaxSmem)
+    return run<kGamma, 32, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d,
+                              rows, stride_of(rows), stream);
+  // wide rows: one per tile (16-byte copies where aligned), 2 stages while
+  // they fit, then 1
+  if (bytes(2, stride_of(1)) <= kMaxSmem)
+    return run<kGamma, 32, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d, 1,
+                              stride_of(1), stream);
+  if (bytes(1, stride_of(1)) <= kMaxSmem)
+    return run<kGamma, 32, 1>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d, 1,
+                              stride_of(1), stream);
+  return static_cast<int>(cudaErrorInvalidValue);  // d > 57,856
 }
 
 }  // namespace

@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (one ``repro_<kernel>`` entry
 per kernel it holds) and loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds. Libraries land in
-``build/`` at the repository root, named by a hash of the source and the
-flags, so an unchanged source is never rebuilt. The first kernel call
+``build/`` at the repository root, named by a hash of the flags and of the
+source with the ``csrc/*.cuh`` headers it includes, so an unchanged source
+is never rebuilt and an edited header rebuilds every source that includes
+it. The first kernel call
 builds; ``build()`` builds every source at once (one ``nvcc`` process per
 source, all started together). Nothing is built at import time.
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -69,10 +72,31 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels need it")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(path: Path, seen: dict) -> dict:
+    """``path`` and every file it includes by ``#include "..."``, directly
+    or through another include, resolved beside the including file:
+    ``{path: bytes}``."""
+    if path in seen:
+        return seen
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in _INCLUDE.findall(text):
+        found = (path.parent / inc.decode()).resolve()
+        if found.is_file():           # else a toolkit header on nvcc's path
+            _inputs(found, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{h}.so"
+    """The library's path, named by a hash of the flags and of the source
+    with every header it includes, so that an edit to either rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in sorted(_inputs(CSRC / SOURCES[name], {}).items()):
+        h.update(path.name.encode() + b"\0" + text)
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

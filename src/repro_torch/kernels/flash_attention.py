@@ -21,9 +21,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention of q (B, H, Lq, Dh) over k / v (B, Hkv, Lk, Dh), all fp32
     or all bf16, contiguous, on the card; returns a new (B, H, Lq, Dh)
-    tensor of q's type. Any Lq, Lk (ragged edges masked in the kernel);
-    Dh in ``HEAD_DIMS``. The causal mask is the TPU kernel's row >= col;
-    ``ops.flash_attention`` refuses causal calls with Lq != Lk."""
+    tensor of q's type. bf16 runs on the tensor cores (wgmma, K / V by
+    TMA; operands 16-byte aligned), fp32 on FMAs. Any Lq, Lk (ragged edges
+    masked in the kernel); Dh in ``HEAD_DIMS``. The causal mask is the TPU
+    kernel's row >= col; ``ops.flash_attention`` refuses causal calls with
+    Lq != Lk."""
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError(f"q: expected a (B, H, Lq, Dh) tensor, got "
                          f"{tuple(getattr(q, 'shape', ()))}")
@@ -43,6 +45,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda.check(q, "q", (B, H, Lq, Dh), q.dtype)
     cuda.check(k, "k", (B, Hkv, Lk, Dh), q.dtype)
     cuda.check(v, "v", (B, Hkv, Lk, Dh), q.dtype)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start 16-byte aligned (the "
+                         "kernel reads them by TMA)")
     out = torch.empty_like(q)
     rc = cuda.entry("flash_attention", _ARGS)(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(out), B, H, Hkv, Lq,

@@ -374,3 +374,89 @@ def test_cuda_serve_cli_launches_flash_attention(cuda_device):
     res = serve.main(["--arch", "llama3-8b", "--tokens", "4", "--batch", "2"])
     assert res["tokens"].device.type == "cuda"
     assert cuda.launches["flash_attention"] == cfg.n_layers
+
+
+# -- the redesigned bodies: bf16 flash on the tensor cores, the dense row
+# stream ----------------------------------------------------------------------
+
+_FA_TILE_CASES = [
+    # (B, H, Hkv, Lq, Lk, causal): lengths on both sides of the 128-row
+    # query and key tiles, GQA groups 1, 4 and 8, B*H*q-tiles over one wave
+    (1, 8, 8, 1, 1, True),
+    (2, 8, 2, 63, 63, True),
+    (1, 8, 1, 127, 127, True),
+    (4, 64, 16, 129, 129, True),
+    (1, 8, 2, 1000, 1000, True),
+    (2, 4, 1, 130, 67, False),
+    (1, 8, 2, 64, 300, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_cuda_flash_attention_bf16_crosses_the_tiles(cuda_device, dh):
+    """The bf16 body (wgmma products, TMA-fed K/V ring) against the plain
+    version at lengths that cross its 128-row query and key tiles, each
+    head dim, GQA groups 1 / 4 / 8, causal and not; two launches on the
+    same inputs give identical bits. Tolerance: the smoke's bf16 one (rtol
+    2e-2, the reference's, atol 2e-3)."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + dh)
+    for B, H, Hkv, Lq, Lk, causal in _FA_TILE_CASES:
+        mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+        q, k, v = mk(B, H, Lq, dh), mk(B, Hkv, Lk, dh), mk(B, Hkv, Lk, dh)
+        got = ops.flash_attention(q, k, v, causal)
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention(q, k, v, causal).float(),
+            rtol=2e-2, atol=2e-3, msg=lambda m: f"{(B, H, Hkv, Lq, Lk, causal)}: {m}")
+        assert torch.equal(ops.flash_attention(q, k, v, causal), got)
+    from repro_torch.kernels import flash_attention as fa
+    flat = torch.zeros(q.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(flat[1:].view(q.shape), k, v, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1001, 1), (1001, 3), (4097, 123),
+                                 (1001, 300), (301, 16384)])
+def test_cuda_rbf_row_stream_matches_plain_and_is_symmetric(cuda_device, n,
+                                                            d):
+    """The dense row/gamma body (a cp.async ring of R-row tiles of X) at N
+    not a multiple of its tile rows and widths from 1 to 16,384 (one row
+    per tile): rows within 1e-5 / 1e-6 and gamma within 1e-4 of the plain
+    versions; the columns bitwise position-symmetric; the single-row path
+    (``row_via_rows2``: rows2([z, z])[:, 0]) bitwise equal to the same row
+    made in either slot of a pair; and the same bits from a copy of X at a
+    misaligned address (4-byte copies instead of 16-byte ones). Rows and
+    queries are scaled to |x|^2 ~ 16 at every width, so K stays well above
+    0 without a query near a row: there |x|^2 - 2<x, z> + |z|^2 cancels in
+    fp32 whatever the summation order (at d = 16,384, ~1e-4 of K)."""
+    from repro_torch.core import dataplane, kernel_fns
+    r, X, _, z2 = _inputs(n, d, n + d)
+    scale = np.float32(4.0 / np.sqrt(d))
+    X, z2 = X * scale, z2 * scale
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    X, sq, z2 = t(X), t((X * X).sum(1).astype(np.float32)), t(z2)
+    g, c2 = t(r.normal(size=n).astype(np.float32)), t(
+        r.normal(size=2).astype(np.float32))
+    inv = 1 / 64
+    rows = ops.kernel_rows2("rbf", X, sq, z2, inv)
+    torch.testing.assert_close(rows, ref.kernel_rows2(X, sq, z2, inv),
+                               rtol=1e-5, atol=1e-6)
+    assert float(rows.max()) > 1e-3
+    torch.testing.assert_close(
+        ops.fused_gamma_update("rbf", X, sq, g, z2, c2, inv),
+        ref.gamma_update(X, sq, g, z2, c2, inv), rtol=1e-4, atol=1e-4)
+    swap = ops.kernel_rows2("rbf", X, sq, z2.flip(0).contiguous(), inv)
+    assert torch.equal(swap[:, 0], rows[:, 1])
+    assert torch.equal(swap[:, 1], rows[:, 0])
+    provider = kernel_fns.make_provider("rbf", "dense", True, inv)
+    single = kernel_fns.row_via_rows2(provider, dataplane.DenseData(X, sq),
+                                      z2[1])
+    assert torch.equal(single, rows[:, 1])
+    assert torch.equal(single, swap[:, 0])
+    shifted = torch.empty(n * d + 1, device=cuda_device)
+    shifted[1:] = X.reshape(-1)
+    assert torch.equal(ops.kernel_rows2("rbf", shifted[1:].view(n, d), sq,
+                                        z2, inv), rows)

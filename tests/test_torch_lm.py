@@ -73,6 +73,45 @@ def test_flash_wrapper_refuses_causal_with_ragged_lengths():
     assert ops.flash_attention(q, k, k, causal=False).shape == q.shape
 
 
+def _p_carried_attention(q, k, v, split: bool) -> torch.Tensor:
+    """Causal GQA attention in fp32 from bf16 q, k, v (B, H, L, Dh), with P
+    carried into the second product as a bf16 kernel must: rounded to bf16
+    once (as the reference's blockwise attention does), or as hi + lo bf16
+    parts (as ``csrc/flash_attention.cu`` does); l adds the fp32 P."""
+    g = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    s = q.float() @ kf.transpose(-1, -2) * q.shape[-1] ** -0.5
+    L = s.shape[-1]
+    s = s.masked_fill(~torch.ones(L, L, dtype=torch.bool).tril(),
+                      float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    pv = hi @ vf
+    if split:
+        pv = pv + (p - hi).to(torch.bfloat16).float() @ vf
+    return (pv / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def test_bf16_flash_needs_p_in_two_parts_to_keep_its_gate():
+    """Why the bf16 flash kernel splits P: on short causal rows, P rounded
+    to bf16 once moves outputs near 0 past the kernel's bf16 gate against
+    ``ref.flash_attention`` (rtol 2e-2, atol 2e-3); hi + lo bf16 parts stay
+    inside it. At llama3-8b's head layout (32 query heads on 8 kv heads,
+    Dh 128) and L = 129, a few of the 528K outputs miss."""
+    r = np.random.default_rng(0)
+    mk = lambda *s: _t(r.normal(size=s), torch.bfloat16)
+    q, k, v = mk(4, 32, 129, 128), mk(4, 8, 129, 128), mk(4, 8, 129, 128)
+    want = ref.flash_attention(q, k, v, True).float()
+
+    def excess(split):
+        got = _p_carried_attention(q, k, v, split).float()
+        return float(((got - want).abs() - 2e-3 - 2e-2 * want.abs()).max())
+
+    assert excess(split=False) > 0
+    assert excess(split=True) < 0
+
+
 @pytest.mark.parametrize("lq,lk,h,hkv,causal",
                          [(32, 32, 4, 2, True), (8, 40, 4, 1, True),
                           (1, 17, 6, 3, True), (16, 24, 4, 4, False)])
