@@ -332,6 +332,8 @@ def ell_rows_bound(m, K, d, nnz, q, gamma):
 def check_ell_rows(torch, np, dev, time_ms, kernels) -> dict:
     """The three ELL row kernels against their plain versions at the w7a
     buffer (32,768 x K = 128, d = 300), plus a ragged lane budget (K = 13)
+    and the budget ``ell_lane = 16`` would build (K = 16, timed), both
+    bitwise equal to K = 128, a misaligned copy of vals (the same bits),
     and a large width (d = 16,384: the global-gather branch)."""
     from repro_torch.data import make
     from repro_torch.kernels import ops, ref
@@ -439,9 +441,46 @@ def check_ell_rows(torch, np, dev, time_ms, kernels) -> dict:
         ops.ell_fused_gamma_update("rbf", v13, c13, s, gam, z2, coef2, INV),
         ref.ell_gamma_update(v13, c13, s, gam, z2, coef2, INV),
         rtol=1e-4, atol=1e-4)
-    if not torch.equal(ops.ell_kernel_rows2(v13, c13, s, z2, INV),
-                       ops.ell_kernel_rows2(v, c, s, z2, INV)):
+    rows128 = ops.ell_kernel_rows2(v, c, s, z2, INV)
+    gam128 = ops.ell_fused_gamma_update("rbf", v, c, s, gam, z2, coef2, INV)
+    if not torch.equal(ops.ell_kernel_rows2(v13, c13, s, z2, INV), rows128):
         fail("ell_kernel_rows2 at K=13 differs from the same rows at K=128")
+    # the lane budget ell_lane = 16 would build: the same bits, and what it
+    # would save per pass (sizes the open lane-budget question; the default
+    # budget does not change)
+    v16, c16 = v[:, :16].contiguous(), c[:, :16].contiguous()
+    if not (torch.equal(ops.ell_kernel_rows2(v16, c16, s, z2, INV), rows128)
+            and torch.equal(ops.ell_fused_gamma_update(
+                "rbf", v16, c16, s, gam, z2, coef2, INV), gam128)):
+        fail("ell_kernel_rows2 / ell_gamma_update at K=16 differ from the "
+             "same rows at K=128")
+    k16 = {}
+    for name, fn, ins in (
+            ("ell_gamma_update", lambda *a: ops.ell_fused_gamma_update(
+                "rbf", *a, INV), (v16, c16, s, gam, z2, coef2)),
+            ("ell_kernel_rows2", lambda *a: ops.ell_kernel_rows2(*a, INV),
+             (v16, c16, s, z2))):
+        k16[name] = (time_ms(fn, ins, reps=100),
+                     time_ms(fn, ins, reps=100, cold=False))
+        kernels[name]["k16_ms"], kernels[name]["k16_warm_ms"] = k16[name]
+    # a misaligned vals (base one float past an aligned one): 4-byte loads,
+    # the same bits
+    flat = torch.empty(m * K + 1, device=dev)
+    flat[1:] = v.reshape(-1)
+    vm = flat[1:].view(m, K)
+    if not (torch.equal(ops.ell_kernel_rows2(vm, c, s, z2, INV), rows128)
+            and torch.equal(ops.ell_fused_gamma_update(
+                "rbf", vm, c, s, gam, z2, coef2, INV), gam128)
+            and torch.equal(ops.ell_kernel_row(vm, c, s, z, INV),
+                            ops.ell_kernel_row(v, c, s, z, INV))):
+        fail("the ELL row kernels differ on a misaligned copy of vals")
+    print("[check-ell] K=16 (what ell_lane=16 would build): bitwise equal "
+          "to K=128; " + ", ".join(
+              f"{k} {a * 1e3:.2f} us (in L2 {b * 1e3:.2f})"
+              for k, (a, b) in k16.items())
+          + "; a misaligned vals (base + 4 bytes) gives the same bits",
+          flush=True)
+    del flat, vm
     # large width: queries beyond shared memory, gathered from global
     bv, bc, bs = ragged_ell(torch, dev, 8192, 128, 16384, seed=3)
     # small queries keep the distances O(|x|^2), so K is not 0
@@ -972,6 +1011,7 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
+                                       "k16_ms", "k16_warm_ms",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

@@ -12,49 +12,94 @@
 // this kernel writes (N, 2) directly) and ::ell_gamma_update
 // (_ell_gamma_kernel; all three on the shared body _ell_rows2_body).
 //
-// What bounds them on this card: device memory, and the latency of each
-// row's chain of loads. A pass must read every val (N*K*4 bytes: a zero is
-// only known once read) and the cols of the nonzero slots, plus sq (and
-// gamma in and out): 18.4 MB at the w7a buffer (N = 32768, K = 128, 12
-// nonzeros per row), a 5.5 us bound at 3.35 TB/s, against 4 flops per
-// nonzero and query: far below the H100's fp32 ridge. The kernel skips the
-// cols of zero slots (reading every col, 33.9 MB there, took ~3 us more
-// with the buffer out of L2) and runs at ~2.5x the bound: each warp walks
-// ~4 rows one after another, each a chain of dependent loads (vals, cols,
-// the z gathers, sq). The gathers of z hit shared memory (or L1/L2).
+// What bounds them on this card: device memory. A pass must read every val
+// (N*K*4 bytes: a zero is only known once read) and the cols of the nonzero
+// slots, plus sq (and gamma in and out): 18.4 MB at the w7a buffer (N =
+// 32768, K = 128, 12 nonzeros per row), a 5.5 us bound at 3.35 TB/s,
+// against 4 flops per nonzero and query: far below the H100's fp32 ridge.
+// At that size a launch lasts microseconds, and what it loses beyond the
+// bytes is every round trip to memory that a warp waits for with nothing
+// else in flight. The first port's body (one warp per row, each slot a
+// chain of dependent global loads: vals, then cols, then the z gather) kept
+// about one 128-byte load in flight per warp.
 //
-// Design: one warp per row, grid-stride over rows (a few rows per warp, so
-// each block's load of the queries into shared memory is amortized). Lane l
-// reads slots l, l+32, ..., so every warp load of vals (and of the cols of
-// its nonzero slots) is contiguous; the lane gathers z[col] for the query
-// (or both queries) from shared memory when Q*d*4 bytes fit in 48 KB, else
-// from global memory through the read-only path (__ldg), so any d works. K
-// is live (adaptive K changes it at every compaction) and need not be a
-// multiple of 32: the slot loop bound masks the ragged K edge, the row
-// loop the ragged N edge.
-// Both queries share the slot loads and run the identical instruction
-// sequence — the same FMA order, the same fixed xor-shuffle reduction, the
-// same explicitly rounded epilogue — so a row made in slot 0 is bitwise
-// equal to the same row made in slot 1 (kernel_fns.row_via_rows2 relies on
-// it) and to the one-query entry. Padding slots add exactly 0; padding
-// rows carry gamma = +inf, and +inf plus a finite update stays +inf.
+// Design: a stream of 16-byte loads from registers, as many in flight as
+// the register file allows. Blocks of 128 threads, up to 8 per SM (the
+// grid is sized by occupancy), reduce passes of 128 / W rows, grid-
+// strided: W lanes a row (W = 8, or the fewest that cover the row's 16-byte
+// chunks when K < 32). A lane issues the loads of its first 4 chunks of
+// vals (all of a row at K = 128) together, with the row's sq (and gamma);
+// then, for each chunk that is not all zero, the 16-byte load of its cols
+// (a w7a row reads 3 of its 32 chunks of cols); then gathers z from shared
+// memory and adds. The first pass's vals are requested before the
+// prologue (the queries into shared memory by plain loads, and |z_j|^2),
+// so they stream while it runs. Queries wider than 32 KB are gathered from
+// global memory through the read-only path (__ldg). Rows of more than 4
+// chunks a lane (K > 128) take further rounds of 4 in the same order. No
+// padding of N, K or d is needed: K and d are loop bounds, a group past the
+// last row reduces a real row and stores nothing; at K % 4 != 0 or a
+// misaligned vals or cols the loads are 4 bytes wide.
+// Measured against the alternatives (scripts/row_stream_floor.py --ell,
+// PERF.md): cp.async rings in shared memory, shared by a block or private
+// to a warp, 2 to 6 stages deep, with the cols of nonzero chunks copied
+// beside the vals or loaded by the lanes, were all slower, most of all in
+// L2: a block or warp that waits for its next tile holds fewer bytes in
+// flight than this many warps do, and every ring added a wait. Reading
+// every col (the ELL_ROWS_ALL_COLS variant) costs more bytes than the wait
+// for the nonzero chunks' cols saves. Measured on an NVIDIA H100 80GB HBM3
+// at a 700 W power limit, at the w7a buffer, inputs out of L2 (in L2):
+// ell_gamma_update 11.90 us (7.30), ell_kernel_rows2 11.82 us (7.19), 0.46
+// of the bound; the first port's body 13.65 (10.46) and 13.16 (10.11); a
+// bare float4 read of the same vals 8.18-8.47 us (4.29-4.62). What is
+// left above the bare read: the cols of the nonzero chunks (~2 MB more in
+// 32-byte sectors) and their round trip, two passes a block deep.
+//
+// Reduction order, fixed and independent of K and of the load width: the
+// slots of a row fall in 16-byte chunks (chunk q: slots 4q .. 4q + 3);
+// lane l of the row's 8 lanes owns the chunks q = l, l + 8, l + 16, ...
+// and sums vals[i, k] * z_j[cols[i, k]] over their slots in slot order,
+// one fmaf each, skipping zero slots (a zero slot adds exactly 0); then
+// the 8 lanes add by the xor-shuffle tree (offsets 4, 2, 1). A row of
+// fewer chunks runs the tree's last log2(W) levels on its W lanes: the
+// same bits, since the lanes it drops would hold +0. |z_j|^2: one warp per
+// query, lane l sums k = l, l + 32, ... then the 32-lane xor tree. So for
+// rows whose nonzeros are a slot prefix the result does not depend on the
+// buffer's K (the adaptive lane budget changes K at compactions); both
+// queries run the identical instruction sequence (a row made in slot 0 is
+// bitwise equal to the same row made in slot 1, and to the one-query
+// entry: kernel_fns.row_via_rows2 relies on it); and a misaligned vals
+// gives the same bits. Distance, exp and the update stay in fp32 with
+// explicitly rounded operations. Padding rows carry gamma = +inf, and +inf
+// plus a finite update stays +inf.
+//
+// Build-time variant, for scripts/row_stream_floor.py only (the default is
+// the kernel): ELL_ROWS_ALL_COLS=1 loads every chunk of cols, zero or not,
+// beside the vals.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#ifndef ELL_ROWS_ALL_COLS
+#define ELL_ROWS_ALL_COLS 0
+#endif
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kBlocksPerSM = 8;
-// dynamic shared memory for the queries without an opt-in (48 KB less the
-// kernel's static shared memory)
-constexpr size_t kSharedQueryBytes = 48 * 1024 - 256;
+constexpr int kThreads = 128;
+constexpr int kLanes = 8;                 // lanes per row, at most
+constexpr int kBatch = 4;                 // chunks a lane loads at once
+constexpr int kBlocksPerSm = 8;           // resident blocks per SM, at most
+constexpr bool kAllCols = ELL_ROWS_ALL_COLS != 0;
+constexpr long kSharedQueryBytes = 32 * 1024;
 
 enum Mode { kRow = 0, kRows2 = 1, kGamma = 2 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+// Sum over the 2^lw lanes of a row group by the last lw levels of the same
+// xor tree for every group and every query (all 32 lanes take part).
+__device__ __forceinline__ float group_sum(float v, int lw) {
+  for (int off = (1 << lw) >> 1; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;  // every lane holds the same bits (fp add commutes)
+  return v;  // every lane of the group holds the same bits
 }
 
 __device__ __forceinline__ float rbf(float sq, float dot, float zn,
@@ -63,92 +108,186 @@ __device__ __forceinline__ float rbf(float sq, float dot, float zn,
   return expf(__fmul_rn(-fmaxf(d2, 0.0f), inv_2s2));
 }
 
-template <bool kShared>
-__device__ __forceinline__ float load_z(const float* p) {
-  if constexpr (kShared) {
-    return *p;
-  } else {
-    return __ldg(p);
+__device__ __forceinline__ bool any_nonzero(float4 x) {
+  return x.x != 0.0f || x.y != 0.0f || x.z != 0.0f || x.w != 0.0f;
+}
+
+// Chunk q (slots 4q .. 4q + 3) of the row at p, slots past K read as 0:
+// one 16-byte load where `vec` (K % 4 == 0 and the array 16-byte
+// aligned), else one load per slot.
+template <typename T, typename T4>
+__device__ __forceinline__ T4 chunk(const T* p, int q, int K, bool vec) {
+  const int k = 4 * q;
+  if (vec) {
+    if (k < K) return __ldg(reinterpret_cast<const T4*>(p + k));
+    return T4{0, 0, 0, 0};
+  }
+  return T4{k < K ? __ldg(p + k) : T(0), k + 1 < K ? __ldg(p + k + 1) : T(0),
+            k + 2 < K ? __ldg(p + k + 2) : T(0),
+            k + 3 < K ? __ldg(p + k + 3) : T(0)};
+}
+
+// The lane's chunks q0, q0 + W, ... (kBatch of them) of the row at v.
+__device__ __forceinline__ void load_vals(float4 (&x)[kBatch], const float* v,
+                                          int q0, int W, int K, bool vec) {
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b)
+    x[b] = chunk<float, float4>(v, q0 + b * W, K, vec);
+}
+
+// The lane's share of <x, z_0> (and <x, z_1>) for one row: its chunks in
+// order and the slots of each in order, one fmaf each; a zero slot adds
+// nothing and its column is not read. z: shared memory, or global
+// (kSharedZ false).
+template <int Q, bool kSharedZ>
+struct Dots {
+  const float* zq;
+  int d;
+  float a0 = 0.0f, a1 = 0.0f;
+  __device__ __forceinline__ float z_at(int i) const {
+    return kSharedZ ? zq[i] : __ldg(zq + i);
+  }
+  __device__ __forceinline__ void add(float xv, int ci) {
+    if (xv != 0.0f) {
+      a0 = fmaf(xv, z_at(ci), a0);
+      if constexpr (Q == 2) a1 = fmaf(xv, z_at(d + ci), a1);
+    }
+  }
+  // the chunks q0, q0 + W, ... whose vals are x: the cols of each that is
+  // not all zero, then its gathers
+  __device__ __forceinline__ void batch(const float4 (&x)[kBatch],
+                                        const int* c, int q0, int W, int K,
+                                        bool vec) {
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (kAllCols || any_nonzero(x[b])) {
+        const int4 ci = chunk<int, int4>(c, q0 + b * W, K, vec);
+        add(x[b].x, ci.x);
+        add(x[b].y, ci.y);
+        add(x[b].z, ci.z);
+        add(x[b].w, ci.w);
+      }
+    }
+  }
+};
+
+// The queries into shared memory (plain loads: after the first block of an
+// SM, L1 serves them) and |z_j|^2, one warp per query, the same code for
+// both; the caller synchronises.
+template <int Q, bool kSharedZ>
+__device__ __forceinline__ void load_queries(float* zs, float* zn,
+                                             const float* z, int d) {
+  if constexpr (kSharedZ)
+    for (int k = threadIdx.x; k < Q * d; k += kThreads) zs[k] = __ldg(z + k);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < Q) {
+    float a = 0.0f;
+    for (int k = lane; k < d; k += 32) {
+      const float v = __ldg(z + warp * d + k);
+      a = fmaf(v, v, a);
+    }
+    a = group_sum(a, 5);
+    if (lane == 0) zn[warp] = a;
   }
 }
 
-template <int kMode, bool kShared>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// The epilogue of a live row, from the group's dots.
+template <int kMode>
+__device__ __forceinline__ void write_row(long row, float s, float g,
+                                          float a0, float a1,
+                                          const float* zn, float inv_2s2,
+                                          const float* coef2, float* out) {
+  const float k0 = rbf(s, a0, zn[0], inv_2s2);
+  if constexpr (kMode == kRow) {
+    out[row] = k0;
+  } else {
+    const float k1 = rbf(s, a1, zn[1], inv_2s2);
+    if constexpr (kMode == kGamma) {
+      out[row] = __fadd_rn(g, __fadd_rn(__fmul_rn(k0, __ldg(coef2)),
+                                        __fmul_rn(k1, __ldg(coef2 + 1))));
+    } else {
+      reinterpret_cast<float2*>(out)[row] = make_float2(k0, k1);
+    }
+  }
+}
+
+// Groups of W = 2^lw lanes, one row each, 128 / W rows a pass of the
+// block; the block's passes are grid-strided. kSharedZ: the queries in
+// shared memory. vec_v / vec_c: 16-byte loads of vals / cols.
+template <int kMode, bool kSharedZ>
+__global__ void __launch_bounds__(kThreads)
 ell_rows_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                 const float* __restrict__ sq, const float* __restrict__ z,
                 float inv_2s2, const float* __restrict__ gamma,
                 const float* __restrict__ coef2, float* __restrict__ out,
-                int n, int K, int d) {
+                int n, int K, int d, int lw, bool vec_v, bool vec_c) {
   constexpr int Q = kMode == kRow ? 1 : 2;
-  extern __shared__ float zs[];  // z_0 at [0, d), z_1 at [d, 2d) (kShared)
+  constexpr bool kG = kMode == kGamma;
+  extern __shared__ float zs[];  // z_0 at [0, d), z_1 at [d, 2d)
   __shared__ float zn[2];
-  if constexpr (kShared) {
-    for (int k = threadIdx.x; k < Q * d; k += blockDim.x) zs[k] = z[k];
-    __syncthreads();
-  }
-  const float* zq = kShared ? zs : z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp < Q) {  // |z_j|^2, one warp per query, the same code for both
-    const float* zj = zq + warp * d;
-    float a = 0.0f;
-    for (int k = lane; k < d; k += 32) {
-      const float v = load_z<kShared>(zj + k);
-      a = fmaf(v, v, a);
-    }
-    a = warp_sum(a);
-    if (lane == 0) zn[warp] = a;
-  }
+  const int W = 1 << lw, per_pass = kThreads >> lw;
+  const int grp = threadIdx.x >> lw, sub = threadIdx.x & (W - 1);
+  const int nq = (K + 3) >> 2;
+  const long stride = static_cast<long>(gridDim.x) * per_pass;
+
+  // the group's row in the pass at `base` (< n): a group past the last row
+  // reduces row `base` and stores nothing (every lane runs every pass: the
+  // shuffles need the whole warp)
+  auto row_of = [&](long base) { return base + grp < n ? base + grp : base; };
+  long base = static_cast<long>(blockIdx.x) * per_pass;
+  float4 x[kBatch];
+  if (base < n) load_vals(x, vals + row_of(base) * K, sub, W, K, vec_v);
+  load_queries<Q, kSharedZ>(zs, zn, z, d);  // while the first pass loads
   __syncthreads();
 
-  const long stride = static_cast<long>(gridDim.x) * kWarpsPerBlock;
-  for (long row = static_cast<long>(blockIdx.x) * kWarpsPerBlock + warp;
-       row < n; row += stride) {
+  for (bool first = true; base < n; base += stride, first = false) {
+    const long row = row_of(base);
+    const float s = sq[row];  // loads in flight during the dots
+    const float g = kG ? gamma[row] : 0.0f;
     const float* v = vals + row * K;
     const int* c = cols + row * K;
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float xv = __ldg(v + k);
-      // a zero slot adds 0 whatever its column, so its column is not read
-      // (z[0] stands in): a warp whose 32 slots are all padding loads no
-      // cols at all
-      const int ci = xv != 0.0f ? __ldg(c + k) : 0;
-      a0 = fmaf(xv, load_z<kShared>(zq + ci), a0);
-      if constexpr (Q == 2) a1 = fmaf(xv, load_z<kShared>(zq + d + ci), a1);
+    if (!first) load_vals(x, v, sub, W, K, vec_v);
+    Dots<Q, kSharedZ> acc{kSharedZ ? zs : z, d};
+    acc.batch(x, c, sub, W, K, vec_c);
+    // rows of more than kBatch chunks a lane (K > 4 * kBatch * W)
+    for (int q0 = sub + kBatch * W; q0 < nq; q0 += kBatch * W) {
+      load_vals(x, v, q0, W, K, vec_v);
+      acc.batch(x, c, q0, W, K, vec_c);
     }
-    a0 = warp_sum(a0);
-    if constexpr (Q == 2) a1 = warp_sum(a1);
-    if (lane == 0) {
-      const float s = sq[row];
-      const float k0 = rbf(s, a0, zn[0], inv_2s2);
-      if constexpr (kMode == kRow) {
-        out[row] = k0;
-      } else {
-        const float k1 = rbf(s, a1, zn[1], inv_2s2);
-        if constexpr (kMode == kGamma) {
-          out[row] = __fadd_rn(gamma[row],
-                               __fadd_rn(__fmul_rn(k0, coef2[0]),
-                                         __fmul_rn(k1, coef2[1])));
-        } else {
-          out[2 * row] = k0;
-          out[2 * row + 1] = k1;
-        }
-      }
-    }
+    const float a0 = group_sum(acc.a0, lw);
+    const float a1 = Q == 2 ? group_sum(acc.a1, lw) : 0.0f;
+    if (sub == 0 && base + grp < n)
+      write_row<kMode>(row, s, g, a0, a1, zn, inv_2s2, coef2, out);
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count <= 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess ||
-        count <= 0)
-      count = 132;
+template <int kMode, bool kSharedZ>
+int run(const float* vals, const int* cols, const float* sq, const float* z,
+        float inv_2s2, const float* gamma, const float* coef2, float* out,
+        int n, int K, int d, int lw, bool vec_v, bool vec_c, int smem,
+        void* stream) {
+  auto kernel = ell_rows_kernel<kMode, kSharedZ>;
+  // blocks resident at once: min(occupancy, kBlocksPerSm) per SM, times
+  // the SMs; cached for the last shared-memory size asked
+  static int cached_smem = -1, cached_blocks = 0;
+  if (cached_smem != smem) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  smem);
+    per_sm = per_sm < 1 ? 1 : per_sm > kBlocksPerSm ? kBlocksPerSm : per_sm;
+    cached_smem = smem;
+    cached_blocks = per_sm * (sms > 0 ? sms : 1);
   }
-  return count;
+  const long passes = (static_cast<long>(n) + (kThreads >> lw) - 1) /
+                      (kThreads >> lw);
+  const int grid = passes < cached_blocks ? static_cast<int>(passes)
+                                          : cached_blocks;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, sq, z, inv_2s2, gamma, coef2, out, n, K, d, lw, vec_v,
+      vec_c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int kMode>
@@ -157,21 +296,23 @@ int launch(const float* vals, const int* cols, const float* sq,
            const float* coef2, float* out, int n, int K, int d,
            void* stream) {
   if (n <= 0) return 0;
+  if (K < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int Q = kMode == kRow ? 1 : 2;
-  const size_t zbytes = static_cast<size_t>(Q) * d * sizeof(float);
-  const long need = (static_cast<long>(n) + kWarpsPerBlock - 1) /
-                    kWarpsPerBlock;
-  const long cap = static_cast<long>(sm_count()) * kBlocksPerSM;
-  const int grid = static_cast<int>(need < cap ? need : cap);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (zbytes <= kSharedQueryBytes) {
-    ell_rows_kernel<kMode, true><<<grid, kWarpsPerBlock * 32, zbytes, s>>>(
-        vals, cols, sq, z, inv_2s2, gamma, coef2, out, n, K, d);
-  } else {
-    ell_rows_kernel<kMode, false><<<grid, kWarpsPerBlock * 32, 0, s>>>(
-        vals, cols, sq, z, inv_2s2, gamma, coef2, out, n, K, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // lanes a row: the fewest (a power of two) that cover its chunks, at
+  // most kLanes
+  int lw = 0;
+  while ((1 << lw) < kLanes && (1 << lw) < (K + 3) / 4) ++lw;
+  const bool vec_v =
+      K % 4 == 0 && (reinterpret_cast<uintptr_t>(vals) & 15) == 0;
+  const bool vec_c =
+      K % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+  const long zbytes = static_cast<long>(Q) * d * sizeof(float);
+  if (zbytes <= kSharedQueryBytes)
+    return run<kMode, true>(vals, cols, sq, z, inv_2s2, gamma, coef2, out, n,
+                            K, d, lw, vec_v, vec_c,
+                            static_cast<int>(zbytes), stream);
+  return run<kMode, false>(vals, cols, sq, z, inv_2s2, gamma, coef2, out, n,
+                           K, d, lw, vec_v, vec_c, 0, stream);
 }
 
 }  // namespace

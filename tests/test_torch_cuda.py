@@ -460,3 +460,85 @@ def test_cuda_rbf_row_stream_matches_plain_and_is_symmetric(cuda_device, n,
     shifted[1:] = X.reshape(-1)
     assert torch.equal(ops.kernel_rows2("rbf", shifted[1:].view(n, d), sq,
                                         z2, inv), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,d", [(1001, 1, 1), (1001, 4, 300),
+                                   (1001, 13, 300), (4097, 16, 300),
+                                   (1001, 40, 20000), (1001, 128, 300),
+                                   (777, 130, 300), (301, 128, 20000),
+                                   (333, 13, 1), (40, 30000, 40000)])
+def test_cuda_ell_row_stream_matches_plain_and_is_symmetric(cuda_device, n,
+                                                            K, d):
+    """The block-ELL row/gamma body (16-byte chunks of vals, the cols of the
+    nonzero ones) at N not a multiple of its rows a pass, lane budgets K
+    from 1 to 130 (16- and 4-byte loads, 1 to 8 lanes a row) and 30,000
+    (rows of many rounds of chunks), and widths from 1 to 40,000 (queries
+    in shared memory or gathered from global): all three entries
+    within the plain versions' tolerances; the columns bitwise
+    position-symmetric; the one-query entry, ``ELLKernelRowProvider.row``
+    and ``row_via_rows2`` bitwise equal to the same row made in either
+    slot; the same rows packed at a larger K' = K + 17 and a copy of vals
+    at a misaligned address give the same bits; +inf gamma padding rows
+    stay +inf. Rows (a random slot prefix each, columns repeated only where
+    K > d) and queries are scaled to |x|^2 <= ~16, so the distance does not
+    cancel in fp32."""
+    from repro_torch.core import dataplane, kernel_fns
+    r = np.random.default_rng(n + K + d)
+    ext = r.integers(0, K + 1, n)
+    ext[0] = K                                   # one full row
+    wide_v = np.zeros((n, K + 17), np.float32)
+    wide_c = np.zeros((n, K + 17), np.int32)
+    for i, k in enumerate(ext):
+        wide_v[i, :k] = r.normal(size=k) * (4.0 / np.sqrt(K))
+        wide_c[i, :k] = r.choice(d, size=k, replace=bool(k > d))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                  device=cuda_device)
+    v, c = t(wide_v[:, :K]), t(wide_c[:, :K])
+    s = t((wide_v * wide_v).sum(1).astype(np.float32))
+    z2 = t((r.normal(size=(2, d)) * (4.0 / np.sqrt(d))).astype(np.float32))
+    g = r.normal(size=n).astype(np.float32)
+    g[-3:] = np.inf                              # buffer padding rows
+    g, c2 = t(g), t(r.normal(size=2).astype(np.float32))
+    inv = 1 / 64
+    before = dict(cuda.launches)
+    rows = ops.ell_kernel_rows2(v, c, s, z2, inv)
+    torch.testing.assert_close(rows, ref.ell_kernel_rows2(v, c, s, z2, inv),
+                               rtol=1e-5, atol=1e-6)
+    assert float(rows.min()) > 1e-3
+    row = ops.ell_kernel_row(v, c, s, z2[1], inv)
+    torch.testing.assert_close(row, ref.ell_kernel_row(v, c, s, z2[1], inv),
+                               rtol=1e-5, atol=1e-6)
+    got = ops.ell_fused_gamma_update("rbf", v, c, s, g, z2, c2, inv)
+    torch.testing.assert_close(got, ref.ell_gamma_update(v, c, s, g, z2, c2,
+                                                         inv),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.isinf(got[-3:]).all()
+    # position symmetry, and the single-row paths, bitwise
+    swap = ops.ell_kernel_rows2(v, c, s, z2.flip(0).contiguous(), inv)
+    assert torch.equal(swap[:, 0], rows[:, 1])
+    assert torch.equal(swap[:, 1], rows[:, 0])
+    same = ops.ell_kernel_rows2(v, c, s, torch.stack([z2[0], z2[0]]), inv)
+    assert torch.equal(same[:, 0], same[:, 1])
+    assert torch.equal(same[:, 0], rows[:, 0])
+    assert torch.equal(row, rows[:, 1])
+    provider = kernel_fns.make_provider("rbf", "ell", True, inv)
+    data = dataplane.ELLData(v, c, s, d)
+    assert torch.equal(provider.row(data, z2[1]), rows[:, 1])
+    assert torch.equal(kernel_fns.row_via_rows2(provider, data, z2[1]),
+                       rows[:, 1])
+    # the lane budget does not change the bits (nonzeros in a slot prefix)
+    wv, wc = t(wide_v), t(wide_c)
+    assert torch.equal(ops.ell_kernel_rows2(wv, wc, s, z2, inv), rows)
+    assert torch.equal(
+        ops.ell_fused_gamma_update("rbf", wv, wc, s, g, z2, c2, inv), got)
+    # nor does a misaligned vals (4-byte copies)
+    shifted = torch.empty(n * K + 1, device=cuda_device)
+    shifted[1:] = v.reshape(-1)
+    vm = shifted[1:].view(n, K)
+    assert torch.equal(ops.ell_kernel_rows2(vm, c, s, z2, inv), rows)
+    assert torch.equal(ops.ell_kernel_row(vm, c, s, z2[1], inv), row)
+    assert torch.equal(
+        ops.ell_fused_gamma_update("rbf", vm, c, s, g, z2, c2, inv), got)
+    for k in ("ell_kernel_row", "ell_kernel_rows2", "ell_gamma_update"):
+        assert cuda.launches[k] > before[k], k
