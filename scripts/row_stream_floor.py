@@ -19,13 +19,12 @@ of the stream.
 vals 16.8 MB fp32 and cols 16.8 MB int32) it times ``ell_gamma_update`` and
 ``ell_kernel_rows2`` through ``kernels.ops`` beside a bare float4 read of
 vals, and a bare read of vals and cols together (the bytes a body that
-streamed every col would move), at the same grid sizes; then the same two
-kernels built from ``csrc/ell_rows.cu`` with each of the source's
-build-time variant (``VARIANTS``: every chunk of cols loaded, zero or
-not, beside the vals), held bitwise equal to the kernel.
+read every col would move), at the same grid sizes; then the two kernels
+on the same rows at K = 16 (what the lane budget ``ell_lane = 16`` would
+build).
 
-The bare kernels and the variants are built here with ``nvcc`` into
-``build/``; they are yardsticks, not kernels of the port. Prints the
+The bare kernels are built here with ``nvcc`` into ``build/``; they are
+yardsticks, not kernels of the port. Prints the
 card's name and power limit, one line per timing and a JSON summary last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -81,35 +80,20 @@ extern "C" int bare_read2_launch(const float* x, const void* y, long n,
 }
 """
 GRIDS = ((264, 1024), (528, 512), (1056, 256), (4224, 256))
-# build-time variants of csrc/ell_rows.cu (the kernel is the default)
-VARIANTS = {"all cols": ("-DELL_ROWS_ALL_COLS=1",)}
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def nvcc_lib(name, src, *flags):
-    """Build ``src`` with the port's nvcc flags (plus ``flags``) into
-    ``build/lib<name>.so`` and load it."""
-    from repro_torch.kernels import cuda
-    cuda.build_dir().mkdir(parents=True, exist_ok=True)
-    out = cuda.build_dir() / f"lib{name}.so"
-    r = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, *flags, "-o",
-                        str(out), str(src)], check=True, capture_output=True,
-                       text=True)
-    if flags:
-        regs = [line.split("Used ")[1].split(" registers")[0]
-                for line in (r.stdout + r.stderr).splitlines()
-                if "registers" in line]
-        print(f"[floor] built {name}: registers {', '.join(regs)}",
-              flush=True)
-    return ctypes.CDLL(str(out))
+P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def bare_read_lib():
+    """Build the bare reads with the port's nvcc flags into ``build/`` and
+    load them."""
     from repro_torch.kernels import cuda
     cuda.build_dir().mkdir(parents=True, exist_ok=True)
     src = cuda.build_dir() / "bare_read.cu"
+    out = cuda.build_dir() / "libbare_read.so"
     src.write_text(READ_SOURCE)
-    lib = nvcc_lib("bare_read", src)
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
     f, f2 = lib.bare_read_launch, lib.bare_read2_launch
     f.argtypes = [P, ctypes.c_long, P, I, I, P]
     f2.argtypes = [P, P, ctypes.c_long, P, I, I, P]
@@ -137,13 +121,12 @@ def timer(time_ms, res):
 
 def ell_main() -> None:
     """The ELL row kernels at the w7a buffer beside bare reads of vals and
-    of vals + cols, and the source's build-time variants."""
+    of vals + cols, and at K = 16."""
     import numpy as np
     import torch
     dev, time_ms, res = setup(torch)
     from repro_torch.data import make
     from repro_torch.kernels import cuda, ops
-    from repro_torch.kernels.sparse_ell import _GAMMA_ARGS, _ROW_ARGS
     X, _, _, _ = make("w7a", 1.0, seed=0)
     data, _ = ell_buffer(torch, np, dev, X, W7A_BUFFER)
     v, c, s = data.vals, data.cols, data.sq_norms
@@ -174,36 +157,18 @@ def ell_main() -> None:
         "rbf", *a, INV), gamma_ins)
     timed("ell_kernel_rows2", lambda *a: ops.ell_kernel_rows2(*a, INV),
           rows_ins)
-    src = cuda.CSRC / cuda.SOURCES["ell_rows"]
-    for name, flags in VARIANTS.items():
-        lib = nvcc_lib("ell_rows_" + "".join(
-            ch if ch.isalnum() else "_" for ch in name), src, *flags)
-        fg, fr = lib.repro_ell_gamma_update, lib.repro_ell_kernel_rows2
-        fg.argtypes, fr.argtypes = _GAMMA_ARGS, _ROW_ARGS
-        fg.restype = fr.restype = I
-
-        def gamma(v, c, s, gam, z2, coef2, fg=fg):
-            out = torch.empty_like(gam)
-            cuda.raise_on(fg(*map(cuda.ptr, (v, c, s, gam, z2, coef2)),
-                             INV, cuda.ptr(out), m, K, z2.shape[1],
-                             cuda.stream(v)), "variant")
-            return out
-
-        def rows2(v, c, s, z2, fr=fr):
-            out = torch.empty((m, 2), device=dev)
-            cuda.raise_on(fr(*map(cuda.ptr, (v, c, s, z2)), INV,
-                             cuda.ptr(out), m, K, z2.shape[1],
-                             cuda.stream(v)), "variant")
-            return out
-        same = (torch.equal(gamma(*gamma_ins), want_g)
-                and torch.equal(rows2(*rows_ins), want_r))
-        print(f"[floor] variant {name} ({' '.join(flags)}): bitwise equal "
-              f"to the kernel: {same}", flush=True)
-        if not same:
-            print(f"FAIL: variant {name} differs", file=sys.stderr)
-            sys.exit(1)
-        timed(f"ell_gamma_update [{name}]", gamma, gamma_ins)
-        timed(f"ell_kernel_rows2 [{name}]", rows2, rows_ins)
+    v16, c16 = v[:, :16].contiguous(), c[:, :16].contiguous()
+    if not (torch.equal(ops.ell_fused_gamma_update(
+            "rbf", v16, c16, s, gam, z2, coef2, INV), want_g)
+            and torch.equal(ops.ell_kernel_rows2(v16, c16, s, z2, INV),
+                            want_r)):
+        print("FAIL: the kernels at K = 16 differ from K = 128",
+              file=sys.stderr)
+        sys.exit(1)
+    timed("ell_gamma_update K=16", lambda *a: ops.ell_fused_gamma_update(
+        "rbf", *a, INV), (v16, c16, s, gam, z2, coef2))
+    timed("ell_kernel_rows2 K=16", lambda *a: ops.ell_kernel_rows2(*a, INV),
+          (v16, c16, s, z2))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "shape": f"ELL {m}x{K}, d {X.shape[1]}",
                       "bytes_vals": v.numel() * 4,

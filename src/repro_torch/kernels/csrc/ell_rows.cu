@@ -40,19 +40,25 @@
 // last row reduces a real row and stores nothing; at K % 4 != 0 or a
 // misaligned vals or cols the loads are 4 bytes wide.
 // Measured against the alternatives (scripts/row_stream_floor.py --ell,
-// PERF.md): cp.async rings in shared memory, shared by a block or private
-// to a warp, 2 to 6 stages deep, with the cols of nonzero chunks copied
-// beside the vals or loaded by the lanes, were all slower, most of all in
-// L2: a block or warp that waits for its next tile holds fewer bytes in
-// flight than this many warps do, and every ring added a wait. Reading
-// every col (the ELL_ROWS_ALL_COLS variant) costs more bytes than the wait
-// for the nonzero chunks' cols saves. Measured on an NVIDIA H100 80GB HBM3
-// at a 700 W power limit, at the w7a buffer, inputs out of L2 (in L2):
-// ell_gamma_update 11.90 us (7.30), ell_kernel_rows2 11.82 us (7.19), 0.46
-// of the bound; the first port's body 13.65 (10.46) and 13.16 (10.11); a
-// bare float4 read of the same vals 8.18-8.47 us (4.29-4.62). What is
-// left above the bare read: the cols of the nonzero chunks (~2 MB more in
-// 32-byte sectors) and their round trip, two passes a block deep.
+// PERF.md): cp.async rings in shared memory, shared by a block, private to
+// a warp or to a thread, 2 to 6 stages deep, and a ring of 8 KB tiles
+// filled by bulk copies (TMA), with the cols of nonzero chunks copied
+// beside the vals or loaded by the lanes a tile behind, were all slower,
+// most of all in L2; so were parking a pass's vals in shared memory to
+// load the next pass during the cols' round trip, and prefetching the
+// next pass's vals or the first cols into L2. On this card, whatever asks
+// for more bytes at once than this many warps hold in registers lands
+// every tile late. Reading every col costs more bytes than the wait for
+// the nonzero chunks' cols saves. 8 lanes a row at every K would be
+// slower at small K (K = 16: two passes a block instead of one), hence W
+// from the row's chunks; the bits are the same either way. Measured on an
+// NVIDIA H100 80GB HBM3 at a 700 W power limit, at the w7a buffer, inputs
+// out of L2 (in L2): ell_gamma_update 11.90 us (7.30), ell_kernel_rows2
+// 11.82 us (7.19), 0.46 of the bound; the first port's body 13.65 (10.46)
+// and 13.16 (10.11); a bare float4 read of the same vals 8.18-8.47 us
+// (4.29-4.62). What is left above the bare read: the cols of the nonzero
+// chunks (~2 MB more in 32-byte sectors) and their round trip, two passes
+// a block deep.
 //
 // Reduction order, fixed and independent of K and of the load width: the
 // slots of a row fall in 16-byte chunks (chunk q: slots 4q .. 4q + 3);
@@ -71,17 +77,11 @@
 // gives the same bits. Distance, exp and the update stay in fp32 with
 // explicitly rounded operations. Padding rows carry gamma = +inf, and +inf
 // plus a finite update stays +inf.
-//
-// Build-time variant, for scripts/row_stream_floor.py only (the default is
-// the kernel): ELL_ROWS_ALL_COLS=1 loads every chunk of cols, zero or not,
-// beside the vals.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#ifndef ELL_ROWS_ALL_COLS
-#define ELL_ROWS_ALL_COLS 0
-#endif
+#include "occupancy.cuh"
 
 namespace {
 
@@ -89,7 +89,6 @@ constexpr int kThreads = 128;
 constexpr int kLanes = 8;                 // lanes per row, at most
 constexpr int kBatch = 4;                 // chunks a lane loads at once
 constexpr int kBlocksPerSm = 8;           // resident blocks per SM, at most
-constexpr bool kAllCols = ELL_ROWS_ALL_COLS != 0;
 constexpr long kSharedQueryBytes = 32 * 1024;
 
 enum Mode { kRow = 0, kRows2 = 1, kGamma = 2 };
@@ -160,7 +159,7 @@ struct Dots {
                                         bool vec) {
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      if (kAllCols || any_nonzero(x[b])) {
+      if (any_nonzero(x[b])) {
         const int4 ci = chunk<int, int4>(c, q0 + b * W, K, vec);
         add(x[b].x, ci.x);
         add(x[b].y, ci.y);
@@ -267,23 +266,12 @@ int run(const float* vals, const int* cols, const float* sq, const float* z,
         int n, int K, int d, int lw, bool vec_v, bool vec_c, int smem,
         void* stream) {
   auto kernel = ell_rows_kernel<kMode, kSharedZ>;
-  // blocks resident at once: min(occupancy, kBlocksPerSm) per SM, times
-  // the SMs; cached for the last shared-memory size asked
   static int cached_smem = -1, cached_blocks = 0;
-  if (cached_smem != smem) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  smem);
-    per_sm = per_sm < 1 ? 1 : per_sm > kBlocksPerSm ? kBlocksPerSm : per_sm;
-    cached_smem = smem;
-    cached_blocks = per_sm * (sms > 0 ? sms : 1);
-  }
+  const int resident = occupancy::resident_blocks<kThreads, kBlocksPerSm>(
+      kernel, smem, &cached_smem, &cached_blocks);
   const long passes = (static_cast<long>(n) + (kThreads >> lw) - 1) /
                       (kThreads >> lw);
-  const int grid = passes < cached_blocks ? static_cast<int>(passes)
-                                          : cached_blocks;
+  const int grid = passes < resident ? static_cast<int>(passes) : resident;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       vals, cols, sq, z, inv_2s2, gamma, coef2, out, n, K, d, lw, vec_v,
       vec_c);

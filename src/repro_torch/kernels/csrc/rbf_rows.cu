@@ -57,6 +57,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -232,23 +233,6 @@ rbf_rows_kernel(const float* __restrict__ X, const float* __restrict__ sq,
   }
 }
 
-// Blocks of `kernel` resident at once: min(occupancy, kBlocksPerSm) per
-// SM, times the SMs; cached for the last shared-memory size asked.
-template <typename Kernel>
-int resident_blocks(Kernel kernel, int smem, int* cached_smem,
-                    int* cached_blocks) {
-  if (*cached_smem == smem) return *cached_blocks;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  per_sm = per_sm < 1 ? 1 : per_sm > kBlocksPerSm ? kBlocksPerSm : per_sm;
-  *cached_smem = smem;
-  *cached_blocks = per_sm * (sms > 0 ? sms : 1);
-  return *cached_blocks;
-}
-
 template <bool kGamma, int G, int kStages>
 int run(const float* X, const float* sq, const float* z2, float inv_2s2,
         const float* gamma, const float* coef2, float* out, int n, int d,
@@ -264,7 +248,8 @@ int run(const float* X, const float* sq, const float* z2, float inv_2s2,
   }
   const int n_tiles = (n + rows - 1) / rows;
   const int resident =
-      resident_blocks(kernel, smem, &cached_smem, &cached_blocks);
+      occupancy::resident_blocks<kThreads, kBlocksPerSm>(
+          kernel, smem, &cached_smem, &cached_blocks);
   const int grid = n_tiles < resident ? n_tiles : resident;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       X, sq, z2, inv_2s2, gamma, coef2, out, n, d, rows, stride);

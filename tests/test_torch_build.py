@@ -38,6 +38,20 @@ def test_editing_a_header_renames_exactly_its_includers(csrc, name):
     assert after.parent == before.parent
 
 
+def test_the_row_kernels_share_the_occupancy_header():
+    assert sorted(_includers("occupancy.cuh")) == ["ell_rows", "rbf_rows"]
+
+
+@pytest.mark.parametrize("name", sorted(cuda.SOURCES))
+def test_editing_the_occupancy_header_renames_exactly_its_includers(csrc,
+                                                                    name):
+    before = cuda._target(name)
+    with open(csrc / "occupancy.cuh", "a") as f:
+        f.write("// edited\n")
+    assert (cuda._target(name) != before) == (
+        name in _includers("occupancy.cuh"))
+
+
 @pytest.mark.parametrize("name", sorted(cuda.SOURCES))
 def test_editing_a_source_renames_its_library(csrc, name):
     before = {n: cuda._target(n) for n in cuda.SOURCES}
@@ -55,7 +69,7 @@ def test_nested_and_toolkit_includes(csrc):
         f.write('#include "inner.cuh"\n#include "cuda_fp16.h"\n')
     seen = cuda._inputs(csrc / cuda.SOURCES["rbf_rows"], {})
     assert sorted(p.name for p in seen) == ["async_copy.cuh", "inner.cuh",
-                                            "rbf_rows.cu"]
+                                            "occupancy.cuh", "rbf_rows.cu"]
     before = cuda._target("rbf_rows")
     (csrc / "inner.cuh").write_text("// inner, edited\n")
     assert cuda._target("rbf_rows") != before
