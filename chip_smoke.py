@@ -178,7 +178,10 @@ INV = 1.0 / (2.0 * 64.0)          # sigma2 = 64, the paper's a9a / w7a value
 
 def check_dense(torch, np, dev, time_ms, kernels) -> None:
     """The three dense kernels against their plain versions at the a9a
-    buffer (32,768 x 123) and a serve bucket (B = 4,096 x ~18k SVs)."""
+    buffer (32,768 x 123) and a serve bucket (B = 4,096 x ~18k SVs, rows
+    padded to 124 features as the serving engine pads them; the split-SV
+    contracts of ``check_accumulate_split``; timed at B = 4,096 and B =
+    64)."""
     from repro_torch.data import make
     from repro_torch.kernels import ops, ref
     X, _, Xt, _ = make("a9a", 1.0, seed=0)
@@ -250,10 +253,12 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
           f"at {b_ms / t_k:.2f} of it)", flush=True)
 
     B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
-    Xs = Xd[:M].contiguous()
+    w = -(-d // 4) * 4            # the serving engine pads d to 4 features
+    Xs = torch.nn.functional.pad(Xd[:M], (0, w - d)).contiguous()
     sqs = sq[:M].contiguous()
     cf = torch.rand(M, generator=g, device=dev) * 32.0   # positive: no
     Zq = torch.as_tensor(np.resize(Xt, (B, d)), device=dev)  # cancellation
+    Zq = torch.nn.functional.pad(Zq, (0, w - d)).contiguous()
     got = ops.rbf_accumulate(Xs, sqs, cf, Zq, INV)
     want = ref.rbf_accumulate(Xs, sqs, cf, Zq, INV)
     torch.cuda.synchronize()
@@ -261,10 +266,18 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
     rel = float(((got - want).abs() / want.abs()).max())
     if not rel <= 1e-5:
         fail(f"rbf_accumulate relative error {rel:.3e} > 1e-5")
+    if not torch.equal(ops.rbf_accumulate(Xs, sqs, cf, Zq, INV), got):
+        fail("rbf_accumulate is not identical from run to run")
+    acc = lambda X_, s_, c_, Z_: ops.rbf_accumulate(X_, s_, c_, Z_, INV)
+    plain = lambda X_, s_, c_, Z_: ref.rbf_accumulate(X_, s_, c_, Z_, INV)
+    check_accumulate_split(torch, "rbf_accumulate", acc, plain,
+                           (Xs, sqs, cf), Zq)
     ins = (Xs, sqs, cf, Zq)
     t_k = time_ms(lambda *a: ops.rbf_accumulate(*a, INV), ins, reps=10)
     t_w = time_ms(lambda *a: ops.rbf_accumulate(*a, INV), ins, reps=10,
                   cold=False)
+    t_64 = time_ms(lambda z: ops.rbf_accumulate(Xs, sqs, cf, z, INV),
+                   (Zq[:64].contiguous(),), reps=50)
     t_p = time_ms(lambda *a: ref.rbf_accumulate(*a, INV), ins, reps=5)
     t_mm = time_ms(lambda z, x: z @ x.T, (Zq, Xs), reps=10)
     b_ms, b_by = bound(4.0 * (M * d + 2 * M + B * d + B),
@@ -273,11 +286,37 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
         route="cuda", source=SRC_RBF_ACC,
         replaces="src/repro/kernels/rbf_row.py:103", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        matmul_ms=t_mm, warm_ms=t_w, shape=f"B {B} x M {M} x d {d}")
-    print(f"[check] rbf_accumulate B={B} M={M} d={d}: max rel err "
-          f"{rel:.3e} (1e-5), kernel {t_k:.3f} ms (in L2 {t_w:.3f}), plain "
-          f"{t_p:.3f} ms, Z@X.T {t_mm:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
-          flush=True)
+        matmul_ms=t_mm, warm_ms=t_w, b64_ms=t_64,
+        shape=f"B {B} x M {M} x d {d} (rows padded to {w})")
+    print(f"[check] rbf_accumulate B={B} M={M} d={d} (padded to {w}): max "
+          f"rel err {rel:.3e} (1e-5), identical across runs; kernel "
+          f"{t_k:.4f} ms (in L2 {t_w:.4f}), B=64 {t_64 * 1e3:.2f} us (SVs "
+          f"in L2), plain {t_p:.3f} ms, Z@X.T {t_mm:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+
+def check_accumulate_split(torch, name, acc, plain, svs, Zq) -> None:
+    """The split-SV contracts of an accumulate (SV chunks of 128 rows):
+    the same 64 queries give the same bits as a B = 64 bucket and at
+    scattered positions of a B = 4,096 bucket; and the first M rows of the
+    SVs, M not a multiple of the chunk (1,000) and below one chunk (77),
+    agree with the plain version within 1e-5 of max |sum|."""
+    B = Zq.shape[0]
+    g = torch.Generator(device=Zq.device).manual_seed(9)
+    at = torch.randperm(B, generator=g, device=Zq.device)[:64].sort().values
+    small = acc(*svs, Zq[at].contiguous())
+    if not torch.equal(acc(*svs, Zq)[at], small):
+        fail(f"{name}: 64 queries score differently in a B=64 bucket and "
+             f"at scattered positions of a B={B} bucket")
+    for m in (1000, 77):
+        part = tuple(t[:m].contiguous() for t in svs)
+        got, want = acc(*part, Zq), plain(*part, Zq)
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not rel <= 1e-5:
+            fail(f"{name} at M={m}: error {rel:.3e} of max |sum| > 1e-5")
+    print(f"[check] {name}: 64 queries bitwise equal in a B=64 bucket and "
+          f"at scattered positions of B={B}; M=1000 and M=77 within 1e-5 "
+          f"of the plain version", flush=True)
 
 
 def ell_buffer(torch, np, dev, X, m):
@@ -517,8 +556,11 @@ def ragged_ell(torch, dev, m, K, d, seed):
 def check_ell_accumulate(torch, np, dev, time_ms, kernels, model,
                          Xt) -> None:
     """``ell_rbf_accumulate`` against its plain version at B = 4,096 query
-    rows x the trained model's ELL support vectors (w7a), and at d =
-    16,384 (queries gathered from global memory)."""
+    rows x the trained model's ELL support vectors (w7a), with the
+    split-SV contracts (``check_accumulate_split``) and the same SVs
+    re-laid at the smallest K that holds them (bitwise equal), timed at B
+    = 4,096 and B = 64; and at d = 16,384 (queries gathered from global
+    memory)."""
     from repro_torch.kernels import ops, ref
     eng = model.serve_engine()
     data, coef = eng._data, eng._coef
@@ -538,10 +580,26 @@ def check_ell_accumulate(torch, np, dev, time_ms, kernels, model,
     again = ops.ell_rbf_accumulate(v, c, s, coef, Zq, inv)
     if not torch.equal(again, got):
         fail("ell_rbf_accumulate is not identical from run to run")
+    acc = lambda v_, c_, s_, f_, Z_: ops.ell_rbf_accumulate(v_, c_, s_, f_,
+                                                            Z_, inv)
+    plain = lambda v_, c_, s_, f_, Z_: ref.ell_rbf_accumulate(v_, c_, s_,
+                                                              f_, Z_, inv)
+    check_accumulate_split(torch, "ell_rbf_accumulate", acc, plain,
+                           (v, c, s, coef), Zq)
+    # the same SVs re-laid at the smallest K that holds every nonzero
+    ext = int(((v != 0) * torch.arange(1, K + 1, device=dev)).amax())
+    small_k = ops.ell_rbf_accumulate(v[:, :ext].contiguous(),
+                                     c[:, :ext].contiguous(), s, coef, Zq,
+                                     inv)
+    if not torch.equal(small_k, got):
+        fail(f"ell_rbf_accumulate: the SVs re-laid at K={ext} score "
+             f"differently from K={K}")
     ins = (v, c, s, coef, Zq)
     t_k = time_ms(lambda *a: ops.ell_rbf_accumulate(*a, inv), ins, reps=10)
     t_w = time_ms(lambda *a: ops.ell_rbf_accumulate(*a, inv), ins, reps=10,
                   cold=False)
+    t_64 = time_ms(lambda z: ops.ell_rbf_accumulate(v, c, s, coef, z, inv),
+                   (Zq[:64].contiguous(),), reps=50)
     t_p = time_ms(lambda *a: ref.ell_rbf_accumulate(*a, inv), ins, reps=3)
     sv_dense = np.zeros((M, d), np.float32)
     sv_dense[: model.stats.n_sv] = model._sv_dense()
@@ -554,11 +612,12 @@ def check_ell_accumulate(torch, np, dev, time_ms, kernels, model,
         route="cuda", source=SRC_ELL_ACC,
         replaces="src/repro/kernels/rbf_row.py:163", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        spmm_ms=t_sp, warm_ms=t_w,
+        spmm_ms=t_sp, warm_ms=t_w, b64_ms=t_64,
         shape=f"B {B} x ELL SVs {M}x{K}, d {d}, nnz {nnz}")
     print(f"[check-ell] ell_rbf_accumulate B={B} M={M} K={K} d={d} "
           f"nnz={nnz}: max err {rel:.3e} of max |sum| (1e-5), identical "
-          f"across runs; kernel {t_k:.4f} ms (in L2 {t_w:.4f}), plain "
+          f"across runs and bitwise equal at K={ext}; kernel {t_k:.4f} ms "
+          f"(in L2 {t_w:.4f}), B=64 {t_64 * 1e3:.2f} us (SVs in L2), plain "
           f"{t_p:.3f} ms, cuSPARSE "
           f"spmm {t_sp if t_sp is None else round(t_sp, 4)} ms, bound "
           f"{b_ms*1e3:.2f} us ({b_by})", flush=True)
@@ -917,11 +976,22 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
     per_bucket = {}
     b = eng.min_bucket
     while b <= eng.max_bucket:
-        zb = torch.as_tensor(np.resize(Xt, (b, Xt.shape[1])), device=dev)
+        zb = np.zeros((b, eng.width), np.float32)   # the engine's padding
+        zb[:, : Xt.shape[1]] = np.resize(Xt, (b, Xt.shape[1]))
+        zb = torch.as_tensor(zb, device=dev)
         per_bucket[b] = time_ms(eng.score_bucket, (zb,), reps=20) * 1e3 / b
         b *= 2
+    # the device time of the predict above: its buckets at these rates
+    seq, left = [], Xt.shape[0]
+    while left > 0:
+        seq.append(eng._bucket_of(left))
+        left -= min(left, seq[-1])
+    dev_ms = sum(per_bucket[b] * b for b in seq) / 1e3
     print(f"[serve{sfx}] device us/query by bucket: " + ", ".join(
-        f"{b}: {v:.3f}" for b, v in per_bucket.items()), flush=True)
+        f"{b}: {v:.3f}" for b, v in per_bucket.items()) + f"; predict "
+        f"{t_pred * 1e3:.2f} ms wall, {len(seq)} buckets {dev_ms:.3f} ms on "
+        f"the device ({dev_ms / (t_pred * 1e3):.0%}), the rest host "
+        f"densify and copies", flush=True)
     return model, launches, Xt
 
 
@@ -1011,7 +1081,7 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
-                                       "k16_ms", "k16_warm_ms",
+                                       "b64_ms", "k16_ms", "k16_warm_ms",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

@@ -63,6 +63,10 @@ class DenseData:
         """Rows ``idx`` (k,) as a dense (k, d) block — the working-set rows."""
         return self.X.index_select(0, idx)
 
+    def flops_row_pass(self) -> float:
+        """Model FLOPs of ONE kernel-row pass, per buffer row."""
+        return 2.0 * self.n_features + 5.0
+
 
 @dataclasses.dataclass(frozen=True)
 class ELLData:
@@ -96,6 +100,10 @@ class ELLData:
         out = torch.zeros((idx.shape[0], self.n_features),
                           dtype=torch.float32, device=v.device)
         return out.scatter_add_(1, c, v)
+
+    def flops_row_pass(self) -> float:
+        """Model FLOPs of ONE gather-FMA kernel-row pass, per buffer row."""
+        return 4.0 * self.K + 5.0
 
 
 class DenseStore:

@@ -76,6 +76,9 @@ class FitStats:
     min_active: int = 0
     dispatches: int = 0          # fused-epoch runner calls; each reads back
                                  # ONE EpochSummary and nothing else
+    dispatch_times: list = dataclasses.field(default_factory=list)
+                                 # wall seconds per dispatch (len ==
+                                 # dispatches)
     train_time: float = 0.0
     recon_time: float = 0.0
     compact_time: float = 0.0
@@ -89,6 +92,13 @@ class FitStats:
     shard_K: list = dataclasses.field(default_factory=list)
     # per-buffer tuple of each shard's lane-rounded K (one shard here)
     mirror: str = ""             # resolved full-set mirror mode of this fit
+    flops_est: float = 0.0       # model FLOPs of the gamma-update hot loop,
+                                 # by the reference's rule: production plus
+                                 # epilogue
+    flops_production: float = 0.0   # kernel-row passes: 2 an iteration (no
+                                 # row cache), flops_row_pass per buffer row
+    flops_epilogue: float = 0.0  # O(M) Eq. 6 FMA (4 flops a buffer row; 12
+                                 # under wss2, the selection sweep added)
 
 
 def betas(gamma, alpha, y, C: float) -> tuple:
@@ -407,6 +417,7 @@ class EpochDriver:
             # ---- inner optimization at the current tolerance ------------
             while True:
                 tc = time.perf_counter()
+                step_before = step_host
                 # integer-exact host twin of the compaction trigger
                 compact_lt = (math.ceil(cfg.compact_ratio * self.data.m)
                               if shrink_on else 0)
@@ -414,9 +425,21 @@ class EpochDriver:
                     self.data, self.yb, self.state, tol, fuse,
                     cfg.chunk_iters, cfg.max_iters, compact_lt, mper_lo)
                 summ = smo.EpochSummary.from_tensor(summ_d.cpu())  # one sync
-                t_train += time.perf_counter() - tc
+                dt = time.perf_counter() - tc
+                t_train += dt
                 stats.dispatches += 1
+                stats.dispatch_times.append(dt)
                 step_host = summ.step
+                # model FLOPs by the reference's rule: no row cache, so two
+                # kernel-row passes an iteration, and the O(M) epilogue
+                iters_done = step_host - step_before
+                prod = 2.0 * iters_done * self.data.flops_row_pass() \
+                    * float(self.data.m)
+                epi = iters_done * (12.0 if cfg.selection == "wss2"
+                                    else 4.0) * float(self.data.m)
+                stats.flops_production += prod
+                stats.flops_epilogue += epi
+                stats.flops_est += prod + epi
                 stats.min_active = min(stats.min_active, summ.min_active)
                 if summ.converged or summ.stalled \
                         or step_host >= cfg.max_iters:

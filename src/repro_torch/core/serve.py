@@ -11,7 +11,9 @@ on the card is one launch of the hand-written ``rbf_accumulate`` or
 ``ell_rbf_accumulate`` kernel, never forming the (B, M) kernel matrix. CSR
 queries are densified per bucket on the host (queries travel dense into
 the kernels either way, so the ingest format never changes a score). The
-SV set is padded to a multiple of 128 rows with coef-0 rows, an exact pad.
+SV set is padded to a multiple of 128 rows with coef-0 rows, and dense SV
+rows and query buckets to a multiple of 4 features with zero columns (the
+kernel then stages 16-byte rows); both pads are exact.
 bf16 SV storage and sharding over several cards are later slices of the
 port.
 """
@@ -27,6 +29,7 @@ from repro_torch.data import sparse as sp
 __all__ = ["ServeEngine"]
 
 _LANE = 128          # SV padding multiple
+_WIDTH = 4           # dense feature padding multiple
 
 
 def _csr_dense_block(csr: "sp.CSRMatrix", lo: int, hi: int,
@@ -45,23 +48,29 @@ class ServeEngine:
     ``device`` defaults to the model's. Buckets are scored by the
     hand-written kernel on CUDA tensors, its plain version on CPU tensors.
     ``min_bucket`` / ``max_bucket`` clamp the pow2 query
-    buckets, so at most log2(max/min)+1 bucket shapes exist.
+    buckets, so at most log2(max/min)+1 bucket shapes exist. ``shards=None``
+    means every device (the card count on CUDA, 1 on the CPU); a count
+    above 1 is refused until the multi-GPU slice.
     """
 
     def __init__(self, model, *, device: "str | None" = None,
-                 min_bucket: int = 64, max_bucket: int = 4096, shards: int = 1,
-                 dtype: "str | None" = None):
+                 min_bucket: int = 64, max_bucket: int = 4096,
+                 shards: "int | None" = 1, dtype: "str | None" = None):
+        cfg = model.config
+        self.device = devmod.resolve(cfg.device if device is None else device)
+        if shards is None:        # every device, as in the reference
+            shards = (torch.cuda.device_count()
+                      if self.device.type == "cuda" else 1)
         if shards != 1:
             raise NotImplementedError(
-                "sharded serving arrives with the port's multi-GPU slice")
+                f"shards={shards}: sharded serving arrives with the port's "
+                "multi-GPU slice (ROADMAP queue 1, item 10)")
         if dtype not in (None, "float32", "fp32", "f32"):
             raise NotImplementedError(
                 f"SV storage dtype {dtype!r}: bf16 serving arrives with a "
                 "later slice of the port (fp32 only)")
         if min_bucket <= 0 or max_bucket < min_bucket:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
-        cfg = model.config
-        self.device = devmod.resolve(cfg.device if device is None else device)
         self.min_bucket = int(min_bucket)
         self.max_bucket = int(max_bucket)
         self.beta = smo.f32(model.beta)
@@ -79,14 +88,15 @@ class ServeEngine:
         if self.fmt == "dense":
             sv = np.asarray(model.sv_x, np.float32)
             self.n_features = int(sv.shape[1])
+            self.width = _WIDTH * max(1, -(-self.n_features // _WIDTH))
             self.K = 0
-            x_p = np.zeros((self.m_pad, self.n_features), np.float32)
-            x_p[: self.n_sv] = sv
+            x_p = np.zeros((self.m_pad, self.width), np.float32)
+            x_p[: self.n_sv, : self.n_features] = sv
             self._data = dataplane.DenseData(put(x_p),
                                              put((x_p * x_p).sum(axis=1)))
         else:
             vals = np.asarray(model.sv_vals, np.float32)
-            self.n_features = int(model.n_features)
+            self.n_features = self.width = int(model.n_features)
             self.K = int(vals.shape[1])
             v_p = np.zeros((self.m_pad, self.K), np.float32)
             c_p = np.zeros((self.m_pad, self.K), np.int32)
@@ -103,8 +113,12 @@ class ServeEngine:
                                 self.min_bucket, self.max_bucket)
 
     def score_bucket(self, zb: torch.Tensor) -> torch.Tensor:
-        """Scores of one padded (b, d) query bucket already on the device —
-        one ``accumulate`` call."""
+        """Scores of one padded (b, width) query bucket already on the
+        device — one ``accumulate`` call. ``width`` is the features the
+        device rows hold (``n_features``, dense rounded up to a multiple of
+        4); a (b, n_features) bucket is padded here."""
+        if zb.shape[1] != self.width:
+            zb = torch.nn.functional.pad(zb, (0, self.width - zb.shape[1]))
         self._buckets.add(int(zb.shape[0]))
         return self._provider.accumulate(self._data, zb, self._coef) \
             - self.beta
@@ -129,11 +143,11 @@ class ServeEngine:
         while s < n:
             b = self._bucket_of(n - s)
             take = min(n - s, b)
-            zb = np.zeros((b, d), np.float32)
+            zb = np.zeros((b, self.width), np.float32)
             if csr is not None:
                 _csr_dense_block(csr, s, s + take, zb)
             else:
-                zb[:take] = Z[s: s + take]
+                zb[:take, :d] = Z[s: s + take]
             f = self.score_bucket(torch.as_tensor(zb, device=self.device))
             out[s: s + take] = f.cpu().numpy()[:take]
             s += take

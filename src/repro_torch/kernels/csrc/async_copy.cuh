@@ -3,7 +3,8 @@
 //
 //   cp.async (16 or 4 bytes a thread, commit / wait groups): per-thread
 //     copies from device to shared memory that stay in flight while the
-//     thread computes (rbf_rows.cu's ring over X).
+//     thread computes (rbf_rows.cu's ring over X, the cols ell_accumulate.cu
+//     compacts).
 //   mbarrier: a barrier in shared memory that counts thread arrivals and,
 //     for TMA, the bytes still to land (flash_attention.cu's full / empty
 //     ring barriers).

@@ -159,6 +159,20 @@ def entry(kernel: str, argtypes: list):
     return f
 
 
+def constant(kernel: str, what: str) -> int:
+    """An ``int`` constant the library of ``kernel`` exports as
+    ``repro_<kernel>_<what>()`` (e.g. the SV rows of an accumulate's
+    chunk), read once and cached."""
+    key = f"{kernel}_{what}"
+    v = _entries.get(key)
+    if v is None:
+        f = getattr(library(KERNELS[kernel]), f"repro_{key}")
+        f.argtypes = []
+        f.restype = ctypes.c_int
+        v = _entries[key] = int(f())
+    return v
+
+
 def check(t: torch.Tensor, what: str, shape: tuple,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (f32 by

@@ -24,8 +24,8 @@ def _includers(header: str) -> list:
 
 
 def test_the_redesigned_sources_share_a_header():
-    assert sorted(_includers("async_copy.cuh")) == ["flash_attention",
-                                                    "rbf_rows"]
+    assert sorted(_includers("async_copy.cuh")) == [
+        "ell_accumulate", "flash_attention", "rbf_rows"]
 
 
 @pytest.mark.parametrize("name", sorted(cuda.SOURCES))
@@ -39,7 +39,23 @@ def test_editing_a_header_renames_exactly_its_includers(csrc, name):
 
 
 def test_the_row_kernels_share_the_occupancy_header():
-    assert sorted(_includers("occupancy.cuh")) == ["ell_rows", "rbf_rows"]
+    assert sorted(_includers("occupancy.cuh")) == ["ell_accumulate",
+                                                   "ell_rows", "rbf_rows"]
+
+
+def test_the_accumulates_share_the_chunk_sum_header():
+    assert sorted(_includers("chunk_sum.cuh")) == ["ell_accumulate",
+                                                   "rbf_accumulate"]
+
+
+@pytest.mark.parametrize("name", sorted(cuda.SOURCES))
+def test_editing_the_chunk_sum_header_renames_exactly_its_includers(csrc,
+                                                                    name):
+    before = cuda._target(name)
+    with open(csrc / "chunk_sum.cuh", "a") as f:
+        f.write("// edited\n")
+    assert (cuda._target(name) != before) == (
+        name in _includers("chunk_sum.cuh"))
 
 
 @pytest.mark.parametrize("name", sorted(cuda.SOURCES))

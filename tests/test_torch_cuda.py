@@ -542,3 +542,113 @@ def test_cuda_ell_row_stream_matches_plain_and_is_symmetric(cuda_device, n,
         ops.ell_fused_gamma_update("rbf", vm, c, s, g, z2, c2, inv), got)
     for k in ("ell_kernel_row", "ell_kernel_rows2", "ell_gamma_update"):
         assert cuda.launches[k] > before[k], k
+
+
+def _accumulate_case(kind, m, d, K, seed, device):
+    """SVs for one accumulate (dense rows, or ELL rows with nonzeros at
+    random slots, explicit zeros among them), coefs of both signs with up
+    to 7 trailing rows at 0, and a scale that keeps K(z, x) well above 0.
+    Returns ``{name: score(Z)}``: ``kernel`` through ``ops``, ``plain`` the
+    plain version, ``trim`` the kernel without the coef-0 rows and, for
+    ELL, ``wide`` the kernel on the same SVs re-laid at a larger K."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    cf = r.normal(size=m).astype(np.float32)
+    n = m - min(7, m // 4)
+    cf[n:] = 0.0                                  # trailing coef-0 rows
+    cf = t(cf)
+    inv = 1 / 64
+    if kind == "dense":
+        X = (r.normal(size=(m, d)) * (4.0 / np.sqrt(d))).astype(np.float32)
+        X, sq = t(X), t((X * X).sum(1).astype(np.float32))
+        return dict(
+            kernel=lambda Z: ops.rbf_accumulate(X, sq, cf, Z, inv),
+            plain=lambda Z: ref.rbf_accumulate(X, sq, cf, Z, inv),
+            trim=lambda Z: ops.rbf_accumulate(X[:n].contiguous(),
+                                              sq[:n].contiguous(),
+                                              cf[:n].contiguous(), Z, inv))
+    wide = np.zeros((m, K + 17), np.float32)
+    wcol = np.zeros((m, K + 17), np.int32)
+    for i in range(m):
+        slots = np.sort(r.choice(K, size=r.integers(0, K + 1),
+                                 replace=False))
+        wide[i, slots] = r.normal(size=slots.size) * (4.0 / np.sqrt(K))
+        wide[i, slots[::5]] = 0.0                  # explicit zeros
+        wcol[i, slots] = r.choice(d, size=slots.size, replace=bool(K > d))
+    v, c = t(wide[:, :K]), t(wcol[:, :K])
+    s = t((wide * wide).sum(1).astype(np.float32))
+    wv, wc = t(wide), t(wcol)
+    return dict(
+        kernel=lambda Z: ops.ell_rbf_accumulate(v, c, s, cf, Z, inv),
+        plain=lambda Z: ref.ell_rbf_accumulate(v, c, s, cf, Z, inv),
+        trim=lambda Z: ops.ell_rbf_accumulate(
+            v[:n].contiguous(), c[:n].contiguous(), s[:n].contiguous(),
+            cf[:n].contiguous(), Z, inv),
+        wide=lambda Z: ops.ell_rbf_accumulate(wv, wc, s, cf, Z, inv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,d,K", [
+    ("dense", 5, 123, 0), ("dense", 127, 37, 0), ("dense", 128, 1, 0),
+    ("dense", 1000, 123, 0), ("dense", 18048 + 77, 300, 0),
+    ("ell", 5, 300, 128), ("ell", 127, 300, 13), ("ell", 1000, 300, 128),
+    ("ell", 777, 40000, 40), ("ell", 300, 300, 1100)])
+def test_cuda_accumulates_split_the_sv_axis(cuda_device, kind, m, d, K):
+    """The split accumulates (SV chunks of 128 rows, partials added in
+    chunk order) at M below one chunk, at one chunk, and not a multiple of
+    it, at B = 64 and 4,096 and between (each query-tile shape), for dense
+    widths from 1 to 300 and ELL lane budgets from 13 to 1,100 (a group's
+    list refilled in windows, rows cut between rounds of loads) and a width
+    whose query tile does not fit in shared memory: within 1e-5 of max
+    |sum| of the plain version, one counted launch a call, and the same
+    bits from run to run, without the trailing coef-0 rows and from the
+    ELL rows re-laid at a larger K."""
+    f = _accumulate_case(kind, m, d, K, m + d + K, cuda_device)
+    r = np.random.default_rng(m)
+    name = "rbf_accumulate" if kind == "dense" else "ell_rbf_accumulate"
+    for b in (64, 200, 4096):
+        Z = torch.as_tensor((r.normal(size=(b, d)) * (4.0 / np.sqrt(d)))
+                            .astype(np.float32), device=cuda_device)
+        before = cuda.launches[name]
+        got = f["kernel"](Z)
+        assert cuda.launches[name] == before + 1
+        want = f["plain"](Z)
+        assert float(want.abs().max()) > 0.1
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+        assert torch.equal(got, f["kernel"](Z))
+        assert torch.equal(got, f["trim"](Z))
+        if "wide" in f:
+            assert torch.equal(got, f["wide"](Z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,d,K", [("dense", 18048, 123, 0),
+                                        ("dense", 1000, 37, 0),
+                                        ("ell", 7936, 300, 128),
+                                        ("ell", 1000, 300, 13)])
+def test_cuda_accumulates_are_bucket_invariant(cuda_device, kind, m, d, K):
+    """A query's score does not depend on the bucket: the same 64 queries
+    scored as a B = 64 bucket, at scattered positions of a B = 4,096 bucket
+    of other queries, and at the tail of a B = 200 bucket give the same
+    bits; and for ELL, the same SVs re-laid at a larger K give the same
+    bits (serving's scores do not depend on how a request is chopped into
+    buckets or on the lane budget)."""
+    f = _accumulate_case(kind, m, d, K, 7, cuda_device)
+    score = f["kernel"]
+    r = np.random.default_rng(8)
+    rows = lambda n: torch.as_tensor(
+        (r.normal(size=(n, d)) * (4.0 / np.sqrt(d))).astype(np.float32),
+        device=cuda_device)
+    Z = rows(64)
+    small = score(Z)
+    big = rows(4096)
+    at = torch.as_tensor(np.sort(r.choice(4096, 64, replace=False)),
+                         device=cuda_device)
+    big[at] = Z
+    assert torch.equal(score(big)[at], small)
+    mid = torch.cat([rows(136), Z])
+    assert torch.equal(score(mid)[136:], small)
+    if "wide" in f:
+        assert torch.equal(f["wide"](Z), small)
+        assert torch.equal(f["wide"](big)[at], small)

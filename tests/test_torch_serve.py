@@ -44,6 +44,17 @@ def test_bucket_padding_is_invisible(trained):
     np.testing.assert_array_equal(whole.predict(Z), m.predict(Z))
 
 
+def test_shards_none_means_every_device(trained):
+    """``shards=None`` resolves to the device count, as in the reference
+    (1 on the CPU), and scores exactly as ``shards=1``."""
+    m, _, _, Z = trained
+    every = ServeEngine(m, device="cpu", shards=None)
+    assert every.describe()["shards"] == 1
+    np.testing.assert_array_equal(
+        every.decision_function(Z),
+        ServeEngine(m, device="cpu", shards=1).decision_function(Z))
+
+
 def test_converted_reference_model_scores_like_reference():
     X, y = make_blobs(n=400, d=6, sep=1.0, seed=21)
     Z, _ = make_blobs(n=300, d=6, sep=1.0, seed=22)

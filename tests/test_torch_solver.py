@@ -257,6 +257,38 @@ def test_wss2_second_order_selection():
         / abs(m1.dual_objective()) < 5e-3
 
 
+@pytest.mark.parametrize("heuristic,selection,fmt", [
+    ("original", "wss1", "dense"), ("multi5pc", "wss1", "dense"),
+    ("single5pc", "wss2", "dense"), ("multi5pc", "wss1", "ell")])
+def test_dispatch_times_and_flops_match_reference(heuristic, selection, fmt):
+    """``FitStats`` carries the reference's per-dispatch wall times and
+    model FLOP counters: one time per dispatch, ``flops_est`` the sum of
+    its production and epilogue parts, and, on a fit whose iterations and
+    buffer trajectory equal the reference's, the reference's ``flops_est``
+    (two row passes an iteration, no row cache; 2d + 5 or 4K + 5 flops a
+    row pass, 4 or 12 under wss2 a row of epilogue — integers, so the sums
+    are exact in any order)."""
+    if fmt == "dense":
+        X, y = make_blobs(n=300, d=5, seed=1)
+        kw = dict(C=4.0, sigma2=4.0)
+    else:
+        from repro_torch.data import make_sparse
+        X, y = make_sparse(300, 40, 0.2, seed=3, noise=0.05,
+                           label_noise=0.0, margin=0.5)
+        kw = dict(C=2.0, sigma2=8.0, format="ell")
+    kw.update(eps=1e-3, heuristic=heuristic, selection=selection,
+              chunk_iters=64)
+    st, sj = fit(X, y, **kw).stats, jtrain(X, y, **kw).stats
+    assert len(st.dispatch_times) == st.dispatches > 0
+    assert all(t > 0.0 for t in st.dispatch_times)
+    assert st.flops_est == st.flops_production + st.flops_epilogue > 0.0
+    assert (st.iterations, st.buffer_sizes, st.buffer_K) \
+        == (sj.iterations, sj.buffer_sizes, sj.buffer_K)
+    assert st.flops_est == sj.flops_est
+    assert st.flops_production == sj.flops_production
+    assert st.flops_epilogue == sj.flops_epilogue
+
+
 def test_solver_rejects_bad_input():
     X, y = make_blobs(n=50, d=3, seed=0)
     with pytest.raises(ValueError, match="labels"):
