@@ -182,6 +182,7 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
     padded to 124 features as the serving engine pads them; the split-SV
     contracts of ``check_accumulate_split``; timed at B = 4,096 and B =
     64)."""
+    from repro_torch.core.serve import row_width
     from repro_torch.data import make
     from repro_torch.kernels import ops, ref
     X, _, Xt, _ = make("a9a", 1.0, seed=0)
@@ -253,7 +254,7 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
           f"at {b_ms / t_k:.2f} of it)", flush=True)
 
     B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
-    w = -(-d // 4) * 4            # the serving engine pads d to 4 features
+    w = row_width(d)              # the serving engine's padded rows
     Xs = torch.nn.functional.pad(Xd[:M], (0, w - d)).contiguous()
     sqs = sq[:M].contiguous()
     cf = torch.rand(M, generator=g, device=dev) * 32.0   # positive: no
@@ -981,18 +982,64 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
         zb = torch.as_tensor(zb, device=dev)
         per_bucket[b] = time_ms(eng.score_bucket, (zb,), reps=20) * 1e3 / b
         b *= 2
-    # the device time of the predict above: its buckets at these rates
-    seq, left = [], Xt.shape[0]
-    while left > 0:
-        seq.append(eng._bucket_of(left))
-        left -= min(left, seq[-1])
-    dev_ms = sum(per_bucket[b] * b for b in seq) / 1e3
+    # where a warm predict's time goes (the engine is built by now): its
+    # wall time, then one more predict traced for its device time
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.predict(Xtf)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # each bucket is two kernels: the chunks' partials, then their sum
+    split = predict_device_time(torch, lambda: model.predict(Xtf),
+                                2 * launches[k_serve])
     print(f"[serve{sfx}] device us/query by bucket: " + ", ".join(
-        f"{b}: {v:.3f}" for b, v in per_bucket.items()) + f"; predict "
-        f"{t_pred * 1e3:.2f} ms wall, {len(seq)} buckets {dev_ms:.3f} ms on "
-        f"the device ({dev_ms / (t_pred * 1e3):.0%}), the rest host "
-        f"densify and copies", flush=True)
+        f"{b}: {v:.3f}" for b, v in per_bucket.items()) + "; warm predict "
+        f"{sorted(walls)[1] * 1e3:.3f} ms wall (median of 3); " + split,
+        flush=True)
     return model, launches, Xt
+
+
+def predict_device_time(torch, predict, n_acc_want) -> str:
+    """One ``predict()`` under ``torch.profiler`` (after one traced as the
+    profiler's warm-up and dropped): its wall time there and the device
+    time of its kernels (the accumulates and the rest) and copies, summed
+    per launch from the trace; the remainder of the wall time is the
+    host's (densify, Python, launches, waits). A trace that holds another
+    count of accumulate kernels than ``n_acc_want`` is reported as
+    incomplete, with no device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            predict()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    acc = copy = other = 0.0
+    n_acc = 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):  # the step's span
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if "accumulate_chunks" in e.name or "chunk_sum::" in e.name:
+            acc, n_acc = acc + ms, n_acc + 1
+        elif e.name.startswith(("Memcpy", "Memset")):
+            copy += ms
+        else:
+            other += ms
+    busy = acc + copy + other
+    if n_acc != n_acc_want:
+        return (f"traced predict {wall:.3f} ms wall; device time not "
+                f"measured (the trace holds {n_acc} of its {n_acc_want} "
+                f"accumulate kernels)")
+    return (f"traced predict {wall:.3f} ms wall: device {busy:.3f} ms "
+            f"({busy / wall:.1%}) = accumulate kernels {acc:.3f} ms "
+            f"({n_acc} launches) + copies {copy:.3f} ms + other kernels "
+            f"{other:.3f} ms; host {wall - busy:.3f} ms")
 
 
 def row_path(torch, dev, data) -> dict:

@@ -26,10 +26,15 @@ from repro_torch import device as devmod
 from repro_torch.core import dataplane, kernel_fns, smo, util
 from repro_torch.data import sparse as sp
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "row_width"]
 
 _LANE = 128          # SV padding multiple
-_WIDTH = 4           # dense feature padding multiple
+
+
+def row_width(n_features: int) -> int:
+    """Features a dense serving row holds on the device: ``n_features``
+    rounded up to a multiple of 4 (zero columns, an exact pad)."""
+    return 4 * max(1, -(-n_features // 4))
 
 
 def _csr_dense_block(csr: "sp.CSRMatrix", lo: int, hi: int,
@@ -88,7 +93,7 @@ class ServeEngine:
         if self.fmt == "dense":
             sv = np.asarray(model.sv_x, np.float32)
             self.n_features = int(sv.shape[1])
-            self.width = _WIDTH * max(1, -(-self.n_features // _WIDTH))
+            self.width = row_width(self.n_features)
             self.K = 0
             x_p = np.zeros((self.m_pad, self.width), np.float32)
             x_p[: self.n_sv, : self.n_features] = sv
@@ -115,10 +120,10 @@ class ServeEngine:
     def score_bucket(self, zb: torch.Tensor) -> torch.Tensor:
         """Scores of one padded (b, width) query bucket already on the
         device — one ``accumulate`` call. ``width`` is the features the
-        device rows hold (``n_features``, dense rounded up to a multiple of
-        4); a (b, n_features) bucket is padded here."""
-        if zb.shape[1] != self.width:
-            zb = torch.nn.functional.pad(zb, (0, self.width - zb.shape[1]))
+        device rows hold (``n_features``; dense, ``row_width`` of it)."""
+        if zb.ndim != 2 or zb.shape[1] != self.width:
+            raise ValueError(f"bucket shape {tuple(zb.shape)}: needs "
+                             f"(b, {self.width}) (the engine's width)")
         self._buckets.add(int(zb.shape[0]))
         return self._provider.accumulate(self._data, zb, self._coef) \
             - self.beta

@@ -53,11 +53,10 @@
 // queries walking every SV row (16 warps, nonzeros broadcast one shuffle
 // pair at a time; 1.39 ms at B = 4096, ~0.94 ms at B = 64); two warps a
 // row group sharing a rank scan, 2 queries a lane, the query tile staged by
-// 4-byte cp.async (0.38 ms, 23 us); one warp a group of 16 rows, 4 queries
-// a lane, with 64 loads a lane of runtime (row, piece) items (0.34-0.48
-// ms, spilling 0.5-2 KB a thread at 255 registers), then of static
-// segments (0.26 ms, 29 us). The spills land in L2: the query tile leaves
-// little L1.
+// 4-byte cp.async; one warp a group of 16 rows, 4 queries a lane, with 64
+// loads a lane of runtime (row, piece) items (spilling at 255
+// registers), then of static segments. The spills land in L2: the
+// query tile leaves little L1.
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -339,6 +338,7 @@ ell_accumulate_chunks(const float* __restrict__ vals,
 #pragma unroll
     for (int u = 0; u < kQL; ++u) area[w * kTQ + zq + u] = p[u];
     __threadfence_block();
+    __syncwarp();  // every lane's partials are stored before lane 0 arrives
     int last = 0;
     if (lane == 0) last = atomicAdd(const_cast<int*>(arrived), 1) == kWarps - 1;
     if (__shfl_sync(0xffffffffu, last, 0)) {

@@ -45,9 +45,8 @@
 // Tried and measured slower (PERF.md §6), in order: one block per 32
 // queries walking every SV (2x4 outputs a thread, load then sync per
 // 32-feature slab; 3.67 ms at B = 4096, ~2.5 ms at B = 64); the split
-// grid with slabs staged transposed by 4-byte cp.async (0.61 ms, 37 us:
-// about one float a clock per SM); row-major slabs by 16-byte cp.async
-// with an 8-query x 4-feature register tile (0.67 ms, 33 us, spilling at
+// grid with slabs staged transposed by 4-byte cp.async; row-major slabs by
+// 16-byte cp.async with an 8-query x 4-feature register tile (spilling at
 // the 128-register cap).
 #include <cstdint>
 

@@ -11,6 +11,7 @@ from repro.core import train as jtrain
 
 from repro_torch import convert
 from repro_torch.core import ServeEngine
+from repro_torch.core.serve import row_width
 from repro_torch.core import train as ttrain
 
 from conftest import make_blobs
@@ -53,6 +54,22 @@ def test_shards_none_means_every_device(trained):
     np.testing.assert_array_equal(
         every.decision_function(Z),
         ServeEngine(m, device="cpu", shards=1).decision_function(Z))
+
+
+def test_score_bucket_takes_the_engine_width(trained):
+    """Dense rows are held ``row_width`` features wide (d = 6 -> 8 zero-
+    padded columns); ``score_bucket`` takes buckets of that width only, and
+    ``describe()`` keeps the model's feature count."""
+    m, _, _, Z = trained
+    eng = ServeEngine(m, device="cpu", min_bucket=64, max_bucket=64)
+    assert eng.width == row_width(6) == 8
+    assert eng.describe()["n_features"] == 6
+    zb = np.zeros((64, eng.width), np.float32)
+    zb[:, :6] = Z[:64]
+    got = eng.score_bucket(torch.as_tensor(zb)).numpy()
+    np.testing.assert_array_equal(got, eng.decision_function(Z[:64]))
+    with pytest.raises(ValueError):
+        eng.score_bucket(torch.as_tensor(Z[:64].astype(np.float32)))
 
 
 def test_converted_reference_model_scores_like_reference():
