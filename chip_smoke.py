@@ -24,7 +24,15 @@ entry points a user calls:
   (C=32, sigma2=64, multi5pc, wss1, ``format='ell'``) to convergence, a
   Single-policy wss2 fit at scale 0.2, one ``ELLKernelRowProvider.row``
   over the training buffer, and ``SVMModel.predict`` over the CSR test
-  rows.
+  rows;
+* the kernel-row cache (``row_cache=True``): its own repeat-heavy workload
+  at the reference's benchmark size, dense wss1, ELL wss1 and dense wss2,
+  each with the cache off and on (``[cache]``); the full-size w7a fit (CSR
+  in) with the cache on, against the cache-off one (``[train-cache]``);
+  and the scale-0.2 a9a wss2 fit with the cache on, bitwise equal to the
+  cache-off one (``[wss2-cache]``). The two-row kernels' cached entries
+  are held against their plain version in ``[check]`` / ``[check-ell]``,
+  their hit path timed.
 
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
@@ -252,6 +260,10 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
           f"kernel {t_k*1e3:.2f} us (in L2 {t_w*1e3:.2f}), plain "
           f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by}; the kernel "
           f"at {b_ms / t_k:.2f} of it)", flush=True)
+    check_cached_entry(
+        torch, dev, time_ms, kernels["rbf_rows2"], "rbf_rows2_cached",
+        lambda t, sl, h: ops.kernel_rows2_cached("rbf", Xd, sq, z2, t, sl, h,
+                                                 INV), got)
 
     B, M = 4096, 18048            # serve bucket; ~18k SVs padded to 128
     w = row_width(d)              # the serving engine's padded rows
@@ -294,6 +306,40 @@ def check_dense(torch, np, dev, time_ms, kernels) -> None:
           f"{t_k:.4f} ms (in L2 {t_w:.4f}), B=64 {t_64 * 1e3:.2f} us (SVs "
           f"in L2), plain {t_p:.3f} ms, Z@X.T {t_mm:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+
+def check_cached_entry(torch, dev, time_ms, record, name, cached,
+                       rows) -> None:
+    """The row cache's entry of a two-row kernel at the main path's buffer
+    (``cached(table, slot2, hit)``, a table of the default 64 slots): with
+    the device hit flag set, the two table rows bitwise, against the plain
+    version (``ref.cached_rows``); with it clear, the normal entry's
+    ``rows`` bitwise; ``slot2 = [s, s]`` equal columns. The hit path is
+    timed with the table out of L2 (``hit_ms``) beside its bound: 16 bytes
+    a buffer row, two table floats read and two written (``hit_bound_ms``)."""
+    from repro_torch.kernels import ref
+    m = rows.shape[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn(64, m, generator=g, device=dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    slot2, hit, miss = i32([3, 60]), i32(1), i32(0)
+    got = cached(table, slot2, hit)
+    want = ref.cached_rows(table, slot2, hit, rows)
+    same = cached(table, i32([9, 9]), hit)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{name}: a hit does not give the two table rows")
+    if not torch.equal(cached(table, slot2, miss), rows):
+        fail(f"{name}: a miss differs from the normal entry's rows")
+    if not torch.equal(same[:, 0], same[:, 1]):
+        fail(f"{name}: slot2 = [s, s] gives unequal columns")
+    t_hit = time_ms(cached, (table, slot2, hit), reps=100)
+    b_ms, _ = bound(16.0 * m, 0.0, H100_FP32_FLOPS)
+    record.update(hit_ms=t_hit, hit_bound_ms=b_ms)
+    print(f"[check] {name} m={m}: a hit gives the two table rows bitwise, "
+          f"a miss the normal entry's bits, slot2=[s, s] equal columns; "
+          f"hit path {t_hit*1e3:.2f} us (table out of L2), bound "
+          f"{b_ms*1e3:.3f} us (bytes: 16 a buffer row)", flush=True)
 
 
 def check_accumulate_split(torch, name, acc, plain, svs, Zq) -> None:
@@ -447,6 +493,11 @@ def check_ell_rows(torch, np, dev, time_ms, kernels) -> dict:
           f"position-symmetric; kernel {t_k*1e3:.2f} us (in L2 "
           f"{t_w*1e3:.2f}), plain "
           f"{t_p*1e3:.2f} us, bound {b_ms*1e3:.2f} us ({b_by})", flush=True)
+    check_cached_entry(
+        torch, dev, time_ms, kernels["ell_kernel_rows2"],
+        "ell_kernel_rows2_cached",
+        lambda t, sl, h: ops.ell_kernel_rows2_cached(v, c, s, z2, t, sl, h,
+                                                     INV), got)
 
     z = z2[0].contiguous()
     got = ops.ell_kernel_row(v, c, s, z, INV)
@@ -885,7 +936,8 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
     test rows. ``fmt='dense'`` feeds numpy rows; ``fmt='ell'`` feeds CSR to
     ``format='ell'`` training and serving. Launch counts are reset just
     before each phase and read just after it. Returns the trained model,
-    the launches of each phase's kernel and the test rows."""
+    the wss2 fit's model, the launches of each phase's kernel and the test
+    rows."""
     from repro_torch.core import SVMConfig, SMOSolver
     from repro_torch.data import make, to_csr
     from repro_torch.kernels import cuda
@@ -997,7 +1049,191 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
         f"{b}: {v:.3f}" for b, v in per_bucket.items()) + "; warm predict "
         f"{sorted(walls)[1] * 1e3:.3f} ms wall (median of 3); " + split,
         flush=True)
-    return model, launches, Xt
+    return model, m2, launches, Xt
+
+
+# the row cache's own workload at the reference's benchmark size
+# (benchmarks/sparse_bench.py): make_repeat_heavy(3072, 768, 0.25, seed=1)
+CACHE_SET = (3072, 768, 0.25, 1)
+CACHE_FIT = dict(C=8.0, sigma2=96.0, eps=1e-5, heuristic="original",
+                 chunk_iters=512)
+CACHE_SLOTS = 2048
+
+
+def rel_gap(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def cache_workload(torch, np, dev) -> dict:
+    """``[cache]``: six fits of the repeat-heavy workload — dense wss1, ELL
+    wss1 (the dense rows fed with ``format='ell'``) and dense wss2, each
+    with the row cache off and on (2,048 slots, LRU). Every fit converges
+    (fp64 Eq. 9 gap <= 2 eps); with the cache on, hits + misses = 2 x
+    iterations, the hit rate is >= 0.5 and the rows come from the two-row
+    kernel (wss1 launches no fused update); wss2 is bitwise equal on and
+    off; wss1 (off runs the fused update) keeps the outcome contract.
+    Returns the cached ELL fit's ``ell_kernel_rows2`` launches."""
+    from repro_torch.core import SVMConfig, SMOSolver
+    from repro_torch.data import make_repeat_heavy
+    from repro_torch.kernels import cuda
+    phase("cache")
+    X, y = make_repeat_heavy(*CACHE_SET[:3], seed=CACHE_SET[3])
+    inv = 1.0 / (2.0 * CACHE_FIT["sigma2"])
+    eps = CACHE_FIT["eps"]
+    launches = {}
+    for label, extra in (("dense wss1", {}), ("ell wss1", {"format": "ell"}),
+                         ("dense wss2", {"selection": "wss2"})):
+        rows2 = "ell_kernel_rows2" if "ell" in label else "rbf_rows2"
+        fused = "ell_gamma_update" if "ell" in label else "gamma_update"
+        fits = {}
+        for on in (False, True):
+            kw = dict(CACHE_FIT, device="cuda", **extra)
+            if on:
+                kw.update(row_cache=True, row_cache_slots=CACHE_SLOTS)
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            m = SMOSolver(SVMConfig(**kw)).fit(X, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_rows2, n_fused = cuda.launches[rows2], cuda.launches[fused]
+            st = m.stats
+            gap = eq9_gap(torch, X, y, m.alpha, CACHE_FIT["C"], inv, dev)
+            obj = m.dual_objective()
+            fits[on] = (m, obj)
+            looked = st.cache_hits + st.cache_misses
+            print(f"[cache] {label} cache {'on ' if on else 'off'} "
+                  f"n={X.shape[0]} d={X.shape[1]}: iterations="
+                  f"{st.iterations} hits={st.cache_hits} misses="
+                  f"{st.cache_misses} hit_rate={st.cache_hit_rate:.4f} "
+                  f"us/iter={1e6 * st.train_time / max(st.iterations, 1):.1f}"
+                  f" dual_objective={obj:.6f} eq9_gap_all={gap:.3e} (<= "
+                  f"2eps {2 * eps:.0e}) wall={wall:.1f} s {rows2} launches="
+                  f"{n_rows2} {fused} launches={n_fused}", flush=True)
+            if not (st.converged and gap <= 2 * eps):
+                fail(f"{label} cache {on}: converged={st.converged}, gap "
+                     f"{gap:.3e}")
+            if on:
+                if looked != 2 * st.iterations:
+                    fail(f"{label}: hits + misses {looked} != 2 x "
+                         f"{st.iterations} iterations")
+                if st.cache_hit_rate < 0.5:
+                    fail(f"{label}: hit rate {st.cache_hit_rate:.4f} < 0.5")
+                if n_rows2 <= 0 or (label.endswith("wss1") and n_fused):
+                    fail(f"{label}: the cached fit launched {rows2} "
+                         f"{n_rows2} and {fused} {n_fused} times")
+                launches[rows2] = n_rows2
+        (m0, o0), (m1, o1) = fits[False], fits[True]
+        if label.endswith("wss2"):
+            if not (m1.stats.iterations == m0.stats.iterations
+                    and np.array_equal(m1.alpha, m0.alpha)):
+                fail(f"{label}: cache on differs from off")
+            how = "bitwise equal (alpha, iterations)"
+        else:
+            agree = float((m1.predict(X) == m0.predict(X)).mean())
+            if not (rel_gap(o1, o0) <= 5e-4 and agree >= 0.995):
+                fail(f"{label}: cache on vs off: dual objective "
+                     f"{rel_gap(o1, o0):.3e} apart, labels {agree:.4f}")
+            how = (f"dual objective {rel_gap(o1, o0):.3e} apart (<= 5e-4), "
+                   f"labels {agree:.4f} equal (>= 0.995)")
+        print(f"[cache] {label}: cache on vs off {how}; us/iter "
+              f"{1e6 * m1.stats.train_time / m1.stats.iterations:.1f} on, "
+              f"{1e6 * m0.stats.train_time / m0.stats.iterations:.1f} off",
+              flush=True)
+    return launches
+
+
+# the full-size fit [train-cache] repeats with the row cache on: w7a (CSR
+# in). With a9a the cached fit alone took 336.6 s and the smoke 788 s on an
+# H100 whose host ran the a9a loop at 1,043 us an iteration; the host sets
+# that rate and has varied 2x between runs, so a slower host would put the
+# smoke past its 1,200 s (PERF.md §4). The cached w7a fit took 123 s
+# with 4 compactions and 2 reconstructions.
+TRAIN_CACHE_SET = "w7a"
+
+
+def train_cache(torch, np, dev, dataset, base) -> dict:
+    """``[train-cache]``: the full-size fit of ``dataset`` that ``[train]``
+    (a9a, dense) or ``[train-ell]`` (w7a, CSR in, ``format='ell'``) ran —
+    C=32, sigma2=64, multi5pc, wss1 — with the row cache on (64 slots,
+    LRU): converged (fp64 gap <= 2e-3), at least one compaction (the
+    device remap) and one reconstruction (the rewarm) at full width,
+    hits > 0, rows from the two-row kernel and no fused update, and the
+    outcome contract against that phase's model ``base``. Returns the
+    cached fit's two-row kernel launches."""
+    from repro_torch.core import SVMConfig, SMOSolver
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    phase("train-cache")
+    fmt = "dense" if dataset == "a9a" else "ell"
+    k_fused, k_rows2, _ = HOT[fmt]
+    feed = (lambda a: a) if fmt == "dense" else to_csr
+    X, y, Xt, _ = make(dataset, 1.0, seed=0)
+    kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
+              device="cuda", row_cache=True,
+              **({} if fmt == "dense" else {"format": "ell"}))
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    m = SMOSolver(SVMConfig(**kw)).fit(feed(X), y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_rows2, n_fused = cuda.launches[k_rows2], cuda.launches[k_fused]
+    st, sb = m.stats, base.stats
+    gap = eq9_gap(torch, X, y, m.alpha, 32.0, INV, dev)
+    o1, o0 = m.dual_objective(), base.dual_objective()
+    agree = float((m.predict(feed(Xt)) == base.predict(feed(Xt))).mean())
+    us = lambda s: 1e6 * s.train_time / max(s.iterations, 1)
+    src = "[train]" if fmt == "dense" else "[train-ell]"
+    print(f"[train-cache] {dataset} n={X.shape[0]} d={X.shape[1]} "
+          f"{fmt} row_cache 64 slots lru: iterations={st.iterations} "
+          f"({src}: {sb.iterations}) compactions={st.compactions} "
+          f"reconstructions={st.reconstructions} buffer_sizes="
+          f"{st.buffer_sizes} hits={st.cache_hits} misses={st.cache_misses} "
+          f"hit_rate={st.cache_hit_rate:.4f} converged={st.converged} "
+          f"eq9_gap_all={gap:.3e} (<= 2eps 2e-03) wall={wall:.1f} s "
+          f"us/iter={us(st):.1f} ({src}: {us(sb):.1f}) dual objective "
+          f"{rel_gap(o1, o0):.3e} from {src}'s (<= 5e-4), test labels "
+          f"{agree:.4f} equal (>= 0.995); {k_rows2} launches={n_rows2} "
+          f"{k_fused} launches={n_fused}", flush=True)
+    if not (st.converged and gap <= 2e-3):
+        fail(f"cached training: converged={st.converged}, gap {gap:.3e}")
+    if not (st.compactions >= 1 and st.reconstructions >= 1
+            and st.cache_hits > 0):
+        fail(f"cached training: compactions {st.compactions}, "
+             f"reconstructions {st.reconstructions}, hits {st.cache_hits}")
+    if n_rows2 <= 0 or n_fused:
+        fail(f"cached training launched {k_rows2} {n_rows2} and {k_fused} "
+             f"{n_fused} times")
+    if not (rel_gap(o1, o0) <= 5e-4 and agree >= 0.995):
+        fail(f"cached training breaks the outcome contract against {src}")
+    return {k_rows2: n_rows2}
+
+
+def wss2_cache(torch, np, dev, base) -> None:
+    """``[wss2-cache]``: the ``[wss2]`` fit (a9a at scale 0.2, single5pc)
+    with the row cache on, bitwise equal to it (alpha and iterations)
+    through shrink and un-shrink."""
+    from repro_torch.core import SVMConfig, SMOSolver
+    from repro_torch.data import make
+    phase("wss2-cache")
+    X2, y2, _, _ = make("a9a", 0.2, seed=0)
+    kw = dict(C=32.0, sigma2=64.0, heuristic="single5pc", selection="wss2",
+              device="cuda", row_cache=True)
+    t0 = time.perf_counter()
+    m2 = SMOSolver(SVMConfig(**kw)).fit(X2, y2)
+    torch.cuda.synchronize()
+    s2, sb = m2.stats, base.stats
+    same = (s2.iterations == sb.iterations
+            and np.array_equal(m2.alpha, base.alpha))
+    us = lambda s: 1e6 * s.train_time / max(s.iterations, 1)
+    print(f"[wss2-cache] a9a scale 0.2 n={X2.shape[0]} single5pc row_cache: "
+          f"iterations={s2.iterations} ([wss2]: {sb.iterations}) "
+          f"reconstructions={s2.reconstructions} hits={s2.cache_hits} "
+          f"misses={s2.cache_misses} hit_rate={s2.cache_hit_rate:.4f} "
+          f"wall={time.perf_counter() - t0:.1f} s us/iter={us(s2):.1f} "
+          f"([wss2]: {us(sb):.1f}); alpha and iterations bitwise equal to "
+          f"[wss2]: {same}", flush=True)
+    if not same:
+        fail("the cached wss2 fit differs from [wss2]")
 
 
 def predict_device_time(torch, predict, n_acc_want) -> str:
@@ -1111,13 +1347,22 @@ def main() -> None:
     check_attention(torch, dev, time_ms, kernels)
 
     launches = serve_lm(torch, dev)
-    _, dense_launches, _ = run_path(torch, np, dev, time_ms, "a9a", "dense")
+    a9a, a9a_wss2, dense_launches, _ = run_path(torch, np, dev, time_ms,
+                                                "a9a", "dense")
     launches.update(dense_launches)
-    model, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a", "ell")
+    model, _, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a",
+                                          "ell")
     launches.update(ell_launches)
+    cached = cache_workload(torch, np, dev)
+    cached.update(train_cache(torch, np, dev, TRAIN_CACHE_SET,
+                              a9a if TRAIN_CACHE_SET == "a9a" else model))
+    wss2_cache(torch, np, dev, a9a_wss2)
+    del a9a, a9a_wss2
     phase("check-ell")
     check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
     launches.update(row_path(torch, dev, w7a_buffer))
+    for name, n in cached.items():
+        kernels[name]["cache_launches"] = n
 
     phase("report")
     record = []
@@ -1129,6 +1374,8 @@ def main() -> None:
                 "library_ms")},
             **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
                                        "b64_ms", "k16_ms", "k16_warm_ms",
+                                       "hit_ms", "hit_bound_ms",
+                                       "cache_launches",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

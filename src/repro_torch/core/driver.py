@@ -43,8 +43,14 @@ per-shard surviving extents the epoch summary carries (``shard_ext``), so
 eliminating samples shrinks both dimensions of the gamma pass
 (``FitStats.buffer_K`` / ``shard_K`` record the trajectory).
 
-Checkpoints, elastic resume, the straggler watchdog, chaos hooks and the
-row cache are later slices of the port; ``SVMConfig`` refuses them.
+The kernel-row cache (``SVMConfig(row_cache=True)``, ``core/rowcache.py``)
+rides the fused epochs: a device compaction re-gathers its value table by
+the buffer's gather plan, the host backend by the old and new ``idx_buf``,
+and an un-shrink rewarms every tagged slot over the grown buffer, so its
+tags, recency and counters carry across every rebuild.
+
+Checkpoints, elastic resume, the straggler watchdog and chaos hooks are
+later slices of the port; ``SVMConfig`` refuses them.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import dataplane, mirror, smo
+from repro_torch.core import dataplane, mirror, rowcache, smo
 from repro_torch.data import sparse as spfmt
 
 _P = 1   # shards a buffer is dealt over: one device (the dataplane layouts
@@ -95,10 +101,15 @@ class FitStats:
     flops_est: float = 0.0       # model FLOPs of the gamma-update hot loop,
                                  # by the reference's rule: production plus
                                  # epilogue
-    flops_production: float = 0.0   # kernel-row passes: 2 an iteration (no
-                                 # row cache), flops_row_pass per buffer row
+    flops_production: float = 0.0   # kernel-row passes: one per row
+                                 # computed (2 an iteration without the row
+                                 # cache, its misses with it),
+                                 # flops_row_pass per buffer row
     flops_epilogue: float = 0.0  # O(M) Eq. 6 FMA (4 flops a buffer row; 12
                                  # under wss2, the selection sweep added)
+    cache_hits: int = 0          # kernel rows served from the row cache
+    cache_misses: int = 0        # kernel rows (re)computed by the provider
+    cache_hit_rate: float = 0.0  # hits / (hits + misses); 0 when cache off
 
 
 def betas(gamma, alpha, y, C: float) -> tuple:
@@ -126,12 +137,12 @@ def _scatter_full(alpha_d, gamma_d, alpha_buf, gamma_buf, gids):
     return alpha_d, gamma_d
 
 
-def _compact_step(data, yb, state: smo.SMOState, alpha_d, gamma_d,
+def _compact_step(data, yb, state: smo.SMOState, cache, alpha_d, gamma_d,
                   n_active: int, interval: int, p: int, m_per: int,
                   K_new: "int | None" = None):
     """One device-side physical compaction: master writeback for the
-    outgoing buffer, the balanced gather plan, the row/vector gathers (ELL
-    rows truncated to ``K_new``) and the fresh state (step counters
+    outgoing buffer, the balanced gather plan, the row/vector/cache gathers
+    (ELL rows truncated to ``K_new``) and the fresh state (step counters
     carried)."""
     alpha_d, gamma_d = _scatter_full(alpha_d, gamma_d, state.alpha,
                                      state.gamma, data.gids)
@@ -144,15 +155,20 @@ def _compact_step(data, yb, state: smo.SMOState, alpha_d, gamma_d,
         step=state.step,
         next_shrink=state.step + max(1, min(interval, n_active)),
         n_shrinks=state.n_shrinks)
-    return data2, yb2, state2, alpha_d, gamma_d
+    # the cached rows keep their bits in the new geometry: a row's bits do
+    # not depend on its place in the buffer, and on ELL not on the lane
+    # budget either (the kernels' K-independent order), so columns gathered
+    # from rows made at the old K equal rows made at K_new
+    cache2 = rowcache.remap_cache_device(cache, src, valid)
+    return data2, yb2, state2, cache2, alpha_d, gamma_d
 
 
 class EpochDriver:
     """The Alg. 5 state machine around a solver's hook surface: device
     placement (``_put`` / ``_put_full``), runner construction
-    (``_runner``) and Alg. 6
-    (``_reconstruct`` / ``_reconstruct_mirror``). One instance drives one
-    ``fit``; mutable run state lives on the instance."""
+    (``_runner``), the row cache (``_new_cache`` / ``_regrow_cache``) and
+    Alg. 6 (``_reconstruct`` / ``_reconstruct_mirror``). One instance
+    drives one ``fit``; mutable run state lives on the instance."""
 
     def __init__(self, solver):
         self.s = solver
@@ -329,10 +345,10 @@ class EpochDriver:
                 K_new = (spfmt.bucket_lanes(max(shard_ext), store.lane,
                                             cap=store.K)
                          if cfg.ell_adaptive else self.data.K)
-            (self.data, self.yb, self.state, self.alpha_d,
+            (self.data, self.yb, self.state, self.cache, self.alpha_d,
              self.gamma_d) = _compact_step(
-                self.data, self.yb, self.state, self.alpha_d, self.gamma_d,
-                n_active, self._interval, p, m_per, K_new)
+                self.data, self.yb, self.state, self.cache, self.alpha_d,
+                self.gamma_d, n_active, self._interval, p, m_per, K_new)
             self.idx = None
         else:
             self._writeback()
@@ -341,6 +357,9 @@ class EpochDriver:
             step, nshr = self.state.step, self.state.n_shrinks
             self.data, self.yb, state2, self.idx = self._make_buffer(
                 self.y, self.alpha, self.gamma, keep)
+            # survivors keep their global ids: cached rows are re-gathered
+            # into the compacted geometry, not dropped
+            self.cache = rowcache.remap_cache(self.cache, idx, self.idx)
             self.state = state2.replace(
                 step=step,
                 next_shrink=step + max(1, min(self._interval, keep.size)),
@@ -362,6 +381,10 @@ class EpochDriver:
             raise ValueError(
                 f"unknown compact_backend {cfg.compact_backend!r} "
                 "(want 'device' or 'host')")
+        if cfg.row_cache_policy not in rowcache.POLICIES:
+            raise ValueError(
+                f"unknown row_cache_policy {cfg.row_cache_policy!r}; "
+                f"known: {rowcache.POLICIES}")
         t0 = time.perf_counter()
         if spfmt.is_csr_like(X):
             X = spfmt.as_csr(X)      # normalizes scipy-like / tuple forms
@@ -407,6 +430,11 @@ class EpochDriver:
         if shrink_on:
             self.state = self.state.replace(
                 next_shrink=self.state.step + interval)
+        # the kernel-row cache (None when off); miss_seen follows its
+        # cumulative miss counter, so each dispatch bills the rows it
+        # actually recomputed
+        self.cache = sv._new_cache(self.data.m)
+        miss_seen = 0
         fuse = max(1, int(cfg.fuse_iters))
         mper_lo = max(cfg.min_buffer // p, 8)   # full_m_per's clamp floor
         step_host = 0
@@ -421,8 +449,8 @@ class EpochDriver:
                 # integer-exact host twin of the compaction trigger
                 compact_lt = (math.ceil(cfg.compact_ratio * self.data.m)
                               if shrink_on else 0)
-                self.state, summ_d = runner(
-                    self.data, self.yb, self.state, tol, fuse,
+                self.state, self.cache, summ_d = runner(
+                    self.data, self.yb, self.state, self.cache, tol, fuse,
                     cfg.chunk_iters, cfg.max_iters, compact_lt, mper_lo)
                 summ = smo.EpochSummary.from_tensor(summ_d.cpu())  # one sync
                 dt = time.perf_counter() - tc
@@ -430,10 +458,16 @@ class EpochDriver:
                 stats.dispatches += 1
                 stats.dispatch_times.append(dt)
                 step_host = summ.step
-                # model FLOPs by the reference's rule: no row cache, so two
-                # kernel-row passes an iteration, and the O(M) epilogue
+                # model FLOPs by the reference's rule: one kernel-row pass
+                # per row computed (2 an iteration without the cache, the
+                # misses with it), and the O(M) epilogue every iteration
                 iters_done = step_host - step_before
-                prod = 2.0 * iters_done * self.data.flops_row_pass() \
+                if self.cache is not None:
+                    rows_new = summ.cache_misses - miss_seen
+                    miss_seen = summ.cache_misses
+                else:
+                    rows_new = 2 * iters_done
+                prod = rows_new * self.data.flops_row_pass() \
                     * float(self.data.m)
                 epi = iters_done * (12.0 if cfg.selection == "wss2"
                                     else 4.0) * float(self.data.m)
@@ -490,6 +524,12 @@ class EpochDriver:
             step_t, nshr_t = self.state.step, self.state.n_shrinks
             self.data, self.yb, self.state, self.idx = self._build_buffer(
                 np.arange(n))
+            # the cache survives the growth: every tagged slot is rewarmed
+            # over the grown buffer with the in-loop kernels (wss1 the
+            # two-row pass, wss2 the duplicated-query single row), so a
+            # later hit serves the bits a miss would compute
+            self.cache = sv._regrow_cache(
+                self.cache, self.data, cfg.selection != "wss2", n)
             self._note_buffer()
             if not shrink_on or h.policy == "single":
                 shrink_on = False
@@ -509,5 +549,11 @@ class EpochDriver:
         stats.train_time = t_train
         stats.recon_time = t_recon
         stats.stalled = stalled
+        if self.cache is not None:
+            stats.cache_hits = int(self.cache.hits)
+            stats.cache_misses = int(self.cache.misses)
+            looked = stats.cache_hits + stats.cache_misses
+            stats.cache_hit_rate = (stats.cache_hits / looked
+                                    if looked else 0.0)
         stats.total_time = time.perf_counter() - t0
         return self.alpha, self.gamma, y, stats

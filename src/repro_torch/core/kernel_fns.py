@@ -192,12 +192,17 @@ class _ProviderBase:
     ``ELLData``), the protocol every provider follows:
 
     ``row`` K(z, buffer) (M,); ``rows2`` K([z_up; z_low], buffer) (M, 2);
+    ``rows2_cached`` the same behind the row cache (the value table's rows
+    at ``slot2`` where the device flag ``hit`` is set; ``core/rowcache.py``);
     ``matrix`` K(Z_j, buffer_i) (nZ, M); ``gamma_update`` the fused Eq. 6;
     ``diag`` K(x_i, x_i); ``accumulate`` sum_i coef[i] K(Z_j, buffer_i)
     (nZ,) — the serving plane's one hot call.
     """
     kernel: str
     inv_2s2: float
+
+    def rows2_cached(self, data, z2, table, slot2, hit):
+        return ref.cached_rows(table, slot2, hit, self.rows2(data, z2))
 
     def gamma_update(self, data, gamma, z2, coef2):
         return gamma + self.rows2(data, z2) @ coef2
@@ -232,8 +237,9 @@ class DenseRowProvider(_ProviderBase):
 class DenseKernelRowProvider(DenseRowProvider):
     """Dense storage, hand-written kernel backend (twin of
     ``DensePallasRowProvider``): ``rows2`` -> ``rbf_rows2``,
-    ``gamma_update`` -> ``gamma_update``, ``accumulate`` ->
-    ``rbf_accumulate`` on CUDA tensors. ``row`` and ``matrix`` stay plain,
+    ``rows2_cached`` -> its cached entry, ``gamma_update`` ->
+    ``gamma_update``, ``accumulate`` -> ``rbf_accumulate`` on CUDA
+    tensors. ``row`` and ``matrix`` stay plain,
     as in the reference (there is no dense single-row kernel; the solver's
     single rows go through :func:`row_via_rows2`)."""
 
@@ -241,6 +247,11 @@ class DenseKernelRowProvider(DenseRowProvider):
         from repro_torch.kernels import ops
         return ops.kernel_rows2(self.kernel, data.X, data.sq_norms, z2,
                                 self.inv_2s2)
+
+    def rows2_cached(self, data, z2, table, slot2, hit):
+        from repro_torch.kernels import ops
+        return ops.kernel_rows2_cached(self.kernel, data.X, data.sq_norms,
+                                       z2, table, slot2, hit, self.inv_2s2)
 
     def gamma_update(self, data, gamma, z2, coef2):
         from repro_torch.kernels import ops
@@ -276,7 +287,8 @@ class ELLRowProvider(_ProviderBase):
 class ELLKernelRowProvider(ELLRowProvider):
     """Block-ELL storage, hand-written kernel backend (twin of
     ``ELLPallasRowProvider``): on CUDA tensors ``row`` ->
-    ``ell_kernel_row``, ``rows2`` -> ``ell_kernel_rows2``,
+    ``ell_kernel_row``, ``rows2`` -> ``ell_kernel_rows2`` (``rows2_cached``
+    -> its cached entry),
     ``gamma_update`` -> ``ell_gamma_update``, ``accumulate`` ->
     ``ell_rbf_accumulate``; the kernels are RBF-only, so other kernels use
     the plain rows, as in the reference. ``matrix`` stays plain."""
@@ -294,6 +306,14 @@ class ELLKernelRowProvider(ELLRowProvider):
             return super().rows2(data, z2)
         return ops.ell_kernel_rows2(data.vals, data.cols, data.sq_norms, z2,
                                     self.inv_2s2)
+
+    def rows2_cached(self, data, z2, table, slot2, hit):
+        from repro_torch.kernels import ops
+        if self.kernel != "rbf":
+            return super().rows2_cached(data, z2, table, slot2, hit)
+        return ops.ell_kernel_rows2_cached(data.vals, data.cols,
+                                           data.sq_norms, z2, table, slot2,
+                                           hit, self.inv_2s2)
 
     def gamma_update(self, data, gamma, z2, coef2):
         from repro_torch.kernels import ops
@@ -336,6 +356,17 @@ def row_via_rows2(provider: _ProviderBase, data,
     batch-major), so this single row has the same bits as the same row
     produced in either slot of a pair."""
     return provider.rows2(data, torch.stack([z, z]))[:, 0]
+
+
+def row_via_rows2_cached(provider: _ProviderBase, data, z: torch.Tensor,
+                         table: torch.Tensor, slot: torch.Tensor,
+                         hit: torch.Tensor) -> torch.Tensor:
+    """:func:`row_via_rows2` behind the row cache: the value table's row
+    ``slot`` (a 0-d int32) where the device flag ``hit`` is set, else the
+    same bits as :func:`row_via_rows2` — one launch of the cached two-row
+    entry on the duplicated query, with ``slot2 = [slot, slot]``."""
+    return provider.rows2_cached(data, torch.stack([z, z]), table,
+                                 torch.stack([slot, slot]), hit)[:, 0]
 
 
 def make_provider(kernel: str, fmt: str = "dense", use_kernels: bool = True,

@@ -1,6 +1,6 @@
 """SMO (Keerthi Modification-2) fused-epoch inner loop with in-loop
 adaptive shrinking (twin of ``repro.core.smo``; dense or block-ELL
-storage, no row cache).
+storage, with or without the kernel-row cache).
 
 One iteration of the paper's Algorithm 1:
 
@@ -37,7 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import dataplane, kernel_fns, util
+from repro_torch.core import dataplane, kernel_fns, rowcache, util
+from repro_torch.kernels import ops
 
 _INF = float("inf")
 _TAU = 1e-12  # libsvm-style guard for non-PD pair curvature
@@ -90,6 +91,8 @@ class EpochSummary(NamedTuple):
     converged: bool    # Eq. 9 at the dispatch tolerance
     stalled: bool      # progress guard tripped
     need_compact: bool  # device-evaluated compaction predicate
+    cache_hits: int     # cumulative row-cache hits (0: cache off)
+    cache_misses: int   # cumulative row-cache misses
     shard_ext: tuple    # (p,) per-shard surviving ELL extents when
                         # need_compact fired on an ELL buffer, else zeros
 
@@ -97,8 +100,8 @@ class EpochSummary(NamedTuple):
     def from_tensor(cls, t: torch.Tensor) -> "EpochSummary":
         v = t.tolist()
         return cls(int(v[0]), int(v[1]), int(v[2]), int(v[3]), int(v[4]),
-                   bool(v[5]), bool(v[6]), bool(v[7]),
-                   tuple(int(e) for e in v[8:]))
+                   bool(v[5]), bool(v[6]), bool(v[7]), int(v[8]), int(v[9]),
+                   tuple(int(e) for e in v[10:]))
 
 
 def _sets(alpha, pos, active, thr0, thr1):
@@ -187,17 +190,19 @@ def _wss2(gamma, alpha, pos, active, thr0, thr1, g_up, row_up, kdiag, k_uu):
 
 def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
                       shrink_interval: int, selection: str = "wss1",
-                      fmt: str = "dense"):
+                      fmt: str = "dense", cache_slots: int = 0,
+                      cache_policy: str = "lru"):
     """Build the fused-epoch runner::
 
-        state, summary = run_epoch(data, y, state, tol, k, chunk_iters,
-                                   max_iters, compact_lt, mper_lo)
+        state, cache, summary = run_epoch(data, y, state, cache, tol, k,
+                                          chunk_iters, max_iters,
+                                          compact_lt, mper_lo)
 
     which enqueues up to ``k`` segments of ``chunk_iters`` SMO iterations
     each — a segment's iterations stop (become no-ops) on Eq. 9
     convergence over the active set, the stall guard or the iteration
     limit, and the epoch's segments stop on any hard exit or the moment the
-    compaction predicate fires. ``summary`` is a (9,) int64 device tensor
+    compaction predicate fires. ``summary`` is an (11,) int64 device tensor
     (:meth:`EpochSummary.from_tensor` reads it in one sync); its last
     entry is the (p = 1,) ``shard_ext`` lane.
 
@@ -216,29 +221,46 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
     travel dense either way (``data.dense_rows``); the M-row passes stay in
     the buffer's format, through the provider of (kernel, fmt) — on ELL
     the fused ``ell_gamma_update`` (wss1) and ``ell_kernel_rows2`` (wss2).
+
+    ``cache_slots`` > 0 threads a kernel-row cache (``core/rowcache.py``,
+    a ``RowCache`` of that many slots, ``cache_policy`` 'lru' | 'slru')
+    through the loop: rows are served from it on a hit and recomputed by
+    the cache-off path's kernels on a miss, and wss1 then takes its rows
+    and the Eq. 6 epilogue (``ops.gamma_from_rows``) instead of the fused
+    ``gamma_update``, as the reference's Pallas path does. With
+    ``cache_slots == 0`` the cache is passed as None and returned as it is.
     """
     if selection not in ("wss1", "wss2"):
         raise ValueError(f"unknown selection {selection!r}")
+    if cache_policy not in rowcache.POLICIES:
+        raise ValueError(f"unknown row_cache_policy {cache_policy!r}; "
+                         f"known: {rowcache.POLICIES}")
     row1 = kernel_fns.get_row(kernel)
     kself = kernel_fns.self_kernel(kernel)
     provider = kernel_fns.make_provider(kernel, fmt, True, inv_2s2)
+    cached = cache_slots > 0
     thr0, thr1 = bounds(C)
     Cf = f32(C)
 
-    def run_epoch(data, y: torch.Tensor, state: SMOState, tol: float, k: int,
-                  chunk_iters: int, max_iters: int, compact_lt: int,
+    def run_epoch(data, y: torch.Tensor, state: SMOState, cache, tol: float,
+                  k: int, chunk_iters: int, max_iters: int, compact_lt: int,
                   mper_lo: int):
         dev = y.device
         m = data.m
         pos = y > 0
         tol = f32(tol)
         kdiag = provider.diag(data) if selection == "wss2" else None
+        get_row1, get_rows2 = rowcache.make_accessors(provider, data, cached,
+                                                      cache_policy)
 
-        def body(s: SMOState, run: torch.Tensor) -> SMOState:
+        def gids(idx):   # the cache's tags of buffer rows idx (k,)
+            return data.gids.index_select(0, idx) if cached else None
+
+        def body(s: SMOState, c, run: torch.Tensor):
             if selection == "wss2":
                 x_up = data.dense_rows(s.i_up.view(1))[0]
                 k_uu = kself(x_up[None], inv_2s2)[0]
-                row_up = kernel_fns.row_via_rows2(provider, data, x_up)
+                row_up, c = get_row1(c, gids(s.i_up.view(1)), x_up, run)
                 scores = _wss2(s.gamma, s.alpha, pos, s.active, thr0, thr1,
                                s.beta_up, row_up, kdiag, k_uu)
                 il = torch.argmax(scores)
@@ -267,8 +289,11 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
             alpha = s.alpha.index_put_((idx2,), new2)
             coef2 = y2 * delta                       # zero unless run
             if selection == "wss2":
-                row_low = kernel_fns.row_via_rows2(provider, data, z2[1])
+                row_low, c = get_row1(c, gids(il.view(1)), z2[1], run)
                 gamma = s.gamma + coef2[0] * row_up + coef2[1] * row_low
+            elif cached:
+                rows, c = get_rows2(c, gids(idx2), z2, run)
+                gamma = ops.gamma_from_rows(s.gamma, rows, coef2)
             else:
                 gamma = provider.gamma_update(data, s.gamma, z2, coef2)
             gamma = torch.where(run, gamma, s.gamma)
@@ -294,9 +319,9 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
                                                thr0, thr1)
             return SMOState(alpha, gamma, active, b_up, b_low, i_up, i_low,
                             step1, next_shrink, n_shrinks,
-                            b_up + tol >= b_low, stalled)
+                            b_up + tol >= b_low, stalled), c
 
-        def run_segment(s: SMOState, live: torch.Tensor) -> SMOState:
+        def run_segment(s: SMOState, c, live: torch.Tensor):
             # segment entry: (re)establish selection/convergence for the
             # current buffer and clear the stall latch (masked when the
             # epoch is already done)
@@ -315,10 +340,10 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
                 torch.clamp(max_iters - s.step, min=1), max=chunk_iters)
             for _ in range(chunk_iters):
                 run = live & ~s.converged & ~s.stalled & (s.step < end)
-                s = body(s, run)
-            return s
+                s, c = body(s, c, run)
+            return s, c
 
-        s = state
+        s, c = state, cache
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         segs, n_act, need_c = zero, zero, torch.zeros((), dtype=torch.bool,
                                                       device=dev)
@@ -327,7 +352,7 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
         done = need_c
         for _ in range(max(1, int(k))):
             live = ~done
-            s = run_segment(s, live)
+            s, c = run_segment(s, c, live)
             n_seg = s.active.sum()
             min_act = torch.where(live, torch.minimum(min_act, n_seg),
                                   min_act)
@@ -355,12 +380,13 @@ def make_chunk_runner(kernel: str, C: float, inv_2s2: float,
                     data.vals, s.active, n_act, 1), 0)
         else:
             shard_ext = torch.zeros((1,), dtype=torch.int64, device=dev)
+        hits, misses = (c.hits, c.misses) if cached else (zero, zero)
         summary = torch.cat([
             torch.stack([s.step, segs, n_act, min_act, s.n_shrinks,
                          s.converged.to(torch.int64),
                          s.stalled.to(torch.int64),
-                         need_c.to(torch.int64)]), shard_ext])
-        return s, summary
+                         need_c.to(torch.int64), hits, misses]), shard_ext])
+        return s, c, summary
 
     return run_epoch
 

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core import dataplane, driver, kernel_fns, reconstruct, smo
+from repro_torch.core import (dataplane, driver, kernel_fns, reconstruct,
+                               rowcache, smo)
 from repro_torch.core import heuristics as H
 from repro_torch.core import mirror as mirror_mod
 from repro_torch.core.driver import FitStats
@@ -31,9 +32,6 @@ __all__ = ["SVMConfig", "SVMModel", "SMOSolver", "FitStats", "train"]
 # Fields of the reference config whose features later slices of the port
 # bring; a value other than the default raises instead of being ignored.
 _LATER = {
-    "row_cache": (False, "the row-cache slice"),
-    "row_cache_slots": (64, "the row-cache slice"),
-    "row_cache_policy": ("lru", "the row-cache slice"),
     "checkpoint_dir": (None, "the checkpoint/elastic slice"),
     "checkpoint_every": (1, "the checkpoint/elastic slice"),
     "resume": (False, "the checkpoint/elastic slice"),
@@ -74,10 +72,13 @@ class SVMConfig:
     recon_eps_factor: float = 20.0  # Alg. 5 line 7 first-reconstruction gate
     max_reconstructions: int = 64   # safety bound for Multi
     device: str = "cuda"
+    row_cache: bool = False      # kernel-row cache in front of the row
+                                 # providers (core/rowcache.py)
+    row_cache_slots: int = 64    # its capacity in rows (bucketed to a power
+                                 # of two)
+    row_cache_policy: str = "lru"   # eviction: 'lru' | 'slru' (segmented,
+                                 # scan-resistant)
     # -- refused until their slice lands (see _LATER) --------------------
-    row_cache: bool = False
-    row_cache_slots: int = 64
-    row_cache_policy: str = "lru"
     checkpoint_dir: "str | None" = None
     checkpoint_every: int = 1
     resume: bool = False
@@ -238,12 +239,40 @@ class SMOSolver:
         self._runners: dict = {}
 
     # -- driver hooks -----------------------------------------------------
+    def _cache_slots(self) -> int:
+        """Row-cache capacity: 0 when disabled, else power-of-two
+        bucketed, as the reference buckets it."""
+        if not self.cfg.row_cache:
+            return 0
+        return rowcache.bucket_slots(self.cfg.row_cache_slots)
+
+    def _new_cache(self, m: int):
+        """An empty row cache for a buffer of ``m`` rows, or None (off)."""
+        slots = self._cache_slots()
+        if slots == 0:
+            return None
+        return rowcache.init_cache(slots, m, self.device)
+
+    def _regrow_cache(self, cache, data, pairs: bool, n: int):
+        """Rewarm the row cache across un-shrink growth
+        (``rowcache.regrow_cache``) with the chunk runner's own provider,
+        so warmed bits equal in-loop miss bits."""
+        provider = kernel_fns.make_provider(self.cfg.kernel, self._store.fmt,
+                                            True, self.cfg.inv_2s2)
+        return rowcache.regrow_cache(cache, data, provider, pairs, n)
+
     def _runner(self, cfg: SVMConfig, interval: int):
-        if interval not in self._runners:
-            self._runners[interval] = smo.make_chunk_runner(
+        # the eviction policy is dead code in a cache-off runner: pinned in
+        # the key, as the reference pins it
+        slots = self._cache_slots()
+        policy = cfg.row_cache_policy if slots else "lru"
+        key = (interval, slots, policy)
+        if key not in self._runners:
+            self._runners[key] = smo.make_chunk_runner(
                 cfg.kernel, cfg.C, cfg.inv_2s2, interval,
-                selection=cfg.selection, fmt=cfg.format)
-        return self._runners[interval]
+                selection=cfg.selection, fmt=cfg.format, cache_slots=slots,
+                cache_policy=policy)
+        return self._runners[key]
 
     def _reconstruct(self, y, alpha, stale):
         """Alg. 6, host-streaming backend (``mirror='host'`` oracle)."""

@@ -1,7 +1,8 @@
 """Synthetic stand-ins for the paper's seven evaluation datasets (copy of
 ``repro.data.synthetic``: ``SPECS``, ``DatasetSpec``, ``make``,
-``make_sparse``, ``density`` and the generators; outputs are byte-equal to
-the reference for the same (spec, scale, seed) — crc32 seeding).
+``make_sparse``, ``make_repeat_heavy``, ``density`` and the generators;
+outputs are byte-equal to the reference for the same arguments — crc32
+seeding).
 
 The public datasets (Table 2 of the paper) are replaced by generators matched on the axes that drive SMO/shrinking
 behaviour: N, d, sparsity/density, feature type (binary categorical vs dense
@@ -236,3 +237,22 @@ def make_sparse(n: int, d: int, density: float, seed: int = 0,
     if np.all(y == y[0]):
         y[: y.size // 2] = -y[0]
     return X[:n], y[:n]
+
+
+def make_repeat_heavy(n: int = 2048, d: int = 768, density: float = 0.25,
+                      sep: float = 0.8, seed: int = 1):
+    """Repeat-heavy SMO workload: two overlapping sparse Gaussian blobs.
+
+    Driven to a low tolerance, the maximal-violating-pair loop spends a
+    long convergence tail bouncing inside a hot working set — the access
+    pattern the kernel-row cache (``SVMConfig(row_cache=True)``) amortizes;
+    ``chip_smoke.py`` runs the cache on it at the reference's benchmark
+    size. Returns (X, y), X dense at the given Bernoulli density.
+    """
+    rng = np.random.default_rng(seed)
+    X = np.vstack([rng.normal(+sep, 1, (n // 2, d)),
+                   rng.normal(-sep, 1, (n - n // 2, d))]).astype(np.float32)
+    X *= rng.random((n, d)) < density
+    y = np.concatenate([np.ones(n // 2),
+                        -np.ones(n - n // 2)]).astype(np.float32)
+    return X, y

@@ -77,10 +77,18 @@
 // gives the same bits. Distance, exp and the update stay in fp32 with
 // explicitly rounded operations. Padding rows carry gamma = +inf, and +inf
 // plus a finite update stays +inf.
+//
+// The row cache's entry, ell_kernel_rows2_cached (core/rowcache.py): the
+// rows2 kernel with the cache's value table, the two rows' slots and a
+// device hit flag. Every block reads the flag at entry, before its first
+// load of vals: on a hit it copies the two table rows into out and returns
+// (cached_rows.cuh); on a miss it runs the rows2 body above, the same
+// template instance as ell_kernel_rows2, so a miss gives its bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cached_rows.cuh"
 #include "occupancy.cuh"
 
 namespace {
@@ -212,14 +220,23 @@ __device__ __forceinline__ void write_row(long row, float s, float g,
 
 // Groups of W = 2^lw lanes, one row each, 128 / W rows a pass of the
 // block; the block's passes are grid-strided. kSharedZ: the queries in
-// shared memory. vec_v / vec_c: 16-byte loads of vals / cols.
+// shared memory. vec_v / vec_c: 16-byte loads of vals / cols. `cache`: the
+// row cache's hit path (rows2 only; its flag is nullptr for the normal
+// entries).
 template <int kMode, bool kSharedZ>
 __global__ void __launch_bounds__(kThreads)
 ell_rows_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                 const float* __restrict__ sq, const float* __restrict__ z,
                 float inv_2s2, const float* __restrict__ gamma,
                 const float* __restrict__ coef2, float* __restrict__ out,
-                int n, int K, int d, int lw, bool vec_v, bool vec_c) {
+                int n, int K, int d, int lw, bool vec_v, bool vec_c,
+                cached_rows::Table cache) {
+  if constexpr (kMode == kRows2) {
+    if (cache.is_hit()) {  // before any load of vals
+      cache.serve(out, n);
+      return;
+    }
+  }
   constexpr int Q = kMode == kRow ? 1 : 2;
   constexpr bool kG = kMode == kGamma;
   extern __shared__ float zs[];  // z_0 at [0, d), z_1 at [d, 2d)
@@ -264,7 +281,7 @@ template <int kMode, bool kSharedZ>
 int run(const float* vals, const int* cols, const float* sq, const float* z,
         float inv_2s2, const float* gamma, const float* coef2, float* out,
         int n, int K, int d, int lw, bool vec_v, bool vec_c, int smem,
-        void* stream) {
+        cached_rows::Table cache, void* stream) {
   auto kernel = ell_rows_kernel<kMode, kSharedZ>;
   static int cached_smem = -1, cached_blocks = 0;
   const int resident = occupancy::resident_blocks<kThreads, kBlocksPerSm>(
@@ -274,7 +291,7 @@ int run(const float* vals, const int* cols, const float* sq, const float* z,
   const int grid = passes < resident ? static_cast<int>(passes) : resident;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       vals, cols, sq, z, inv_2s2, gamma, coef2, out, n, K, d, lw, vec_v,
-      vec_c);
+      vec_c, cache);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,7 +299,7 @@ template <int kMode>
 int launch(const float* vals, const int* cols, const float* sq,
            const float* z, float inv_2s2, const float* gamma,
            const float* coef2, float* out, int n, int K, int d,
-           void* stream) {
+           void* stream, cached_rows::Table cache = {}) {
   if (n <= 0) return 0;
   if (K < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int Q = kMode == kRow ? 1 : 2;
@@ -298,9 +315,9 @@ int launch(const float* vals, const int* cols, const float* sq,
   if (zbytes <= kSharedQueryBytes)
     return run<kMode, true>(vals, cols, sq, z, inv_2s2, gamma, coef2, out, n,
                             K, d, lw, vec_v, vec_c,
-                            static_cast<int>(zbytes), stream);
+                            static_cast<int>(zbytes), cache, stream);
   return run<kMode, false>(vals, cols, sq, z, inv_2s2, gamma, coef2, out, n,
-                           K, d, lw, vec_v, vec_c, 0, stream);
+                           K, d, lw, vec_v, vec_c, 0, cache, stream);
 }
 
 }  // namespace
@@ -322,6 +339,18 @@ extern "C" int repro_ell_kernel_rows2(const float* vals, const int* cols,
                                       int d, void* stream) {
   return launch<kRows2>(vals, cols, sq, z2, inv_2s2, nullptr, nullptr, out,
                         n, K, d, stream);
+}
+
+// As repro_ell_kernel_rows2, behind the row cache: table (S, ld) f32, slot2
+// (2,) i32 in [0, S), hit an i32 flag, all on the current device. Where
+// *hit is nonzero, out[i, j] = table[slot2[j], i]; else ell_kernel_rows2's
+// rows.
+extern "C" int repro_ell_kernel_rows2_cached(
+    const float* vals, const int* cols, const float* sq, const float* z2,
+    float inv_2s2, const float* table, const int* slot2, const int* hit,
+    int ld, float* out, int n, int K, int d, void* stream) {
+  return launch<kRows2>(vals, cols, sq, z2, inv_2s2, nullptr, nullptr, out,
+                        n, K, d, stream, {table, slot2, hit, ld});
 }
 
 // vals, cols, sq as above, gamma (n,), z2 (2, d), coef2 (2,) -> out (n,).

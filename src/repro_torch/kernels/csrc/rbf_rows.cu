@@ -52,11 +52,19 @@
 // symmetry. Distance, exp and the FMA into gamma stay in fp32 with
 // explicitly rounded operations (no contraction differences between
 // builds).
+//
+// The row cache's entry, rbf_rows2_cached (core/rowcache.py): the rows2
+// kernel with the cache's value table, the two rows' slots and a device hit
+// flag. Every block reads the flag at entry, before its first cp.async: on a
+// hit it copies the two table rows into out and returns (cached_rows.cuh);
+// on a miss it runs the rows2 body above, the same template instance as
+// rbf_rows2, so a miss gives rbf_rows2's bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "cached_rows.cuh"
 #include "occupancy.cuh"
 
 namespace {
@@ -164,14 +172,22 @@ __device__ __forceinline__ void stage(uint32_t dst, const float* src,
 
 // kGamma = false: write the (N, 2) rows; true: the Eq. 6 update into out.
 // G lanes per row; tiles of `rows` rows, kStages (1 or 2) of them in the
-// ring, one every `stride` floats.
+// ring, one every `stride` floats. `cache`: the row cache's hit path (rows
+// only; its flag is nullptr for the normal entries).
 template <bool kGamma, int G, int kStages>
 __global__ void __launch_bounds__(kThreads)
 rbf_rows_kernel(const float* __restrict__ X, const float* __restrict__ sq,
                 const float* __restrict__ z2, float inv_2s2,
                 const float* __restrict__ gamma,
                 const float* __restrict__ coef2, float* __restrict__ out,
-                int n, int d, int rows, int stride) {
+                int n, int d, int rows, int stride,
+                cached_rows::Table cache) {
+  if constexpr (!kGamma) {
+    if (cache.is_hit()) {  // before any copy is issued
+      cache.serve(out, n);
+      return;
+    }
+  }
   extern __shared__ float4 ring_raw[];
   float* ring = reinterpret_cast<float*>(ring_raw);
   const int n_tiles = (n + rows - 1) / rows;
@@ -236,7 +252,7 @@ rbf_rows_kernel(const float* __restrict__ X, const float* __restrict__ sq,
 template <bool kGamma, int G, int kStages>
 int run(const float* X, const float* sq, const float* z2, float inv_2s2,
         const float* gamma, const float* coef2, float* out, int n, int d,
-        int rows, int stride, void* stream) {
+        int rows, int stride, cached_rows::Table cache, void* stream) {
   auto kernel = rbf_rows_kernel<kGamma, G, kStages>;
   static int raised_to = 48 * 1024, cached_smem = -1, cached_blocks = 0;
   const int smem = kStages * stride * static_cast<int>(sizeof(float));
@@ -252,14 +268,14 @@ int run(const float* X, const float* sq, const float* z2, float inv_2s2,
           kernel, smem, &cached_smem, &cached_blocks);
   const int grid = n_tiles < resident ? n_tiles : resident;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, sq, z2, inv_2s2, gamma, coef2, out, n, d, rows, stride);
+      X, sq, z2, inv_2s2, gamma, coef2, out, n, d, rows, stride, cache);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kGamma>
 int launch(const float* X, const float* sq, const float* z2, float inv_2s2,
            const float* gamma, const float* coef2, float* out, int n, int d,
-           void* stream) {
+           void* stream, cached_rows::Table cache = {}) {
   if (n <= 0) return 0;
   if (d < 0) return static_cast<int>(cudaErrorInvalidValue);
   // rows per tile: ~kTileFloats floats, a multiple of `step` so that every
@@ -277,18 +293,18 @@ int launch(const float* X, const float* sq, const float* z2, float inv_2s2,
   };
   if (d <= kRegZ)  // <= 8 KB tiles: a 2-stage ring always fits
     return run<kGamma, 8, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d,
-                             rows, stride_of(rows), stream);
+                             rows, stride_of(rows), cache, stream);
   if (bytes(2, stride_of(rows)) <= kMaxSmem)
     return run<kGamma, 32, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d,
-                              rows, stride_of(rows), stream);
+                              rows, stride_of(rows), cache, stream);
   // wide rows: one per tile (16-byte copies where aligned), 2 stages while
   // they fit, then 1
   if (bytes(2, stride_of(1)) <= kMaxSmem)
     return run<kGamma, 32, 2>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d, 1,
-                              stride_of(1), stream);
+                              stride_of(1), cache, stream);
   if (bytes(1, stride_of(1)) <= kMaxSmem)
     return run<kGamma, 32, 1>(X, sq, z2, inv_2s2, gamma, coef2, out, n, d, 1,
-                              stride_of(1), stream);
+                              stride_of(1), cache, stream);
   return static_cast<int>(cudaErrorInvalidValue);  // d > 57,856
 }
 
@@ -301,6 +317,18 @@ extern "C" int repro_rbf_rows2(const float* X, const float* sq,
                                int n, int d, void* stream) {
   return launch<false>(X, sq, z2, inv_2s2, nullptr, nullptr, out, n, d,
                        stream);
+}
+
+// As repro_rbf_rows2, behind the row cache: table (S, ld) f32, slot2 (2,)
+// i32 in [0, S), hit an i32 flag, all on the current device. Where *hit is
+// nonzero, out[i, j] = table[slot2[j], i]; else rbf_rows2's rows.
+extern "C" int repro_rbf_rows2_cached(const float* X, const float* sq,
+                                      const float* z2, float inv_2s2,
+                                      const float* table, const int* slot2,
+                                      const int* hit, int ld, float* out,
+                                      int n, int d, void* stream) {
+  return launch<false>(X, sq, z2, inv_2s2, nullptr, nullptr, out, n, d,
+                       stream, {table, slot2, hit, ld});
 }
 
 // X (n, d), sq (n,), gamma (n,), z2 (2, d), coef2 (2,) -> out (n,); all f32,

@@ -147,15 +147,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(kernel: str, argtypes: list):
-    """The C entry point ``repro_<kernel>`` (returns a cudaError_t as
-    ``int``), loaded once and cached."""
-    f = _entries.get(kernel)
+def entry(kernel: str, argtypes: list, name: "str | None" = None):
+    """The C entry point ``repro_<name>`` (``name`` defaults to the
+    kernel's; a kernel's second entry, such as ``rbf_rows2_cached``, lives
+    in the kernel's library), which returns a cudaError_t as ``int``;
+    loaded once and cached."""
+    name = name or kernel
+    f = _entries.get(name)
     if f is None:
-        f = getattr(library(KERNELS[kernel]), f"repro_{kernel}")
+        f = getattr(library(KERNELS[kernel]), f"repro_{name}")
         f.argtypes = argtypes
         f.restype = ctypes.c_int
-        _entries[kernel] = f
+        _entries[name] = f
     return f
 
 
@@ -202,6 +205,20 @@ def check_ell(vals: torch.Tensor, cols: torch.Tensor,
     check(cols, "cols", (n, K), torch.int32)
     check(sq_norms, "sq_norms", (n,))
     return n, K
+
+
+def check_table(table: torch.Tensor, slot2: torch.Tensor, hit: torch.Tensor,
+                m: int) -> None:
+    """Check the row cache's operands of a cached two-row entry: the value
+    table (S, m) f32, the two slots (2,) int32 and the hit flag, a 0-d
+    int32, contiguous and on the card. The slots' range is the cache's to
+    keep (they come from a search over its S tags)."""
+    if not isinstance(table, torch.Tensor) or table.dim() != 2:
+        raise ValueError(f"table: expected an (S, {m}) tensor, got "
+                         f"{tuple(getattr(table, 'shape', ()))}")
+    check(table, "table", (table.shape[0], m))
+    check(slot2, "slot2", (2,), torch.int32)
+    check(hit, "hit", (), torch.int32)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -28,6 +28,26 @@ def kernel_rows2(kernel: str, X: torch.Tensor, sq_norms: torch.Tensor,
     return rbf_row.rbf_rows2(X, sq_norms, z2, inv_2s2)
 
 
+def kernel_rows2_cached(kernel: str, X: torch.Tensor, sq_norms: torch.Tensor,
+                        z2: torch.Tensor, table: torch.Tensor,
+                        slot2: torch.Tensor, hit: torch.Tensor,
+                        inv_2s2: float) -> torch.Tensor:
+    """(N, 2) kernel rows behind the row cache: the value table's rows at
+    ``slot2`` where the device flag ``hit`` is set, else the rows of
+    :func:`kernel_rows2`, in one launch of the cached CUDA entry for RBF on
+    the card."""
+    if kernel != "rbf":
+        from repro_torch.core import kernel_fns
+        return ref.cached_rows(table, slot2, hit, kernel_fns.get_rows2(
+            kernel)(X, sq_norms, z2, inv_2s2))
+    if X.device.type == "cpu":
+        return ref.kernel_rows2_cached(X, sq_norms, z2, table, slot2, hit,
+                                       inv_2s2)
+    from repro_torch.kernels import rbf_row
+    return rbf_row.rbf_rows2_cached(X, sq_norms, z2, table, slot2, hit,
+                                    inv_2s2)
+
+
 def fused_gamma_update(kernel: str, X: torch.Tensor, sq_norms: torch.Tensor,
                        gamma: torch.Tensor, z2: torch.Tensor,
                        coef2: torch.Tensor, inv_2s2: float) -> torch.Tensor:
@@ -81,6 +101,20 @@ def ell_kernel_rows2(vals: torch.Tensor, cols: torch.Tensor,
         return ref.ell_kernel_rows2(vals, cols, sq_norms, z2, inv_2s2)
     from repro_torch.kernels import sparse_ell
     return sparse_ell.ell_kernel_rows2(vals, cols, sq_norms, z2, inv_2s2)
+
+
+def ell_kernel_rows2_cached(vals: torch.Tensor, cols: torch.Tensor,
+                            sq_norms: torch.Tensor, z2: torch.Tensor,
+                            table: torch.Tensor, slot2: torch.Tensor,
+                            hit: torch.Tensor, inv_2s2: float) -> torch.Tensor:
+    """(N, 2) RBF rows over ELL rows behind the row cache (as
+    :func:`kernel_rows2_cached`); the cached CUDA entry on the card."""
+    if vals.device.type == "cpu":
+        return ref.ell_kernel_rows2_cached(vals, cols, sq_norms, z2, table,
+                                           slot2, hit, inv_2s2)
+    from repro_torch.kernels import sparse_ell
+    return sparse_ell.ell_kernel_rows2_cached(vals, cols, sq_norms, z2, table,
+                                              slot2, hit, inv_2s2)
 
 
 def ell_fused_gamma_update(kernel: str, vals: torch.Tensor,

@@ -1,11 +1,11 @@
-"""Launchers of the two-row RBF kernel and the serve-time RBF accumulates
-(``csrc/rbf_rows.cu``, ``csrc/rbf_accumulate.cu``,
+"""Launchers of the two-row RBF kernel (and its row-cache entry) and the
+serve-time RBF accumulates (``csrc/rbf_rows.cu``, ``csrc/rbf_accumulate.cu``,
 ``csrc/ell_accumulate.cu``; replace ``repro.kernels.rbf_row.rbf_rows2`` /
 ``rbf_accumulate`` / ``ell_rbf_accumulate``).
 
-CUDA tensors only: ``ops.kernel_rows2`` / ``ops.rbf_accumulate`` /
-``ops.ell_rbf_accumulate`` dispatch between these kernels and their plain
-versions by tensor device.
+CUDA tensors only: ``ops.kernel_rows2`` / ``ops.kernel_rows2_cached`` /
+``ops.rbf_accumulate`` / ``ops.ell_rbf_accumulate`` dispatch between these
+kernels and their plain versions by tensor device.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ from repro_torch.kernels import cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ROWS2_ARGS = [_P, _P, _P, ctypes.c_float, _P, _I, _I, _P]
+_ROWS2_CACHED_ARGS = [_P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _P, _I, _I,
+                      _P]
 _ACCUM_ARGS = [_P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P]
 
 
@@ -34,6 +36,30 @@ def rbf_rows2(X: torch.Tensor, sq_norms: torch.Tensor, z2: torch.Tensor,
         cuda.ptr(X), cuda.ptr(sq_norms), cuda.ptr(z2), float(inv_2s2),
         cuda.ptr(out), n, d, cuda.stream(X))
     cuda.raise_on(rc, "rbf_rows2")
+    cuda.launches["rbf_rows2"] += 1
+    return out
+
+
+def rbf_rows2_cached(X: torch.Tensor, sq_norms: torch.Tensor,
+                     z2: torch.Tensor, table: torch.Tensor,
+                     slot2: torch.Tensor, hit: torch.Tensor,
+                     inv_2s2: float) -> torch.Tensor:
+    """:func:`rbf_rows2` behind the row cache, in one launch whatever the
+    flag says: where the device flag ``hit`` is set, the two rows of the
+    cache's value table ``table`` (S, N) at ``slot2`` (as the (N, 2)
+    columns); else ``rbf_rows2``'s rows, bit for bit. Counted as a
+    ``rbf_rows2`` launch."""
+    n, d = X.shape
+    cuda.check(X, "X", (n, d))
+    cuda.check(sq_norms, "sq_norms", (n,))
+    cuda.check(z2, "z2", (2, d))
+    cuda.check_table(table, slot2, hit, n)
+    out = torch.empty((n, 2), dtype=torch.float32, device=X.device)
+    rc = cuda.entry("rbf_rows2", _ROWS2_CACHED_ARGS, "rbf_rows2_cached")(
+        cuda.ptr(X), cuda.ptr(sq_norms), cuda.ptr(z2), float(inv_2s2),
+        cuda.ptr(table), cuda.ptr(slot2), cuda.ptr(hit), n, cuda.ptr(out),
+        n, d, cuda.stream(X))
+    cuda.raise_on(rc, "rbf_rows2_cached")
     cuda.launches["rbf_rows2"] += 1
     return out
 

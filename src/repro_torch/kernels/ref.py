@@ -20,6 +20,26 @@ def kernel_rows2(X: torch.Tensor, sq_norms: torch.Tensor, z2: torch.Tensor,
     return torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
 
 
+def cached_rows(table: torch.Tensor, slot2: torch.Tensor, hit: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """The row cache's hit path of the two-row kernels: where the 0-d flag
+    ``hit`` is set, the value table's rows at ``slot2`` as (N, 2) columns,
+    else ``rows`` (N, 2). Laid out as ``rows`` is (the plain ELL rows are
+    column-major), so a product downstream takes the same path, and the
+    same bits, either way."""
+    return torch.empty_like(rows).copy_(torch.where(
+        hit.bool(), table.index_select(0, slot2.long()).T, rows))
+
+
+def kernel_rows2_cached(X: torch.Tensor, sq_norms: torch.Tensor,
+                        z2: torch.Tensor, table: torch.Tensor,
+                        slot2: torch.Tensor, hit: torch.Tensor,
+                        inv_2s2: float) -> torch.Tensor:
+    """:func:`kernel_rows2` behind the row cache (:func:`cached_rows`)."""
+    return cached_rows(table, slot2, hit,
+                       kernel_rows2(X, sq_norms, z2, inv_2s2))
+
+
 def gamma_update(X: torch.Tensor, sq_norms: torch.Tensor, gamma: torch.Tensor,
                  z2: torch.Tensor, coef2: torch.Tensor,
                  inv_2s2: float) -> torch.Tensor:
@@ -79,6 +99,15 @@ def ell_kernel_rows2(vals: torch.Tensor, cols: torch.Tensor,
     zn = torch.sum(z2 * z2, dim=-1)
     d2 = sq_norms[:, None] - 2.0 * dots + zn[None, :]
     return torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
+
+
+def ell_kernel_rows2_cached(vals: torch.Tensor, cols: torch.Tensor,
+                            sq_norms: torch.Tensor, z2: torch.Tensor,
+                            table: torch.Tensor, slot2: torch.Tensor,
+                            hit: torch.Tensor, inv_2s2: float) -> torch.Tensor:
+    """:func:`ell_kernel_rows2` behind the row cache (:func:`cached_rows`)."""
+    return cached_rows(table, slot2, hit,
+                       ell_kernel_rows2(vals, cols, sq_norms, z2, inv_2s2))
 
 
 def ell_gamma_update(vals: torch.Tensor, cols: torch.Tensor,

@@ -1,6 +1,7 @@
 """Launchers of the block-ELL RBF row kernels (``csrc/ell_rows.cu``; twin
 of ``repro.kernels.sparse_ell``): ``ell_kernel_row``, ``ell_kernel_rows2``
-and the fused Eq. 6 ``ell_gamma_update``.
+(and its row-cache entry ``ell_kernel_rows2_cached``) and the fused Eq. 6
+``ell_gamma_update``.
 
 CUDA tensors only: ``ops.ell_*`` dispatch between these kernels and their
 plain versions (``ref.ell_*``) by tensor device. ``vals`` is f32 and
@@ -18,6 +19,7 @@ from repro_torch.kernels import cuda
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ROW_ARGS = [_P, _P, _P, _P, _F, _P, _I, _I, _I, _P]
 _GAMMA_ARGS = [_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _P]
+_ROWS2_CACHED_ARGS = [_P, _P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I, _P]
 
 
 def ell_kernel_row(vals: torch.Tensor, cols: torch.Tensor,
@@ -50,6 +52,30 @@ def ell_kernel_rows2(vals: torch.Tensor, cols: torch.Tensor,
         cuda.ptr(vals), cuda.ptr(cols), cuda.ptr(sq_norms), cuda.ptr(z2),
         float(inv_2s2), cuda.ptr(out), n, K, d, cuda.stream(vals))
     cuda.raise_on(rc, "ell_kernel_rows2")
+    cuda.launches["ell_kernel_rows2"] += 1
+    return out
+
+
+def ell_kernel_rows2_cached(vals: torch.Tensor, cols: torch.Tensor,
+                            sq_norms: torch.Tensor, z2: torch.Tensor,
+                            table: torch.Tensor, slot2: torch.Tensor,
+                            hit: torch.Tensor, inv_2s2: float) -> torch.Tensor:
+    """:func:`ell_kernel_rows2` behind the row cache, in one launch
+    whatever the flag says: where the device flag ``hit`` is set, the two
+    rows of the cache's value table ``table`` (S, N) at ``slot2`` (as the
+    (N, 2) columns); else ``ell_kernel_rows2``'s rows, bit for bit. Counted
+    as an ``ell_kernel_rows2`` launch."""
+    n, K = cuda.check_ell(vals, cols, sq_norms)
+    d = z2.shape[-1]
+    cuda.check(z2, "z2", (2, d))
+    cuda.check_table(table, slot2, hit, n)
+    out = torch.empty((n, 2), dtype=torch.float32, device=vals.device)
+    rc = cuda.entry("ell_kernel_rows2", _ROWS2_CACHED_ARGS,
+                    "ell_kernel_rows2_cached")(
+        cuda.ptr(vals), cuda.ptr(cols), cuda.ptr(sq_norms), cuda.ptr(z2),
+        float(inv_2s2), cuda.ptr(table), cuda.ptr(slot2), cuda.ptr(hit), n,
+        cuda.ptr(out), n, K, d, cuda.stream(vals))
+    cuda.raise_on(rc, "ell_kernel_rows2_cached")
     cuda.launches["ell_kernel_rows2"] += 1
     return out
 

@@ -68,6 +68,41 @@ def test_editing_the_occupancy_header_renames_exactly_its_includers(csrc,
         name in _includers("occupancy.cuh"))
 
 
+def test_the_two_row_kernels_share_the_cached_rows_header():
+    assert sorted(_includers("cached_rows.cuh")) == ["ell_rows", "rbf_rows"]
+
+
+@pytest.mark.parametrize("name", sorted(cuda.SOURCES))
+def test_editing_the_cached_rows_header_renames_exactly_its_includers(
+        csrc, name):
+    before = cuda._target(name)
+    with open(csrc / "cached_rows.cuh", "a") as f:
+        f.write("// edited\n")
+    assert (cuda._target(name) != before) == (
+        name in _includers("cached_rows.cuh"))
+
+
+def test_a_cached_entry_lives_in_its_kernels_library(monkeypatch):
+    """``entry(kernel, argtypes, name)`` looks ``repro_<name>`` up in the
+    library of ``kernel`` and keeps the launch counters to the kernels'
+    names."""
+    looked = []
+
+    class Lib:
+        def __getattr__(self, attr):
+            looked.append(attr)
+            return type("F", (), {})()
+
+    monkeypatch.setattr(cuda, "library", lambda lib: looked.append(lib)
+                        or Lib())
+    monkeypatch.setattr(cuda, "_entries", {})
+    cuda.entry("rbf_rows2", [], "rbf_rows2_cached")
+    cuda.entry("ell_kernel_rows2", [], "ell_kernel_rows2_cached")
+    assert looked == ["rbf_rows", "repro_rbf_rows2_cached", "ell_rows",
+                      "repro_ell_kernel_rows2_cached"]
+    assert set(cuda.launches) == set(cuda.KERNELS)
+
+
 @pytest.mark.parametrize("name", sorted(cuda.SOURCES))
 def test_editing_a_source_renames_its_library(csrc, name):
     before = {n: cuda._target(n) for n in cuda.SOURCES}
@@ -84,7 +119,8 @@ def test_nested_and_toolkit_includes(csrc):
     with open(csrc / "async_copy.cuh", "a") as f:
         f.write('#include "inner.cuh"\n#include "cuda_fp16.h"\n')
     seen = cuda._inputs(csrc / cuda.SOURCES["rbf_rows"], {})
-    assert sorted(p.name for p in seen) == ["async_copy.cuh", "inner.cuh",
+    assert sorted(p.name for p in seen) == ["async_copy.cuh",
+                                            "cached_rows.cuh", "inner.cuh",
                                             "occupancy.cuh", "rbf_rows.cu"]
     before = cuda._target("rbf_rows")
     (csrc / "inner.cuh").write_text("// inner, edited\n")

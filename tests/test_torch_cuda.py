@@ -652,3 +652,161 @@ def test_cuda_accumulates_are_bucket_invariant(cuda_device, kind, m, d, K):
     if "wide" in f:
         assert torch.equal(f["wide"](Z), small)
         assert torch.equal(f["wide"](big)[at], small)
+
+
+# -- the row cache's hit path (rbf_rows2_cached, ell_kernel_rows2_cached) --
+
+INV = 1.0 / 128.0          # sigma2 = 64, the a9a / w7a value
+
+
+def _row_case(kind, dev):
+    """The two-row kernel of ``kind`` at a main-path buffer — dense: the
+    a9a buffer (32,768 x 123); 'ell': the w7a buffer (32,768 x K 128, d
+    300, rows of random extent up to 128); 'ell16': the same buffer with
+    every row's nonzeros in its first 12 slots, laid out at K = 16 (the
+    budget ``ell_lane = 16`` builds) beside K = 128. Returns the buffer's
+    query rows, its ``rows2``, its cached entry and ``sub`` (the same
+    kernel over a gathered subset of the rows)."""
+    from repro_torch.core.dataplane import ELLData
+    n = 32768
+    put = lambda a: torch.as_tensor(a, device=dev)
+    if kind == "dense":
+        _, X, sq, _ = _inputs(n, 123, seed=11)
+        X, sq = put(X), put(sq)
+        rows2 = lambda z2: ops.kernel_rows2("rbf", X, sq, z2, INV)
+        cached = lambda z2, t, s, h: ops.kernel_rows2_cached(
+            "rbf", X, sq, z2, t, s, h, INV)
+        sub = lambda idx, z2: ops.kernel_rows2("rbf", X[idx].contiguous(),
+                                               sq[idx].contiguous(), z2, INV)
+        return X, rows2, cached, sub, None
+    K, d = 128, 300
+    r = np.random.default_rng(12)
+    ext = r.integers(0, 13 if kind == "ell16" else K + 1, n)
+    ext[0] = 12 if kind == "ell16" else K
+    vals = np.zeros((n, K), np.float32)
+    cols = np.zeros((n, K), np.int32)
+    live = np.arange(K)[None, :] < ext[:, None]
+    vals[live] = r.normal(size=int(live.sum())).astype(np.float32) * 0.5
+    cols[live] = r.integers(0, d, int(live.sum()))
+    v, c = put(vals), put(cols)
+    s = (v * v).sum(1)
+    dense = ELLData(v, c, s, d).dense_rows(torch.arange(n, device=dev))
+    wide = None
+    if kind == "ell16":
+        wide = lambda z2: ops.ell_kernel_rows2(v, c, s, z2, INV)
+        v, c = v[:, :16].contiguous(), c[:, :16].contiguous()
+    rows2 = lambda z2: ops.ell_kernel_rows2(v, c, s, z2, INV)
+    cached = lambda z2, t, sl, h: ops.ell_kernel_rows2_cached(
+        v, c, s, z2, t, sl, h, INV)
+    sub = lambda idx, z2: ops.ell_kernel_rows2(
+        v[idx].contiguous(), c[idx].contiguous(), s[idx].contiguous(), z2,
+        INV)
+    return dense, rows2, cached, sub, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "ell", "ell16"])
+def test_cuda_cached_rows2_entries(cuda_device, kind):
+    """The cached two-row entries at the a9a and w7a buffers: a hit gives
+    the two table rows bitwise, a miss the normal entry's bits, and
+    ``slot2 = [s, s]`` equal columns; one counted launch either way. And
+    the two properties the cache's bits rest on: a column does not depend
+    on its partner query (the pairwise rewarm), and a row does not depend
+    on its place in the buffer (the compaction remap) — nor, on ELL, on
+    the lane budget (K = 16 against K = 128)."""
+    dev = cuda_device
+    Z, rows2, cached, sub, wide = _row_case(kind, dev)
+    n = Z.shape[0]
+    name = "rbf_rows2" if kind == "dense" else "ell_kernel_rows2"
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    z2 = Z[torch.tensor([5, 20000], device=dev)].contiguous()
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn(64, n, generator=g, device=dev)
+    want = rows2(z2)
+    before = cuda.launches[name]
+    hit = cached(z2, table, i32([7, 41]), i32(1))
+    miss = cached(z2, table, i32([7, 41]), i32(0))
+    torch.cuda.synchronize()
+    assert cuda.launches[name] == before + 2
+    assert torch.equal(hit, table[[7, 41]].T)
+    assert torch.equal(miss, want)
+    same = cached(z2, table, i32([9, 9]), i32(1))
+    assert torch.equal(same[:, 0], table[9]) and torch.equal(same[:, 1],
+                                                             table[9])
+    zz = torch.stack([z2[1], z2[1]])
+    dup = cached(zz, table, i32([9, 9]), i32(0))
+    assert torch.equal(dup[:, 0], dup[:, 1])
+    assert torch.equal(dup[:, 0], want[:, 1])
+    # a column is the same whatever its partner query
+    other = Z[torch.tensor([5, 777], device=dev)].contiguous()
+    assert torch.equal(rows2(other)[:, 0], want[:, 0])
+    # a row is the same wherever it sits in the buffer
+    r = np.random.default_rng(4)
+    idx = torch.as_tensor(r.permutation(n)[: n // 2 + 77], device=dev)
+    assert torch.equal(sub(idx, z2), want[idx])
+    if wide is not None:
+        assert torch.equal(wide(z2), want)
+        assert torch.equal(miss, wide(z2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+@pytest.mark.parametrize("selection", ["wss1", "wss2"])
+def test_cuda_cached_fit_keeps_the_contracts(cuda_device, fmt, selection):
+    """The row cache on the card, through compaction and reconstruction:
+    cache on == off bitwise under wss2; under wss1 (whose cache-off path
+    runs the fused update) the outcome contract; cache on with host
+    compaction, SLRU or fused epochs bitwise equal to cache on; two rows
+    looked up an iteration, through the two-row kernel (wss1 no longer
+    launches the fused update)."""
+    from conftest import make_blobs
+    from repro_torch.core import train
+    X, y = make_blobs(n=800, d=6, sep=1.5, seed=5)
+    kw = dict(C=4.0, sigma2=4.0, heuristic="multi5pc", chunk_iters=64,
+              min_buffer=64, selection=selection, format=fmt)
+    off = train(X, y, device="cuda", **kw)
+    cuda.reset_launches()
+    on = train(X, y, device="cuda", row_cache=True, **kw)
+    hot = "rbf_rows2" if fmt == "dense" else "ell_kernel_rows2"
+    fused = "gamma_update" if fmt == "dense" else "ell_gamma_update"
+    st = on.stats
+    assert cuda.launches[hot] >= st.iterations > 0
+    assert cuda.launches[fused] == 0
+    assert st.cache_hits + st.cache_misses == 2 * st.iterations
+    assert st.cache_hits > 0 and st.compactions >= 1
+    assert st.reconstructions >= 1
+    if selection == "wss2":
+        assert st.iterations == off.stats.iterations
+        np.testing.assert_array_equal(on.alpha, off.alpha)
+    else:
+        assert abs(on.dual_objective() - off.dual_objective()) \
+            / abs(off.dual_objective()) < 5e-4
+        assert (on.predict(X) == off.predict(X)).mean() >= 0.995
+    for other in (dict(compact_backend="host"), dict(fuse_iters=4)):
+        m = train(X, y, device="cuda", row_cache=True, **kw, **other)
+        assert m.stats.iterations == st.iterations, other
+        np.testing.assert_array_equal(m.alpha, on.alpha)
+        assert (m.stats.cache_hits, m.stats.cache_misses) \
+            == (st.cache_hits, st.cache_misses)
+    slru = train(X, y, device="cuda", row_cache=True,
+                 row_cache_policy="slru", row_cache_slots=8, **kw)
+    assert slru.stats.iterations == st.iterations
+    np.testing.assert_array_equal(slru.alpha, on.alpha)
+
+
+@pytest.mark.cuda
+def test_cuda_cached_fit_through_a_K_drop(cuda_device):
+    """The cached ELL columns stay valid when a compaction re-lays the
+    buffer at a smaller lane budget: wss2 cache on == off bitwise through
+    the drop, on the skewed set whose K falls mid-fit."""
+    from repro_torch.core import train
+    from repro_torch.data import to_csr
+    Xa, ya, kw = skewed_sparse()
+    kw = dict(kw, format="ell", selection="wss2")
+    off = train(to_csr(Xa), ya, device="cuda", **kw)
+    on = train(to_csr(Xa), ya, device="cuda", row_cache=True, **kw)
+    ks = on.stats.buffer_K
+    assert any(b < a for a, b in zip(ks, ks[1:])), ks
+    assert on.stats.cache_hits > 0
+    assert on.stats.iterations == off.stats.iterations
+    np.testing.assert_array_equal(on.alpha, off.alpha)

@@ -133,7 +133,8 @@ def test_one_segment_from_a_shared_state_reports_first_divergence(
         jstate, _, _ = jrun(jdata, jnp.asarray(y), jstate, None,
                             jnp.float32(2e-3), jnp.int32(1), jnp.int32(1),
                             jnp.int32(10 ** 6), jnp.int32(0), jnp.int32(8))
-        tstate, summ = trun(tdata, ty, tstate, 2e-3, 1, 1, 10 ** 6, 0, 8)
+        tstate, _, summ = trun(tdata, ty, tstate, None, 2e-3, 1, 1, 10 ** 6,
+                               0, 8)
         pj = (int(jstate.i_up), int(jstate.i_low))
         pt = (int(tstate.i_up), int(tstate.i_low))
         if first is None and pj != pt:

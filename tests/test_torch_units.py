@@ -221,8 +221,17 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("row_cache_slots", 128), ("row_cache", True), ("checkpoint_dir", "ckpt"),
-    ("resume", True), ("watchdog_threshold", 2.0), ("ckpt_retries", 5)])
+    ("checkpoint_every", 2), ("watchdog_window", 16),
+    ("checkpoint_dir", "ckpt"), ("resume", True), ("watchdog_threshold", 2.0),
+    ("ckpt_retries", 5)])
 def test_later_slice_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="slice"):
         tsolver.SVMConfig(**{field: value, "device": "cpu"})
+
+
+def test_unknown_row_cache_policy_raises():
+    X = np.zeros((4, 2), np.float32)
+    y = np.array([1, -1, 1, -1], np.float32)
+    with pytest.raises(ValueError, match="row_cache_policy"):
+        tsolver.train(X, y, row_cache=True, row_cache_policy="bogus",
+                      device="cpu")
