@@ -18,18 +18,18 @@ entry points a user calls:
   blockwise one (the reference's attention without the kernel, swapped in
   for the gate only) and the decode-built cache with the prefill;
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
-  convergence, a Single-policy wss2 fit at scale 0.2, and
+  convergence, a Single-policy wss2 fit at scale 0.1, and
   ``SVMModel.predict`` over the test rows;
 * sparse (block-ELL, CSR input): a full-size ``w7a`` fit fed as CSR
   (C=32, sigma2=64, multi5pc, wss1, ``format='ell'``) to convergence, a
-  Single-policy wss2 fit at scale 0.2, one ``ELLKernelRowProvider.row``
+  Single-policy wss2 fit at scale 0.1, one ``ELLKernelRowProvider.row``
   over the training buffer, and ``SVMModel.predict`` over the CSR test
   rows;
 * the kernel-row cache (``row_cache=True``): its own repeat-heavy workload
   at the reference's benchmark size, dense wss1, ELL wss1 and dense wss2,
-  each with the cache off and on (``[cache]``); the full-size w7a fit (CSR
-  in) with the cache on, against the cache-off one (``[train-cache]``);
-  and the scale-0.2 a9a wss2 fit with the cache on, bitwise equal to the
+  each with the cache off and on (``[cache]``); the full-size a9a fit
+  with the cache on, against the cache-off one (``[train-cache]``); and
+  the scale-0.1 a9a wss2 fit with the cache on, bitwise equal to the
   cache-off one (``[wss2-cache]``). The two-row kernels' cached entries
   are held against their plain version in ``[check]`` / ``[check-ell]``,
   their hit path timed.
@@ -927,12 +927,16 @@ def serve_lm(torch, dev) -> dict:
 # the kernel each phase of a main path must launch: (train, wss2, serve)
 HOT = {"dense": ("gamma_update", "rbf_rows2", "rbf_accumulate"),
        "ell": ("ell_gamma_update", "ell_kernel_rows2", "ell_rbf_accumulate")}
+# the scale of the Single-policy wss2 fits, [wss2-cache]'s among them: cut
+# from 0.2 to keep the smoke inside its time limit with the full-size cached
+# a9a fit; at 0.1 each still shrinks, rechecks and reconstructs once
+WSS2_SCALE = 0.1
 
 
 def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
     """One main path through the entry points a user calls: a full-size
     fit of ``dataset`` (C=32, sigma2=64, multi5pc, wss1) to convergence, a
-    Single-policy wss2 fit at scale 0.2, and ``SVMModel.predict`` over the
+    Single-policy wss2 fit at ``WSS2_SCALE``, and ``SVMModel.predict`` over the
     test rows. ``fmt='dense'`` feeds numpy rows; ``fmt='ell'`` feeds CSR to
     ``format='ell'`` training and serving. Launch counts are reset just
     before each phase and read just after it. Returns the trained model,
@@ -981,7 +985,7 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
     # The Single policy's last phase ends without a reconstruction, so its
     # verdict is the one the driver rechecks on recomputed gamma.
     phase("wss2" + sfx)
-    X2, y2, _, _ = make(dataset, 0.2, seed=0)
+    X2, y2, _, _ = make(dataset, WSS2_SCALE, seed=0)
     cuda.reset_launches()
     t0 = time.perf_counter()
     m2 = SMOSolver(SVMConfig(**dict(kw, selection="wss2",
@@ -991,7 +995,8 @@ def run_path(torch, np, dev, time_ms, dataset, fmt) -> tuple:
     launches[k_wss2] = cuda.launches[k_wss2]
     s2 = m2.stats
     gap2 = eq9_gap(torch, X2, y2, m2.alpha, 32.0, INV, dev)
-    print(f"[wss2{sfx}] {dataset} scale 0.2 n={X2.shape[0]} single5pc{fed}: "
+    print(f"[wss2{sfx}] {dataset} scale {WSS2_SCALE} n={X2.shape[0]} "
+          f"single5pc{fed}: "
           f"iterations={s2.iterations} reconstructions={s2.reconstructions} "
           f"rechecks={s2.eq9_rechecks} converged={s2.converged} "
           f"eq9_gap_all={gap2:.3e} (<= 2eps 2e-03) SVs={s2.n_sv} "
@@ -1072,7 +1077,8 @@ def cache_workload(torch, np, dev) -> dict:
     iterations, the hit rate is >= 0.5 and the rows come from the two-row
     kernel (wss1 launches no fused update); wss2 is bitwise equal on and
     off; wss1 (off runs the fused update) keeps the outcome contract.
-    Returns the cached ELL fit's ``ell_kernel_rows2`` launches."""
+    Returns each cached fit's two-row kernel launches, keyed by kernel and
+    then by fit."""
     from repro_torch.core import SVMConfig, SMOSolver
     from repro_torch.data import make_repeat_heavy
     from repro_torch.kernels import cuda
@@ -1121,7 +1127,7 @@ def cache_workload(torch, np, dev) -> dict:
                 if n_rows2 <= 0 or (label.endswith("wss1") and n_fused):
                     fail(f"{label}: the cached fit launched {rows2} "
                          f"{n_rows2} and {fused} {n_fused} times")
-                launches[rows2] = n_rows2
+                launches.setdefault(rows2, {})[f"cache {label}"] = n_rows2
         (m0, o0), (m1, o1) = fits[False], fits[True]
         if label.endswith("wss2"):
             if not (m1.stats.iterations == m0.stats.iterations
@@ -1142,58 +1148,44 @@ def cache_workload(torch, np, dev) -> dict:
     return launches
 
 
-# the full-size fit [train-cache] repeats with the row cache on: w7a (CSR
-# in). With a9a the cached fit alone took 336.6 s and the smoke 788 s on an
-# H100 whose host ran the a9a loop at 1,043 us an iteration; the host sets
-# that rate and has varied 2x between runs, so a slower host would put the
-# smoke past its 1,200 s (PERF.md §4). The cached w7a fit took 123 s
-# with 4 compactions and 2 reconstructions.
-TRAIN_CACHE_SET = "w7a"
-
-
-def train_cache(torch, np, dev, dataset, base) -> dict:
-    """``[train-cache]``: the full-size fit of ``dataset`` that ``[train]``
-    (a9a, dense) or ``[train-ell]`` (w7a, CSR in, ``format='ell'``) ran —
-    C=32, sigma2=64, multi5pc, wss1 — with the row cache on (64 slots,
-    LRU): converged (fp64 gap <= 2e-3), at least one compaction (the
-    device remap) and one reconstruction (the rewarm) at full width,
-    hits > 0, rows from the two-row kernel and no fused update, and the
-    outcome contract against that phase's model ``base``. Returns the
-    cached fit's two-row kernel launches."""
+def train_cache(torch, np, dev, base) -> dict:
+    """``[train-cache]``: the full-size a9a fit that ``[train]`` ran (C=32,
+    sigma2=64, multi5pc, wss1) with the row cache on (64 slots, LRU):
+    converged (fp64 gap <= 2e-3), at least one compaction (the device
+    remap) and one reconstruction (the rewarm) at full width, hits > 0,
+    rows from the two-row kernel and no fused update, and the outcome
+    contract against ``[train]``'s model ``base``. Returns the cached
+    fit's ``rbf_rows2`` launches."""
     from repro_torch.core import SVMConfig, SMOSolver
-    from repro_torch.data import make, to_csr
+    from repro_torch.data import make
     from repro_torch.kernels import cuda
     phase("train-cache")
-    fmt = "dense" if dataset == "a9a" else "ell"
-    k_fused, k_rows2, _ = HOT[fmt]
-    feed = (lambda a: a) if fmt == "dense" else to_csr
-    X, y, Xt, _ = make(dataset, 1.0, seed=0)
+    X, y, Xt, _ = make("a9a", 1.0, seed=0)
     kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
-              device="cuda", row_cache=True,
-              **({} if fmt == "dense" else {"format": "ell"}))
+              device="cuda", row_cache=True)
     cuda.reset_launches()
     t0 = time.perf_counter()
-    m = SMOSolver(SVMConfig(**kw)).fit(feed(X), y)
+    m = SMOSolver(SVMConfig(**kw)).fit(X, y)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_rows2, n_fused = cuda.launches[k_rows2], cuda.launches[k_fused]
+    n_rows2 = cuda.launches["rbf_rows2"]
+    n_fused = cuda.launches["gamma_update"]
     st, sb = m.stats, base.stats
     gap = eq9_gap(torch, X, y, m.alpha, 32.0, INV, dev)
     o1, o0 = m.dual_objective(), base.dual_objective()
-    agree = float((m.predict(feed(Xt)) == base.predict(feed(Xt))).mean())
+    agree = float((m.predict(Xt) == base.predict(Xt)).mean())
     us = lambda s: 1e6 * s.train_time / max(s.iterations, 1)
-    src = "[train]" if fmt == "dense" else "[train-ell]"
-    print(f"[train-cache] {dataset} n={X.shape[0]} d={X.shape[1]} "
-          f"{fmt} row_cache 64 slots lru: iterations={st.iterations} "
-          f"({src}: {sb.iterations}) compactions={st.compactions} "
+    print(f"[train-cache] a9a n={X.shape[0]} d={X.shape[1]} dense row_cache "
+          f"64 slots lru: iterations={st.iterations} ([train]: "
+          f"{sb.iterations}) compactions={st.compactions} "
           f"reconstructions={st.reconstructions} buffer_sizes="
           f"{st.buffer_sizes} hits={st.cache_hits} misses={st.cache_misses} "
           f"hit_rate={st.cache_hit_rate:.4f} converged={st.converged} "
           f"eq9_gap_all={gap:.3e} (<= 2eps 2e-03) wall={wall:.1f} s "
-          f"us/iter={us(st):.1f} ({src}: {us(sb):.1f}) dual objective "
-          f"{rel_gap(o1, o0):.3e} from {src}'s (<= 5e-4), test labels "
-          f"{agree:.4f} equal (>= 0.995); {k_rows2} launches={n_rows2} "
-          f"{k_fused} launches={n_fused}", flush=True)
+          f"us/iter={us(st):.1f} ([train]: {us(sb):.1f}) dual objective "
+          f"{rel_gap(o1, o0):.3e} from [train]'s (<= 5e-4), test labels "
+          f"{agree:.4f} equal (>= 0.995); rbf_rows2 launches={n_rows2} "
+          f"gamma_update launches={n_fused}", flush=True)
     if not (st.converged and gap <= 2e-3):
         fail(f"cached training: converged={st.converged}, gap {gap:.3e}")
     if not (st.compactions >= 1 and st.reconstructions >= 1
@@ -1201,39 +1193,47 @@ def train_cache(torch, np, dev, dataset, base) -> dict:
         fail(f"cached training: compactions {st.compactions}, "
              f"reconstructions {st.reconstructions}, hits {st.cache_hits}")
     if n_rows2 <= 0 or n_fused:
-        fail(f"cached training launched {k_rows2} {n_rows2} and {k_fused} "
-             f"{n_fused} times")
+        fail(f"cached training launched rbf_rows2 {n_rows2} and "
+             f"gamma_update {n_fused} times")
     if not (rel_gap(o1, o0) <= 5e-4 and agree >= 0.995):
-        fail(f"cached training breaks the outcome contract against {src}")
-    return {k_rows2: n_rows2}
+        fail("cached training breaks the outcome contract against [train]")
+    return {"rbf_rows2": {"train-cache a9a": n_rows2}}
 
 
 def wss2_cache(torch, np, dev, base) -> None:
-    """``[wss2-cache]``: the ``[wss2]`` fit (a9a at scale 0.2, single5pc)
+    """``[wss2-cache]``: the ``[wss2]`` fit (a9a at ``WSS2_SCALE``, single5pc)
     with the row cache on, bitwise equal to it (alpha and iterations)
-    through shrink and un-shrink."""
+    through shrink and un-shrink, its rows from ``rbf_rows2``. Returns that
+    fit's ``rbf_rows2`` launches."""
     from repro_torch.core import SVMConfig, SMOSolver
     from repro_torch.data import make
+    from repro_torch.kernels import cuda
     phase("wss2-cache")
-    X2, y2, _, _ = make("a9a", 0.2, seed=0)
+    X2, y2, _, _ = make("a9a", WSS2_SCALE, seed=0)
     kw = dict(C=32.0, sigma2=64.0, heuristic="single5pc", selection="wss2",
               device="cuda", row_cache=True)
+    cuda.reset_launches()
     t0 = time.perf_counter()
     m2 = SMOSolver(SVMConfig(**kw)).fit(X2, y2)
     torch.cuda.synchronize()
+    n_rows2 = cuda.launches["rbf_rows2"]
     s2, sb = m2.stats, base.stats
     same = (s2.iterations == sb.iterations
             and np.array_equal(m2.alpha, base.alpha))
     us = lambda s: 1e6 * s.train_time / max(s.iterations, 1)
-    print(f"[wss2-cache] a9a scale 0.2 n={X2.shape[0]} single5pc row_cache: "
+    print(f"[wss2-cache] a9a scale {WSS2_SCALE} n={X2.shape[0]} single5pc "
+          f"row_cache: "
           f"iterations={s2.iterations} ([wss2]: {sb.iterations}) "
           f"reconstructions={s2.reconstructions} hits={s2.cache_hits} "
           f"misses={s2.cache_misses} hit_rate={s2.cache_hit_rate:.4f} "
           f"wall={time.perf_counter() - t0:.1f} s us/iter={us(s2):.1f} "
           f"([wss2]: {us(sb):.1f}); alpha and iterations bitwise equal to "
-          f"[wss2]: {same}", flush=True)
+          f"[wss2]: {same}; rbf_rows2 launches={n_rows2}", flush=True)
+    if n_rows2 <= 0:
+        fail("the cached wss2 fit did not launch rbf_rows2")
     if not same:
         fail("the cached wss2 fit differs from [wss2]")
+    return {"rbf_rows2": {"wss2-cache a9a": n_rows2}}
 
 
 def predict_device_time(torch, predict, n_acc_want) -> str:
@@ -1353,16 +1353,18 @@ def main() -> None:
     model, _, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a",
                                           "ell")
     launches.update(ell_launches)
+    # the cached phases' two-row kernel launches, by kernel and then by fit
     cached = cache_workload(torch, np, dev)
-    cached.update(train_cache(torch, np, dev, TRAIN_CACHE_SET,
-                              a9a if TRAIN_CACHE_SET == "a9a" else model))
-    wss2_cache(torch, np, dev, a9a_wss2)
+    for fits in (train_cache(torch, np, dev, a9a),
+                 wss2_cache(torch, np, dev, a9a_wss2)):
+        for name, by_fit in fits.items():
+            cached[name].update(by_fit)
     del a9a, a9a_wss2
     phase("check-ell")
     check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
     launches.update(row_path(torch, dev, w7a_buffer))
-    for name, n in cached.items():
-        kernels[name]["cache_launches"] = n
+    for name, by_fit in cached.items():
+        kernels[name]["cache_launches"] = by_fit
 
     phase("report")
     record = []
