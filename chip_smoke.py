@@ -33,6 +33,12 @@ entry points a user calls:
   cache-off one (``[wss2-cache]``). The two-row kernels' cached entries
   are held against their plain version in ``[check]`` / ``[check-ell]``,
   their hit path timed.
+* the distributed solver (``core.parallel.ParallelSMOSolver``) on an NCCL
+  process group of one rank: an a9a fit at ``DIST_SCALE`` and the w7a
+  wss2 fit, each bitwise equal to its single-device twin, and sharded
+  serving of the a9a test rows, bitwise equal to ``[serve]``'s scores
+  (``[dist]``, ``[dist-ell]``, ``[dist-serve]``); with two or more cards,
+  ``[dist]`` also at min(4, cards) ranks, one a card.
 
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
@@ -1236,6 +1242,215 @@ def wss2_cache(torch, np, dev, base) -> None:
     return {"rbf_rows2": {"wss2-cache a9a": n_rows2}}
 
 
+# the scale of [dist]'s a9a fits (n 1,628, full width; each still compacts
+# 3 times and reconstructs twice): cut from the issue's 0.1 because the
+# group's fit and its single-device twin took 84 s there, over the ~100 s
+# the three distributed phases may add to the smoke
+DIST_SCALE = 0.05
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def dist_fit_line(st, us_single, calls) -> str:
+    us = 1e6 * st.train_time / max(st.iterations, 1)
+    per = {k: v / max(st.iterations, 1) for k, v in sorted(calls.items())}
+    return (f"iterations={st.iterations} compactions={st.compactions} "
+            f"reconstructions={st.reconstructions} dispatches="
+            f"{st.dispatches} us/iter={us:.1f} (single device: "
+            f"{us_single:.1f}) collectives/iter=" + ", ".join(
+                f"{k} {v:.3f}" for k, v in per.items()))
+
+
+def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a) -> dict:
+    """The distributed solver (``core.parallel.ParallelSMOSolver``) and
+    sharded serving on an NCCL process group of one rank — this card:
+
+    * ``[dist]``: a9a at ``DIST_SCALE`` (C 32, sigma2 64, multi5pc, wss1),
+      ``SMOSolver`` and the group's solver, bitwise equal in alpha,
+      iterations, compactions and reconstructions (at least one of each),
+      converged with the fp64 Eq. 9 gap <= 2e-3, ``gamma_update``
+      launched;
+    * ``[dist-ell]``: w7a at ``WSS2_SCALE`` fed as CSR, single5pc wss2 on
+      the group, bitwise equal to ``[wss2-ell]``'s model, its rows from
+      ``ell_kernel_rows2``;
+    * ``[dist-serve]``: ``ServeEngine(shards=None)`` — the group's size,
+      through the sharded path's fp64 all-reduce — bitwise equal to
+      ``[serve]``'s scores, ``rbf_accumulate`` launched.
+
+    With two or more cards it also runs ``[dist]`` at world size
+    min(4, cards), one process a card, against the single fit's outcome.
+    Returns each phase's launches of its kernel."""
+    from repro_torch.core import SVMConfig, SMOSolver, ServeEngine
+    from repro_torch.core.parallel import ParallelSMOSolver
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist
+    out = {}
+    phase("dist")
+    dist.init(device="cuda", init_method=f"tcp://localhost:{free_port()}",
+              rank=0, world=1)
+    X, y, Xt, _ = make("a9a", DIST_SCALE, seed=0)
+    kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
+              device="cuda")
+    ms = SMOSolver(SVMConfig(**kw)).fit(X, y)
+    us_single = 1e6 * ms.stats.train_time / max(ms.stats.iterations, 1)
+    cuda.reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    mp = ParallelSMOSolver(SVMConfig(**kw)).fit(X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_gu = cuda.launches["gamma_update"]
+    calls = dict(dist.calls)
+    st = mp.stats
+    gap = eq9_gap(torch, X, y, mp.alpha, 32.0, INV, dev)
+    same = (np.array_equal(mp.alpha.view(np.int32), ms.alpha.view(np.int32))
+            and [st.iterations, st.compactions, st.reconstructions]
+            == [ms.stats.iterations, ms.stats.compactions,
+                ms.stats.reconstructions])
+    print(f"[dist] a9a scale {DIST_SCALE} n={X.shape[0]} d={X.shape[1]} "
+          f"NCCL world 1: {dist_fit_line(st, us_single, calls)} "
+          f"converged={st.converged} eq9_gap_all={gap:.3e} (<= 2eps 2e-03)"
+          f" wall={wall:.1f} s; alpha, iterations, compactions and "
+          f"reconstructions bitwise equal to SMOSolver: {same}; "
+          f"gamma_update launches={n_gu}", flush=True)
+    if not same:
+        fail("the world-size-1 fit differs from SMOSolver's")
+    if not (st.compactions >= 1 and st.reconstructions >= 1):
+        fail("the distributed fit neither compacted nor reconstructed")
+    if not (st.converged and gap <= 2e-3):
+        fail(f"distributed fit: converged={st.converged}, gap {gap:.3e}")
+    if n_gu <= 0:
+        fail("the distributed fit did not launch gamma_update")
+    out["gamma_update"] = {"dist a9a": n_gu}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(4, cards)
+        got = dist_spawn(world, X, y, kw)
+        dist_outcome(torch, np, dev, world, got, ms, X, y, Xt)
+    else:
+        print(f"[dist] {cards} card: only world size 1 ran (NCCL allows one "
+              "rank a card)", flush=True)
+
+    phase("dist-ell")
+    X2, y2, _, _ = make("w7a", WSS2_SCALE, seed=0)
+    kw2 = dict(C=32.0, sigma2=64.0, heuristic="single5pc", selection="wss2",
+               format="ell", device="cuda")
+    us_single = 1e6 * w7a_wss2.stats.train_time / max(
+        w7a_wss2.stats.iterations, 1)
+    cuda.reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    me = ParallelSMOSolver(SVMConfig(**kw2)).fit(to_csr(X2), y2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_r2 = cuda.launches["ell_kernel_rows2"]
+    st, sb = me.stats, w7a_wss2.stats
+    gap = eq9_gap(torch, X2, y2, me.alpha, 32.0, INV, dev)
+    same = (np.array_equal(me.alpha.view(np.int32),
+                           w7a_wss2.alpha.view(np.int32))
+            and [st.iterations, st.compactions, st.reconstructions]
+            == [sb.iterations, sb.compactions, sb.reconstructions])
+    print(f"[dist-ell] w7a scale {WSS2_SCALE} n={X2.shape[0]} single5pc "
+          f"wss2 CSR in, NCCL world 1: "
+          f"{dist_fit_line(st, us_single, dict(dist.calls))} "
+          f"converged={st.converged} eq9_gap_all={gap:.3e} (<= 2eps 2e-03)"
+          f" wall={wall:.1f} s; bitwise equal to [wss2-ell]: {same}; "
+          f"ell_kernel_rows2 launches={n_r2}", flush=True)
+    if not same:
+        fail("the world-size-1 ELL wss2 fit differs from [wss2-ell]")
+    if not (st.compactions >= 1 and st.reconstructions >= 1):
+        fail("the distributed ELL fit neither compacted nor reconstructed")
+    if not (st.converged and gap <= 2e-3):
+        fail(f"distributed ELL fit: converged={st.converged}, gap {gap:.3e}")
+    if n_r2 <= 0:
+        fail("the distributed ELL fit did not launch ell_kernel_rows2")
+    out["ell_kernel_rows2"] = {"dist-ell w7a": n_r2}
+
+    phase("dist-serve")
+    eng = ServeEngine(a9a, shards=None)
+    cuda.reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    scores = eng.decision_function(Xt_a9a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_acc = cuda.launches["rbf_accumulate"]
+    base = a9a.decision_function(Xt_a9a)
+    same = np.array_equal(scores.view(np.int32), base.view(np.int32))
+    print(f"[dist-serve] a9a {Xt_a9a.shape[0]} test rows, {a9a.stats.n_sv} "
+          f"SVs, ServeEngine(shards=None) on NCCL world 1 "
+          f"({eng.describe()['shards']} shard, all_reduce calls "
+          f"{dist.calls['all_reduce']}): predict wall={wall:.3f} s; scores "
+          f"bitwise equal to [serve]: {same}; rbf_accumulate launches="
+          f"{n_acc}", flush=True)
+    if not same:
+        fail("the group's serving engine scores differ from [serve]'s")
+    if n_acc <= 0:
+        fail("the group's serving engine did not launch rbf_accumulate")
+    out["rbf_accumulate"] = {"dist-serve a9a": n_acc}
+    dist.destroy()
+    return out
+
+
+def dist_rank(rank, world, init, X, y, kw, path) -> None:
+    """One rank of the multi-card ``[dist]`` run (a spawned process)."""
+    import numpy as np
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import SVMConfig
+    from repro_torch.core.parallel import ParallelSMOSolver
+    from repro_torch.launch import dist
+    dist.init(device="cuda", init_method=init, rank=rank, world=world)
+    m = ParallelSMOSolver(SVMConfig(**kw)).fit(X, y)
+    if rank == 0:
+        np.savez(path, alpha=m.alpha, sv_x=m.sv_x, sv_coef=m.sv_coef,
+                 beta=m.beta, stats=np.array([
+                     m.stats.iterations, m.stats.compactions,
+                     m.stats.reconstructions, int(m.stats.converged),
+                     1e6 * m.stats.train_time / max(m.stats.iterations, 1)]))
+    dist.destroy()
+
+
+def dist_spawn(world, X, y, kw) -> dict:
+    """``[dist]`` at ``world`` ranks, one a card; rank 0's model."""
+    import numpy as np
+    import torch.multiprocessing as tmp
+    path = ROOT / "build" / f"dist-{world}.npz"
+    path.parent.mkdir(exist_ok=True)
+    tmp.spawn(dist_rank, args=(world, f"tcp://localhost:{free_port()}", X,
+                               y, kw, str(path)), nprocs=world, join=True)
+    return dict(np.load(path))
+
+
+def dist_outcome(torch, np, dev, world, got, ms, X, y, Xt) -> None:
+    """The multi-card fit against the single-device one: the outcome
+    contract (verdict, dual objective 5e-4 relative, test labels >= 99.5%,
+    the fp64 Eq. 9 gap <= 2e-3)."""
+    import dataclasses
+    from repro_torch.core import SVMConfig
+    it, comp, recon, conv, us = got["stats"]
+    model = dataclasses.replace(ms, sv_x=got["sv_x"],
+                                sv_coef=got["sv_coef"],
+                                beta=float(got["beta"]), alpha=got["alpha"])
+    model.__dict__.pop("_engines", None)
+    gap = eq9_gap(torch, X, y, got["alpha"], 32.0, INV, dev)
+    obj = rel_gap(model.dual_objective(), ms.dual_objective())
+    agree = float((model.predict(Xt) == ms.predict(Xt)).mean())
+    print(f"[dist] a9a scale {DIST_SCALE} NCCL world {world} (one card a "
+          f"rank): iterations={int(it)} compactions={int(comp)} "
+          f"reconstructions={int(recon)} converged={bool(conv)} "
+          f"us/iter={us:.1f} eq9_gap_all={gap:.3e} (<= 2e-03) dual "
+          f"objective {obj:.3e} from the single fit's (<= 5e-4), test "
+          f"labels {agree:.4f} equal (>= 0.995)", flush=True)
+    if not (conv and gap <= 2e-3 and obj <= 5e-4 and agree >= 0.995):
+        fail(f"the world-{world} fit breaks the outcome contract")
+
+
 def predict_device_time(torch, predict, n_acc_want) -> str:
     """One ``predict()`` under ``torch.profiler`` (after one traced as the
     profiler's warm-up and dropped): its wall time there and the device
@@ -1347,12 +1562,15 @@ def main() -> None:
     check_attention(torch, dev, time_ms, kernels)
 
     launches = serve_lm(torch, dev)
-    a9a, a9a_wss2, dense_launches, _ = run_path(torch, np, dev, time_ms,
-                                                "a9a", "dense")
+    a9a, a9a_wss2, dense_launches, Xt_a9a = run_path(torch, np, dev,
+                                                     time_ms, "a9a", "dense")
     launches.update(dense_launches)
-    model, _, ell_launches, Xt = run_path(torch, np, dev, time_ms, "w7a",
-                                          "ell")
+    model, w7a_wss2, ell_launches, Xt = run_path(torch, np, dev, time_ms,
+                                                 "w7a", "ell")
     launches.update(ell_launches)
+    # the distributed phases' launches, by kernel and then by fit
+    dist_launches = dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a)
+    del w7a_wss2
     # the cached phases' two-row kernel launches, by kernel and then by fit
     cached = cache_workload(torch, np, dev)
     for fits in (train_cache(torch, np, dev, a9a),
@@ -1365,6 +1583,8 @@ def main() -> None:
     launches.update(row_path(torch, dev, w7a_buffer))
     for name, by_fit in cached.items():
         kernels[name]["cache_launches"] = by_fit
+    for name, by_fit in dist_launches.items():
+        kernels[name]["dist_launches"] = by_fit
 
     phase("report")
     record = []
@@ -1377,7 +1597,7 @@ def main() -> None:
             **{key: k[key] for key in ("matmul_ms", "spmm_ms", "warm_ms",
                                        "b64_ms", "k16_ms", "k16_warm_ms",
                                        "hit_ms", "hit_bound_ms",
-                                       "cache_launches",
+                                       "cache_launches", "dist_launches",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

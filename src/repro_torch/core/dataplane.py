@@ -393,17 +393,21 @@ def ell_shard_extents(vals: torch.Tensor, keep: torch.Tensor, n_active: int,
 
 
 def ell_shard_extents_dyn(vals: torch.Tensor, keep: torch.Tensor,
-                          n_active: torch.Tensor, p: int) -> torch.Tensor:
+                          n_active: torch.Tensor, p: int,
+                          offset: "int | torch.Tensor" = 0) -> torch.Tensor:
     """Per-shard max surviving extent without ``m_per``, from a device
     ``n_active`` — runs inside the fused epoch dispatch (no host sync),
-    whose summary carries the (p,) result to the driver.
+    whose summary carries the (p,) result to the driver. ``vals`` may be
+    one shard of the buffer: ``offset`` is then the survivors of the
+    shards before it, and the (p,) result covers this shard's rows only
+    (the maximum over shards is the buffer's).
 
     Shard ``q`` owns survivor ranks ``[q*base + min(q, extra), ...)`` with
     ``base, extra = divmod(n_active, p)``, whatever the per-shard padding,
     so a segment-max over the rank -> shard map gives the values of
     :func:`ell_shard_extents`. Integer arithmetic only: exact."""
     ext = torch.where(keep, ell_extents(vals), 0)
-    rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    rank = torch.cumsum(keep.to(torch.int64), 0) - 1 + offset
     n_active = torch.as_tensor(n_active, dtype=torch.int64,
                                device=vals.device)
     base = n_active // p
@@ -437,6 +441,17 @@ def gather_rows(data, src: torch.Tensor, valid: torch.Tensor,
     cols = torch.where(valid[:, None],
                        data.cols[:, :K].index_select(0, src), 0)
     return ELLData(vals, cols, sq, data.n_features, gids)
+
+
+def map_rows(data, f):
+    """The buffer with ``f`` applied to each of its per-row tensors (rows,
+    squared norms, gids) — how the multi-device driver gathers a buffer's
+    shards into one array or takes its own shard of one."""
+    gids = None if data.gids is None else f(data.gids)
+    if isinstance(data, DenseData):
+        return DenseData(f(data.X), f(data.sq_norms), gids)
+    return ELLData(f(data.vals), f(data.cols), f(data.sq_norms),
+                   data.n_features, gids)
 
 
 def make_store(X, fmt: str, ell_K: "int | None" = None,

@@ -65,10 +65,6 @@ import torch
 from repro_torch.core import dataplane, mirror, rowcache, smo
 from repro_torch.data import sparse as spfmt
 
-_P = 1   # shards a buffer is dealt over: one device (the dataplane layouts
-         # take p, which the multi-GPU slice will set to the device count)
-
-
 @dataclasses.dataclass
 class FitStats:
     iterations: int = 0
@@ -96,7 +92,7 @@ class FitStats:
     buffer_K: list = dataclasses.field(default_factory=list)
     # per-buffer ELL lane budget (the adaptive K trajectory); empty for dense
     shard_K: list = dataclasses.field(default_factory=list)
-    # per-buffer tuple of each shard's lane-rounded K (one shard here)
+    # per-buffer tuple of each shard's lane-rounded K
     mirror: str = ""             # resolved full-set mirror mode of this fit
     flops_est: float = 0.0       # model FLOPs of the gamma-update hot loop,
                                  # by the reference's rule: production plus
@@ -165,10 +161,19 @@ def _compact_step(data, yb, state: smo.SMOState, cache, alpha_d, gamma_d,
 
 class EpochDriver:
     """The Alg. 5 state machine around a solver's hook surface: device
-    placement (``_put`` / ``_put_full``), runner construction
+    placement (``_put`` / ``_put_full``), the buffer's shards
+    (``_nshards`` / ``_gather`` / ``_shard``), runner construction
     (``_runner``), the row cache (``_new_cache`` / ``_regrow_cache``) and
     Alg. 6 (``_reconstruct`` / ``_reconstruct_mirror``). One instance
-    drives one ``fit``; mutable run state lives on the instance."""
+    drives one ``fit``; mutable run state lives on the instance.
+
+    On several devices (``core.parallel.ParallelSMOSolver``) each process
+    holds its shard of the buffer, of the mirror and of the row cache's
+    value table, while host arrays, the (n,) device masters and the epoch
+    summary are the same on every rank, so every host decision takes the
+    same branch everywhere. Rows cross shards only at dispatch boundaries:
+    the master writeback and a compaction gather the buffer's shards
+    (``_gathered``) and deal the result back (``_sharded``)."""
 
     def __init__(self, solver):
         self.s = solver
@@ -181,13 +186,33 @@ class EpochDriver:
         self._last_shard_K: tuple = ()
 
     # -- buffer plumbing ---------------------------------------------------
+    def _gathered(self):
+        """(data, y_buf, state, cache) as global arrays: every shard's
+        block gathered (on one device, the buffer itself)."""
+        g = self.s._gather
+        st = self.state.replace(alpha=g(self.state.alpha),
+                                gamma=g(self.state.gamma),
+                                active=g(self.state.active))
+        cache = (None if self.cache is None
+                 else self.cache.replace(vals=g(self.cache.vals, 1)))
+        return dataplane.map_rows(self.data, g), g(self.yb), st, cache
+
+    def _sharded(self, data, yb, state, cache):
+        """This shard's block of global (data, y_buf, state, cache)."""
+        f = self.s._shard
+        st = state.replace(alpha=f(state.alpha), gamma=f(state.gamma),
+                           active=f(state.active))
+        cache = (None if cache is None
+                 else cache.replace(vals=f(cache.vals, 1)))
+        return dataplane.map_rows(data, f), f(yb), st, cache
+
     def _make_buffer(self, y, alpha, gamma, idx):
         """Gather rows ``idx`` from the host store into a padded buffer of
         p balanced shards. Returns (data, y_buf, fresh state, idx_buf),
         idx_buf mapping buffer row -> global id (-1 on padding)."""
         sv = self.s
         store = sv._store
-        p = _P
+        p = sv._nshards()
         m_per, K_buf = self._buffer_geometry(idx, p)
         m = m_per * p
         buf = store.alloc(m, K_buf)
@@ -232,15 +257,24 @@ class EpochDriver:
     def _mirror_build(self, rows: np.ndarray):
         """Buffer build for global ``rows`` as a device gather from the
         mirror and the (n,) masters — same geometry, layout and bits as
-        :meth:`_make_buffer`; only the keep mask goes up."""
+        :meth:`_make_buffer`; only the keep mask goes up. Each shard
+        gathers from its own mirror block: the driver rebuilds only the
+        full set, whose layout is the mirror's, so no row crosses shards."""
         sv, mir = self.s, self.mirror
         p = mir.p
         m_per, K_new = self._buffer_geometry(rows, p)
         keep = np.zeros((mir.idx.size,), bool)
         keep[mir.pos_of[rows]] = True
+        base, extra = divmod(rows.size, p)
+        if m_per != mir.m_per or not np.array_equal(
+                keep.reshape(p, m_per).sum(1),
+                base + (np.arange(p) < extra)):
+            raise ValueError("a mirror build takes rows laid out as the "
+                             "mirror's blocks (the full set)")
+        mine = sv._shard(torch.as_tensor(keep))
         data, yb, state = mirror.grow_step(
-            mir.data, mir.y, self.alpha_d, self.gamma_d, sv._put(keep),
-            rows.size, p, m_per, K_new)
+            mir.data, mir.y, self.alpha_d, self.gamma_d,
+            mine.to(mir.y.device), int(mine.sum()), 1, m_per, K_new)
         idx_buf, _ = dataplane.full_layout(rows, p, m_per)
         return data, yb, state, idx_buf
 
@@ -256,22 +290,24 @@ class EpochDriver:
 
     def _host_idx(self) -> np.ndarray:
         if self.idx is None:
-            self.idx = self.data.gids.cpu().numpy().astype(np.int64)
+            self.idx = self.s._gather(self.data.gids).cpu().numpy() \
+                .astype(np.int64)
         return self.idx
 
     def _note_buffer(self):
-        """Record the buffer's geometry: its size, and on ELL its lane
-        budget and per-shard K."""
-        self.stats.buffer_sizes.append(self.data.m)
+        """Record the buffer's geometry: its size (over every shard), and
+        on ELL its lane budget and per-shard K."""
+        self.stats.buffer_sizes.append(self.data.m * self.s._nshards())
         if isinstance(self.data, dataplane.ELLData):
             self.stats.buffer_K.append(self.data.K)
             self.stats.shard_K.append(self._last_shard_K)
 
     # -- writeback ---------------------------------------------------------
     def _writeback_masters(self):
+        g = self.s._gather
         self.alpha_d, self.gamma_d = _scatter_full(
-            self.alpha_d, self.gamma_d, self.state.alpha, self.state.gamma,
-            self.data.gids)
+            self.alpha_d, self.gamma_d, g(self.state.alpha),
+            g(self.state.gamma), g(self.data.gids))
 
     def _writeback(self):
         """Master writeback + host copies of alpha/gamma."""
@@ -296,7 +332,7 @@ class EpochDriver:
                 self.gamma_d, g64 = sv._reconstruct_mirror(
                     self.mirror, self.alpha_d, self.gamma_d, sv_rows, rows)
             else:   # no support vectors: Alg. 6 degenerates to gamma = -y
-                r = sv._put(rows)
+                r = sv._put_full(rows)
                 self.gamma_d[r] = -self.y_d[r]
                 g64 = -self.y_d[r].double()
             return g64
@@ -345,21 +381,30 @@ class EpochDriver:
                 K_new = (spfmt.bucket_lanes(max(shard_ext), store.lane,
                                             cap=store.K)
                          if cfg.ell_adaptive else self.data.K)
-            (self.data, self.yb, self.state, self.cache, self.alpha_d,
-             self.gamma_d) = _compact_step(
-                self.data, self.yb, self.state, self.cache, self.alpha_d,
-                self.gamma_d, n_active, self._interval, p, m_per, K_new)
+            data, yb, state, cache = self._gathered()
+            data, yb, state, cache, self.alpha_d, self.gamma_d = \
+                _compact_step(data, yb, state, cache, self.alpha_d,
+                              self.gamma_d, n_active, self._interval, p,
+                              m_per, K_new)
+            self.data, self.yb, self.state, self.cache = self._sharded(
+                data, yb, state, cache)
             self.idx = None
         else:
             self._writeback()
             idx = self._host_idx()
-            keep = idx[(idx >= 0) & self.state.active.cpu().numpy()]
+            active = self.s._gather(self.state.active).cpu().numpy()
+            keep = idx[(idx >= 0) & active]
             step, nshr = self.state.step, self.state.n_shrinks
+            cache = (None if self.cache is None else self.cache.replace(
+                vals=self.s._gather(self.cache.vals, 1)))
             self.data, self.yb, state2, self.idx = self._make_buffer(
                 self.y, self.alpha, self.gamma, keep)
             # survivors keep their global ids: cached rows are re-gathered
             # into the compacted geometry, not dropped
-            self.cache = rowcache.remap_cache(self.cache, idx, self.idx)
+            cache = rowcache.remap_cache(cache, idx, self.idx)
+            if cache is not None:
+                cache = cache.replace(vals=self.s._shard(cache.vals, 1))
+            self.cache = cache
             self.state = state2.replace(
                 step=step,
                 next_shrink=step + max(1, min(self._interval, keep.size)),
@@ -412,7 +457,7 @@ class EpochDriver:
         t_recon = 0.0
         stalled = False
         runner = sv._runner(cfg, interval if shrink_on else 0)
-        p = _P
+        p = sv._nshards()
 
         mode, mir_m_per, mir_K, _ = mirror.resolve(cfg, sv._store, p,
                                                    shrink_on, sv.device)
@@ -447,7 +492,7 @@ class EpochDriver:
                 tc = time.perf_counter()
                 step_before = step_host
                 # integer-exact host twin of the compaction trigger
-                compact_lt = (math.ceil(cfg.compact_ratio * self.data.m)
+                compact_lt = (math.ceil(cfg.compact_ratio * (self.data.m * p))
                               if shrink_on else 0)
                 self.state, self.cache, summ_d = runner(
                     self.data, self.yb, self.state, self.cache, tol, fuse,
@@ -467,10 +512,10 @@ class EpochDriver:
                     miss_seen = summ.cache_misses
                 else:
                     rows_new = 2 * iters_done
-                prod = rows_new * self.data.flops_row_pass() \
-                    * float(self.data.m)
+                m_all = float(self.data.m * p)
+                prod = rows_new * self.data.flops_row_pass() * m_all
                 epi = iters_done * (12.0 if cfg.selection == "wss2"
-                                    else 4.0) * float(self.data.m)
+                                    else 4.0) * m_all
                 stats.flops_production += prod
                 stats.flops_epilogue += epi
                 stats.flops_est += prod + epi

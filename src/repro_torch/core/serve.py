@@ -14,8 +14,14 @@ the kernels either way, so the ingest format never changes a score). The
 SV set is padded to a multiple of 128 rows with coef-0 rows, and dense SV
 rows and query buckets to a multiple of 4 features with zero columns (the
 kernel then stages 16-byte rows); both pads are exact.
-bf16 SV storage and sharding over several cards are later slices of the
-port.
+
+Sharded serving (``shards=p`` under a process group of p ranks, see
+``launch.dist``): each rank holds a contiguous balanced block of the SVs,
+padded on its own to whole chunks of 128 with coef-0 rows, scores every
+bucket against its block, and the ranks all-reduce the partial sums in
+fp64 before beta is subtracted once — the reference's psum over the mesh.
+Every rank then calls ``decision_function`` with the same queries. bf16 SV
+storage is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch import device as devmod
 from repro_torch.core import dataplane, kernel_fns, smo, util
 from repro_torch.data import sparse as sp
+from repro_torch.launch import dist
 
 __all__ = ["ServeEngine", "row_width"]
 
@@ -53,9 +60,11 @@ class ServeEngine:
     ``device`` defaults to the model's. Buckets are scored by the
     hand-written kernel on CUDA tensors, its plain version on CPU tensors.
     ``min_bucket`` / ``max_bucket`` clamp the pow2 query
-    buckets, so at most log2(max/min)+1 bucket shapes exist. ``shards=None``
-    means every device (the card count on CUDA, 1 on the CPU); a count
-    above 1 is refused until the multi-GPU slice.
+    buckets, so at most log2(max/min)+1 bucket shapes exist. ``shards=1``
+    (the default) holds every SV on this device, group or not; ``None``
+    means the process group's size (1 without a group), and any count
+    other than 1 must be that size: the SVs are then dealt over the
+    group's ranks (see the module docstring).
     """
 
     def __init__(self, model, *, device: "str | None" = None,
@@ -63,13 +72,17 @@ class ServeEngine:
                  shards: "int | None" = 1, dtype: "str | None" = None):
         cfg = model.config
         self.device = devmod.resolve(cfg.device if device is None else device)
-        if shards is None:        # every device, as in the reference
-            shards = (torch.cuda.device_count()
-                      if self.device.type == "cuda" else 1)
-        if shards != 1:
-            raise NotImplementedError(
-                f"shards={shards}: sharded serving arrives with the port's "
-                "multi-GPU slice (ROADMAP queue 1, item 10)")
+        ranks = dist.world()
+        if shards is None:        # every rank of the group
+            shards, self._grouped = ranks, dist.initialized()
+        else:
+            self._grouped = shards > 1
+        if shards not in (1, ranks):
+            raise ValueError(
+                f"shards={shards}, but the process group has {ranks} "
+                "rank(s): sharded serving holds one SV block per rank "
+                "(launch.dist.init)")
+        self.shards = int(shards) if self._grouped else 1
         if dtype not in (None, "float32", "fp32", "f32"):
             raise NotImplementedError(
                 f"SV storage dtype {dtype!r}: bf16 serving arrives with a "
@@ -85,9 +98,16 @@ class ServeEngine:
                                                   cfg.inv_2s2)
         coef = np.asarray(model.sv_coef, np.float32).reshape(-1)
         self.n_sv = int(coef.shape[0])
-        self.m_pad = _LANE * max(1, -(-self.n_sv // _LANE))
+        # this rank's SV block (the deal of the SVs over the ranks)
+        base, extra = divmod(self.n_sv, self.shards)
+        r = dist.rank() if self._grouped else 0
+        lo = r * base + min(r, extra)
+        blk = slice(lo, lo + base + (1 if r < extra else 0))
+        coef = coef[blk]
+        n_blk = int(coef.shape[0])
+        self.m_pad = _LANE * max(1, -(-n_blk // _LANE))
         coef_p = np.zeros((self.m_pad,), np.float32)
-        coef_p[: self.n_sv] = coef
+        coef_p[: n_blk] = coef
         put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                         device=self.device)
         if self.fmt == "dense":
@@ -96,7 +116,7 @@ class ServeEngine:
             self.width = row_width(self.n_features)
             self.K = 0
             x_p = np.zeros((self.m_pad, self.width), np.float32)
-            x_p[: self.n_sv, : self.n_features] = sv
+            x_p[: n_blk, : self.n_features] = sv[blk]
             self._data = dataplane.DenseData(put(x_p),
                                              put((x_p * x_p).sum(axis=1)))
         else:
@@ -105,8 +125,8 @@ class ServeEngine:
             self.K = int(vals.shape[1])
             v_p = np.zeros((self.m_pad, self.K), np.float32)
             c_p = np.zeros((self.m_pad, self.K), np.int32)
-            v_p[: self.n_sv] = vals
-            c_p[: self.n_sv] = np.asarray(model.sv_cols, np.int32)
+            v_p[: n_blk] = vals[blk]
+            c_p[: n_blk] = np.asarray(model.sv_cols, np.int32)[blk]
             self._data = dataplane.ELLData(put(v_p), put(c_p),
                                            put((v_p * v_p).sum(axis=1)),
                                            self.n_features)
@@ -125,8 +145,10 @@ class ServeEngine:
             raise ValueError(f"bucket shape {tuple(zb.shape)}: needs "
                              f"(b, {self.width}) (the engine's width)")
         self._buckets.add(int(zb.shape[0]))
-        return self._provider.accumulate(self._data, zb, self._coef) \
-            - self.beta
+        f = self._provider.accumulate(self._data, zb, self._coef)
+        if self._grouped:     # the ranks' partial sums, added in fp64
+            f = dist.all_reduce(f.double(), "sum").float()
+        return f - self.beta
 
     def decision_function(self, Z) -> np.ndarray:
         """Scores for a dense (n, d) batch or CSR-like queries (a
@@ -171,7 +193,7 @@ class ServeEngine:
                        for a in (*arrays, d.sq_norms, self._coef)))
 
     def describe(self) -> dict:
-        return {"fmt": self.fmt, "dtype": "float32", "shards": 1,
+        return {"fmt": self.fmt, "dtype": "float32", "shards": self.shards,
                 "n_sv": self.n_sv, "m_pad": self.m_pad, "K": self.K,
                 "n_features": self.n_features, "device": str(self.device),
                 "buckets": sorted(self._buckets),

@@ -239,6 +239,20 @@ class SMOSolver:
         self._runners: dict = {}
 
     # -- driver hooks -----------------------------------------------------
+    def _nshards(self) -> int:
+        """Shards a buffer is dealt over (one: this solver's one device)."""
+        return 1
+
+    def _gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The global array of a buffer tensor dealt over the shards along
+        ``dim`` (on one device, the tensor itself)."""
+        return t
+
+    def _shard(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This shard's block of a global buffer tensor along ``dim`` (on
+        one device, the tensor itself)."""
+        return t
+
     def _cache_slots(self) -> int:
         """Row-cache capacity: 0 when disabled, else power-of-two
         bucketed, as the reference buckets it."""
@@ -300,6 +314,8 @@ class SMOSolver:
             self._put(stale_pos), sv_blk, row_blk, nsb, nrb, K_sv)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
+        """Placement of a global buffer array (host layout of p shards):
+        this device holds all of it."""
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
 
     def _put_full(self, arr: np.ndarray) -> torch.Tensor:

@@ -1,0 +1,150 @@
+"""Process groups of the multi-device solver (the role of
+``repro.launch.mesh`` in the reference): one process per device, NCCL
+between cards, gloo between CPU processes.
+
+    from repro_torch.launch import dist
+    dev = dist.init()                 # under torchrun: RANK, WORLD_SIZE,
+                                      # LOCAL_RANK (and MASTER_ADDR/PORT)
+    dev = dist.init(device="cpu", init_method="file:///tmp/pg",
+                    rank=r, world=4)  # explicit, e.g. gloo in tests
+
+Every collective of the port goes through one helper here —
+:func:`all_gather`, :func:`all_reduce` and :func:`ring_shift` — each of
+which calls whichever name the installed torch provides without a
+deprecation warning, and counts its calls in :data:`calls` (by helper;
+the chip smoke reads collectives per SMO iteration from it). A group
+always has a ``timeout``: a rank that diverges from the others (a
+different collective, a different shape) raises after it instead of
+hanging, and nothing carries on past a failed collective.
+"""
+from __future__ import annotations
+
+import collections
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as tdist
+
+from repro_torch import device as devmod
+
+TIMEOUT = datetime.timedelta(seconds=300)
+
+_device: Optional[torch.device] = None
+calls: collections.Counter = collections.Counter()
+
+
+def init(device: str = "cuda", init_method: "str | None" = None,
+         rank: "int | None" = None, world: "int | None" = None,
+         timeout: datetime.timedelta = TIMEOUT) -> torch.device:
+    """Join the default process group and return this rank's device:
+    ``cuda:{LOCAL_RANK}`` (set as the current card) with NCCL, or the CPU
+    with gloo. ``rank`` / ``world`` default to torchrun's ``RANK`` /
+    ``WORLD_SIZE``, ``init_method`` to ``env://``. A CUDA request without
+    a card raises, as ``device.resolve`` does."""
+    global _device
+    dev = devmod.resolve(device)
+    rank = int(os.environ["RANK"]) if rank is None else int(rank)
+    world = int(os.environ["WORLD_SIZE"]) if world is None else int(world)
+    kw = {}
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK",
+                                       rank % torch.cuda.device_count()))
+            dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    tdist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                             init_method=init_method or "env://",
+                             rank=rank, world_size=world, timeout=timeout,
+                             **kw)
+    _device = dev
+    return dev
+
+
+def initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def rank(group=None) -> int:
+    return tdist.get_rank(group) if initialized() else 0
+
+
+def world(group=None) -> int:
+    return tdist.get_world_size(group) if initialized() else 1
+
+
+def device() -> torch.device:
+    """The device :func:`init` bound this rank to."""
+    if _device is None:
+        raise RuntimeError("no process group: call repro_torch.launch.dist"
+                           ".init() first")
+    return _device
+
+
+def destroy() -> None:
+    global _device
+    if initialized():
+        tdist.destroy_process_group()
+    _device = None
+
+
+# bool tensors travel as bytes: not every backend reduces or gathers bool
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.uint8) if t.dtype == torch.bool else t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(p, *t.shape): every rank's ``t`` stacked in rank order, gathered as
+    one flat payload. A bit copy, so int32 ids bitcast into float lanes
+    survive it."""
+    p = world(group)
+    calls["all_gather"] += 1
+    src = _wire(t).reshape(-1).contiguous()
+    out = torch.empty((p * src.numel(),), dtype=src.dtype, device=src.device)
+    gather = getattr(tdist, "all_gather_single", None) \
+        or tdist.all_gather_into_tensor
+    gather(out, src, group=group)
+    out = out.reshape((p,) + tuple(t.shape))
+    return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def all_gather_rows(t: torch.Tensor, dim: int = 0, group=None):
+    """Every rank's block of ``t`` concatenated along ``dim`` in rank
+    order — the global array of a tensor dealt in contiguous blocks."""
+    if dim == 0:
+        g = all_gather(t, group)
+        return g.reshape((-1,) + tuple(t.shape[1:]))
+    return all_gather_rows(t.movedim(dim, 0).contiguous(), 0,
+                           group).movedim(0, dim).contiguous()
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """A reduced copy of ``t`` over the group (``op`` 'sum' or 'max')."""
+    red = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op]
+    calls["all_reduce"] += 1
+    out = _wire(t).clone()
+    tdist.all_reduce(out, op=red, group=group)
+    return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Send ``t`` to the next rank and receive the previous rank's (one
+    step of the Alg. 6 ring). Every rank's ``t`` must have one shape."""
+    p = world(group)
+    if p == 1:
+        return t
+    calls["ring_shift"] += 1
+    r = rank(group)
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    nxt, prv = (r + 1) % p, (r - 1) % p
+    if group is not None:
+        nxt = tdist.get_global_rank(group, nxt)
+        prv = tdist.get_global_rank(group, prv)
+    ops = [tdist.P2POp(tdist.isend, src, nxt, group),
+           tdist.P2POp(tdist.irecv, out, prv, group)]
+    for w in tdist.batch_isend_irecv(ops):
+        w.wait()
+    return out

@@ -810,3 +810,61 @@ def test_cuda_cached_fit_through_a_K_drop(cuda_device):
     assert on.stats.cache_hits > 0
     assert on.stats.iterations == off.stats.iterations
     np.testing.assert_array_equal(on.alpha, off.alpha)
+
+
+_NCCL_WORLD1 = """
+import json, sys
+import numpy as np
+from repro_torch.launch import dist
+from repro_torch.core import SVMConfig, SMOSolver, ServeEngine
+from repro_torch.core.parallel import ParallelSMOSolver
+from repro_torch.data import make_sparse
+dist.init(device='cuda', init_method=sys.argv[1], rank=0, world=1)
+X, y = make_sparse(900, 300, 0.05, seed=3, noise=0.05, label_noise=0.0,
+                   margin=0.5)
+res = {}
+for fmt in ('dense', 'ell'):
+    for sel in ('wss1', 'wss2'):
+        kw = dict(C=2.0, sigma2=40.0, heuristic='multi5pc', chunk_iters=64,
+                  min_buffer=64, format=fmt, selection=sel, device='cuda')
+        mp = ParallelSMOSolver(SVMConfig(**kw)).fit(X, y)
+        ms = SMOSolver(SVMConfig(**kw)).fit(X, y)
+        res[fmt + '-' + sel] = dict(
+            alpha_eq=bool(np.array_equal(mp.alpha.view(np.int32),
+                                         ms.alpha.view(np.int32))),
+            stats=[[m.stats.iterations, m.stats.compactions,
+                    m.stats.reconstructions] for m in (mp, ms)])
+        if sel == 'wss1':
+            grouped = ServeEngine(ms, shards=None).decision_function(X)
+            res[fmt + '-serve'] = bool(np.array_equal(
+                grouped, ms.decision_function(X)))
+print(json.dumps(res))
+dist.destroy()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world1_equals_single_device_solver(cuda_device,
+                                                      tmp_path):
+    """``ParallelSMOSolver`` on an NCCL group of one rank is ``SMOSolver``
+    bit for bit (dense and ELL x wss1 and wss2, through compaction and
+    reconstruction), and the group's serving engine scores as the
+    single-device one."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _NCCL_WORLD1, "file://" + str(tmp_path / "pg")],
+        capture_output=True, text=True, env=env, cwd=root, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for case, r in res.items():
+        if case.endswith("-serve"):
+            assert r, case
+            continue
+        assert r["alpha_eq"], (case, r)
+        assert r["stats"][0] == r["stats"][1], (case, r)
+        assert r["stats"][0][1] >= 1 and r["stats"][0][2] >= 1, (case, r)

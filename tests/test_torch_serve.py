@@ -46,8 +46,8 @@ def test_bucket_padding_is_invisible(trained):
 
 
 def test_shards_none_means_every_device(trained):
-    """``shards=None`` resolves to the device count, as in the reference
-    (1 on the CPU), and scores exactly as ``shards=1``."""
+    """``shards=None`` resolves to the process group's size (1 without a
+    group), and scores exactly as ``shards=1``."""
     m, _, _, Z = trained
     every = ServeEngine(m, device="cpu", shards=None)
     assert every.describe()["shards"] == 1
@@ -102,7 +102,7 @@ def test_compact_merges_duplicates_and_scores_the_same(trained):
                                atol=1e-5)
     with pytest.raises(NotImplementedError):
         m.compact(dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):      # no process group of 2 ranks
         ServeEngine(m, device="cpu", shards=2)
     with pytest.raises(ValueError):
         m.decision_function(Z[:, :3])
