@@ -27,18 +27,28 @@ entry points a user calls:
   rows;
 * the kernel-row cache (``row_cache=True``): its own repeat-heavy workload
   at the reference's benchmark size, dense wss1, ELL wss1 and dense wss2,
-  each with the cache off and on (``[cache]``); the full-size a9a fit
-  with the cache on, against the cache-off one (``[train-cache]``); and
+  each with the cache off and on (``[cache]``); ``[dist]``'s a9a fit
+  with the cache on, bitwise equal to the cache-off one
+  (``[train-cache]``); and
   the scale-0.1 a9a wss2 fit with the cache on, bitwise equal to the
   cache-off one (``[wss2-cache]``). The two-row kernels' cached entries
   are held against their plain version in ``[check]`` / ``[check-ell]``,
   their hit path timed.
+* batched multi-problem training (``core.multi.MultiProblemDriver``):
+  one-vs-rest on the full-size news20 stand-in fed as CSR (20 problems,
+  ``[multi-ovr]``) and its union serving engine over the test rows
+  (``[multi-serve]``); batched fits of the covtype stand-in (dense: wss1
+  with the cache off and on, wss2) and of news20 at scale 0.1 (ELL), each
+  bitwise equal per problem to its loop of single fits, and the dense
+  union engine (``[multi-loop]``);
 * the distributed solver (``core.parallel.ParallelSMOSolver``) on an NCCL
   process group of one rank: an a9a fit at ``DIST_SCALE`` and the w7a
-  wss2 fit, each bitwise equal to its single-device twin, and sharded
-  serving of the a9a test rows, bitwise equal to ``[serve]``'s scores
-  (``[dist]``, ``[dist-ell]``, ``[dist-serve]``); with two or more cards,
-  ``[dist]`` also at min(4, cards) ranks, one a card.
+  wss2 fit, each bitwise equal to its single-device twin, sharded
+  serving of the a9a test rows, bitwise equal to ``[serve]``'s scores,
+  and the batched covtype fit through the group, bitwise equal to
+  ``[multi-loop]``'s (``[dist]``, ``[dist-ell]``, ``[dist-serve]``,
+  ``[dist-multi]``); with two or more cards, ``[dist]`` also at min(4,
+  cards) ranks, one a card.
 
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
@@ -1155,18 +1165,18 @@ def cache_workload(torch, np, dev) -> dict:
 
 
 def train_cache(torch, np, dev, base) -> dict:
-    """``[train-cache]``: the full-size a9a fit that ``[train]`` ran (C=32,
+    """``[train-cache]``: ``[dist]``'s a9a fit (``DIST_SCALE``, C=32,
     sigma2=64, multi5pc, wss1) with the row cache on (64 slots, LRU):
     converged (fp64 gap <= 2e-3), at least one compaction (the device
-    remap) and one reconstruction (the rewarm) at full width, hits > 0,
-    rows from the two-row kernel and no fused update, and the outcome
-    contract against ``[train]``'s model ``base``. Returns the cached
-    fit's ``rbf_rows2`` launches."""
+    remap) and one reconstruction (the rewarm), hits > 0, rows from the
+    two-row kernel and no fused update, and bitwise equal (alpha,
+    iterations) to ``[dist]``'s ``SMOSolver`` fit ``base``. Cut from the
+    full-size a9a fit, whose cache checks this fit makes as well. Returns the cached fit's ``rbf_rows2`` launches."""
     from repro_torch.core import SVMConfig, SMOSolver
     from repro_torch.data import make
     from repro_torch.kernels import cuda
     phase("train-cache")
-    X, y, Xt, _ = make("a9a", 1.0, seed=0)
+    X, y, _, _ = make("a9a", DIST_SCALE, seed=0)
     kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
               device="cuda", row_cache=True)
     cuda.reset_launches()
@@ -1178,20 +1188,22 @@ def train_cache(torch, np, dev, base) -> dict:
     n_fused = cuda.launches["gamma_update"]
     st, sb = m.stats, base.stats
     gap = eq9_gap(torch, X, y, m.alpha, 32.0, INV, dev)
-    o1, o0 = m.dual_objective(), base.dual_objective()
-    agree = float((m.predict(Xt) == base.predict(Xt)).mean())
+    same = (st.iterations == sb.iterations
+            and np.array_equal(m.alpha.view(np.int32),
+                               base.alpha.view(np.int32)))
     us = lambda s: 1e6 * s.train_time / max(s.iterations, 1)
-    print(f"[train-cache] a9a n={X.shape[0]} d={X.shape[1]} dense row_cache "
-          f"64 slots lru: iterations={st.iterations} ([train]: "
-          f"{sb.iterations}) compactions={st.compactions} "
+    print(f"[train-cache] a9a scale {DIST_SCALE} n={X.shape[0]} "
+          f"d={X.shape[1]} dense row_cache 64 slots lru: iterations="
+          f"{st.iterations} ([dist] single device: {sb.iterations}) "
+          f"compactions={st.compactions} "
           f"reconstructions={st.reconstructions} buffer_sizes="
           f"{st.buffer_sizes} hits={st.cache_hits} misses={st.cache_misses} "
           f"hit_rate={st.cache_hit_rate:.4f} converged={st.converged} "
           f"eq9_gap_all={gap:.3e} (<= 2eps 2e-03) wall={wall:.1f} s "
-          f"us/iter={us(st):.1f} ([train]: {us(sb):.1f}) dual objective "
-          f"{rel_gap(o1, o0):.3e} from [train]'s (<= 5e-4), test labels "
-          f"{agree:.4f} equal (>= 0.995); rbf_rows2 launches={n_rows2} "
-          f"gamma_update launches={n_fused}", flush=True)
+          f"us/iter={us(st):.1f} (cache off: {us(sb):.1f}); alpha and "
+          f"iterations bitwise equal to [dist]'s single-device fit: {same}; "
+          f"rbf_rows2 launches={n_rows2} gamma_update launches={n_fused}",
+          flush=True)
     if not (st.converged and gap <= 2e-3):
         fail(f"cached training: converged={st.converged}, gap {gap:.3e}")
     if not (st.compactions >= 1 and st.reconstructions >= 1
@@ -1201,8 +1213,8 @@ def train_cache(torch, np, dev, base) -> dict:
     if n_rows2 <= 0 or n_fused:
         fail(f"cached training launched rbf_rows2 {n_rows2} and "
              f"gamma_update {n_fused} times")
-    if not (rel_gap(o1, o0) <= 5e-4 and agree >= 0.995):
-        fail("cached training breaks the outcome contract against [train]")
+    if not same:
+        fail("cached training differs from [dist]'s single-device fit")
     return {"rbf_rows2": {"train-cache a9a": n_rows2}}
 
 
@@ -1266,7 +1278,7 @@ def dist_fit_line(st, us_single, calls) -> str:
                 f"{k} {v:.3f}" for k, v in per.items()))
 
 
-def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a) -> dict:
+def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
     """The distributed solver (``core.parallel.ParallelSMOSolver``) and
     sharded serving on an NCCL process group of one rank — this card:
 
@@ -1280,11 +1292,16 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a) -> dict:
       ``ell_kernel_rows2``;
     * ``[dist-serve]``: ``ServeEngine(shards=None)`` — the group's size,
       through the sharded path's fp64 all-reduce — bitwise equal to
-      ``[serve]``'s scores, ``rbf_accumulate`` launched.
+      ``[serve]``'s scores, ``rbf_accumulate`` launched;
+    * ``[dist-multi]``: ``MultiProblemDriver(parallel=True)`` on the group,
+      the covtype one-vs-rest problems of ``[multi-loop]``, bitwise equal
+      per problem to its batched cache-off fit (``multi``).
 
     With two or more cards it also runs ``[dist]`` at world size
     min(4, cards), one process a card, against the single fit's outcome.
-    Returns each phase's launches of its kernel."""
+    Returns each phase's launches of its kernel, by kernel and then by
+    fit, those of ``[dist-multi]`` apart, and ``[dist]``'s single-device
+    fit."""
     from repro_torch.core import SVMConfig, SMOSolver, ServeEngine
     from repro_torch.core.parallel import ParallelSMOSolver
     from repro_torch.data import make, to_csr
@@ -1394,8 +1411,9 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a) -> dict:
     if n_acc <= 0:
         fail("the group's serving engine did not launch rbf_accumulate")
     out["rbf_accumulate"] = {"dist-serve a9a": n_acc}
+    multi_out = dist_multi(torch, np, multi)
     dist.destroy()
-    return out
+    return out, multi_out, ms
 
 
 def dist_rank(rank, world, init, X, y, kw, path) -> None:
@@ -1449,6 +1467,267 @@ def dist_outcome(torch, np, dev, world, got, ms, X, y, Xt) -> None:
           f"labels {agree:.4f} equal (>= 0.995)", flush=True)
     if not (conv and gap <= 2e-3 and obj <= 5e-4 and agree >= 0.995):
         fail(f"the world-{world} fit breaks the outcome contract")
+
+
+def dist_multi(torch, np, multi) -> dict:
+    """``[dist-multi]``: the covtype problems of ``[multi-loop]`` through
+    ``MultiProblemDriver(parallel=True)`` on the process group (one rank
+    here), bitwise equal per problem (alpha, iterations) to the batched
+    single-device cache-off fit. Returns its ``gamma_update`` launches."""
+    from repro_torch.core import MultiProblemDriver, SVMConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist
+    phase("dist-multi")
+    X, Y, base = multi
+    cuda.reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    mp = MultiProblemDriver(SVMConfig(**COVTYPE, **MULTI_FIT),
+                            parallel=True).fit_tasks(X, Y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_gu = cuda.launches["gamma_update"]
+    st = mp[0].stats
+    same = all(
+        r["iterations"] == b.stats.per_problem[k]["iterations"]
+        and np.array_equal(m.alpha.view(np.int32), b.alpha.view(np.int32))
+        for k, (r, m, b) in enumerate(zip(st.per_problem, mp, base)))
+    per = {k: v / max(st.joint_iters, 1) for k, v in sorted(dist.calls.items())}
+    print(f"[dist-multi] covtype scale {COVTYPE_SCALE} n={X.shape[0]} "
+          f"K={Y.shape[0]} NCCL world 1: iterations={st.iterations} "
+          f"joint_iters={st.joint_iters} dispatches={st.dispatches} "
+          f"reconstructions={st.reconstructions} converged={st.converged} "
+          f"wall={wall:.1f} s us/problem-iter="
+          f"{1e6 * st.train_time / max(st.iterations, 1):.1f} (batched "
+          f"single device: {1e6 * base[0].stats.train_time / max(base[0].stats.iterations, 1):.1f}) "
+          f"collectives/joint iter=" + ", ".join(
+              f"{k} {v:.3f}" for k, v in per.items())
+          + f"; alpha and iterations bitwise equal to [multi-loop]'s "
+          f"batched fit per problem: {same}; gamma_update launches={n_gu}",
+          flush=True)
+    if not same:
+        fail("the group's batched fit differs from the single-device one")
+    if not st.converged:
+        fail("the group's batched fit did not converge")
+    if n_gu < st.iterations:
+        fail(f"the group's batched fit launched gamma_update {n_gu} times "
+             f"for {st.iterations} problem-iterations")
+    return {"gamma_update": {"dist-multi covtype": n_gu}}
+
+
+# the one-vs-rest sets: the news20 and covtype stand-ins (data/synthetic.py
+# SPECS, the reference's multi-class specs) with their specs' C and sigma2;
+# news20 at its full public size, covtype cut to scale 0.005 (n 2,614) and
+# news20 to scale 0.1 (n 1,593) where a batched fit is held against its
+# loop of single fits, which costs the loop's time on top
+NEWS20 = dict(C=4.0, sigma2=64.0)
+COVTYPE = dict(C=10.0, sigma2=16.0)
+COVTYPE_SCALE = 0.005
+NEWS20_LOOP_SCALE = 0.1
+MULTI_FIT = dict(heuristic="multi5pc", eps=1e-3, device="cuda")
+MULTI_CACHE_SLOTS = 2048
+
+
+def bucket_calls(eng, n: int) -> int:
+    """The buckets ``eng.decision_function`` scores ``n`` queries in."""
+    calls = s = 0
+    while s < n:
+        s += min(n - s, eng._bucket_of(n - s))
+        calls += 1
+    return calls
+
+
+def loop_us(models) -> float:
+    """Training wall time per problem-iteration (us) of a loop of single
+    fits."""
+    t = sum(m.stats.train_time for m in models)
+    return 1e6 * t / max(sum(m.stats.iterations for m in models), 1)
+
+
+def multi_ovr(torch, np, dev) -> dict:
+    """``[multi-ovr]``: one-vs-rest training of the full-size news20
+    stand-in (15,935 x 8,192, 20 classes) fed as CSR, ``format='ell'``, C
+    4, sigma2 64, multi5pc, wss1, eps 1e-3, through
+    ``MultiProblemDriver.fit_ovr``: every problem converged with its fp64
+    Eq. 9 gap over all samples <= 2e-3; ``ell_gamma_update`` launched at
+    least once per problem-iteration and at most once per problem and
+    enqueued joint iteration. ``[multi-serve]``: the union engine over the
+    3,993 test rows, CSR in: scores within 1e-4 of the per-model host
+    oracle, predictions their argmax, one ``ell_rbf_accumulate`` launch a
+    class and bucket. Returns each phase's launches."""
+    from repro_torch.core import MultiProblemDriver, SVMConfig, ovr_tasks
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    phase("multi-ovr")
+    t0 = time.perf_counter()
+    X, y, Xt, yt = make("news20", 1.0, seed=0)
+    Xc = to_csr(X)
+    t_data = time.perf_counter() - t0
+    cfg = SVMConfig(format="ell", selection="wss1", **NEWS20, **MULTI_FIT)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    mdl = MultiProblemDriver(cfg).fit_ovr(Xc, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_gu = cuda.launches["ell_gamma_update"]
+    st = mdl.stats
+    K = len(mdl.classes)
+    _, Y = ovr_tasks(y)
+    inv = 1.0 / (2.0 * NEWS20["sigma2"])
+    gaps = [eq9_gap(torch, X, Y[k], m.alpha, NEWS20["C"], inv, dev)
+            for k, m in enumerate(mdl.models)]
+    its = sorted(r["iterations"] for r in st.per_problem)
+    most = cfg.chunk_iters * st.dispatches * max(1, cfg.fuse_iters) * K
+    print(f"[multi-ovr] news20 n={X.shape[0]} d={X.shape[1]} CSR in, K={K} "
+          f"one-vs-rest, C {NEWS20['C']} sigma2 {NEWS20['sigma2']} multi5pc "
+          f"wss1 ell (data {t_data:.1f} s): joint_iters={st.joint_iters} "
+          f"iterations={st.iterations} per problem min/median/max="
+          f"{its[0]}/{its[len(its) // 2]}/{its[-1]} dispatches="
+          f"{st.dispatches} compactions={st.compactions} reconstructions="
+          f"{st.reconstructions} rechecks={st.eq9_rechecks} buffer_sizes="
+          f"{st.buffer_sizes} buffer_K={st.buffer_K} SVs/problem="
+          f"{st.n_sv / K:.0f} converged={st.converged} max eq9_gap_all="
+          f"{max(gaps):.3e} (<= 2eps 2e-03) wall={wall:.1f} s train="
+          f"{st.train_time:.1f} s recon={st.recon_time:.1f} s "
+          f"us/joint-iter={1e6 * st.train_time / max(st.joint_iters, 1):.1f}"
+          f" us/problem-iter={1e6 * st.train_time / max(st.iterations, 1):.1f}"
+          f" ell_gamma_update launches={n_gu} (>= {st.iterations}, <= "
+          f"{most})", flush=True)
+    if K != 20:
+        fail(f"news20 has {K} classes, not 20")
+    if not (st.converged and all(r["converged"] for r in st.per_problem)
+            and max(gaps) <= 2e-3):
+        fail(f"one-vs-rest: converged={st.converged}, max gap "
+             f"{max(gaps):.3e}")
+    if not st.iterations <= n_gu <= most:
+        fail(f"ell_gamma_update launched {n_gu} times for {st.iterations} "
+             f"problem-iterations (at most {most})")
+    launches = {"ell_gamma_update": {"multi-ovr news20": n_gu}}
+
+    phase("multi-serve")
+    Xtc = to_csr(Xt)
+    eng = mdl.union_engine()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    scores = mdl.decision_matrix(Xtc)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    n_acc = cuda.launches["ell_rbf_accumulate"]
+    want = K * bucket_calls(eng, Xt.shape[0])
+    host = mdl.decision_matrix_host(Xtc)
+    err = float(np.abs(scores - host).max())
+    pred = mdl.predict(Xtc)
+    vote = bool((pred == mdl.classes[np.argmax(scores, 1)]).all())
+    print(f"[multi-serve] news20 {Xt.shape[0]} test rows CSR in, union "
+          f"engine ({eng.describe()}): accuracy={float((pred == yt).mean()):.4f} "
+          f"wall={t_pred:.3f} s max|score-host|={err:.3e} (<= 1e-4) "
+          f"predictions the argmax: {vote}; ell_rbf_accumulate launches="
+          f"{n_acc} (K x buckets = {want})", flush=True)
+    if not (err <= 1e-4 and vote):
+        fail("the union engine disagrees with the per-model host oracle")
+    if n_acc != want:
+        fail(f"the union engine launched ell_rbf_accumulate {n_acc} times, "
+             f"not {want}")
+    launches["ell_rbf_accumulate"] = {"multi-serve news20": n_acc}
+    return launches
+
+
+def multi_loop(torch, np, dev) -> tuple:
+    """``[multi-loop]``: batched == loop on the card, bitwise per problem
+    (alpha bits, iterations, reconstructions): the covtype stand-in at
+    ``COVTYPE_SCALE`` (7 classes, C 10, sigma2 16, multi5pc) under wss1
+    with the cache off, wss1 with the cache on (``MULTI_CACHE_SLOTS``
+    slots, hits > 0) — both against one loop of cache-off single fits —
+    and wss2 with the cache off; the news20 stand-in at
+    ``NEWS20_LOOP_SCALE`` fed as CSR (ELL, wss1); and the dense union
+    engine over the covtype test rows against the per-model host oracle
+    (1e-4). Prints us per problem-iteration, batched and loop. Returns the
+    launches by kernel and fit, and (X, Y, batched cache-off models) for
+    ``[dist-multi]``."""
+    from repro_torch.core import MultiProblemDriver, SVMConfig, ovr_tasks
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    phase("multi-loop")
+    launches: dict = {}
+
+    def fit(X, Y, backend, **kw):
+        cfg = SVMConfig(**dict(MULTI_FIT, **kw))
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        ms = MultiProblemDriver(cfg, backend=backend).fit_tasks(X, Y)
+        torch.cuda.synchronize()
+        return ms, dict(cuda.launches), time.perf_counter() - t0
+
+    def held(label, X, Y, batched, loop, hot, key):
+        ms, n, wall = batched
+        ml, _, wall_l = loop
+        st = ms[0].stats
+        same = [r["iterations"] == m.stats.iterations
+                and r["reconstructions"] == m.stats.reconstructions
+                and np.array_equal(b.alpha.view(np.int32),
+                                   m.alpha.view(np.int32))
+                for r, b, m in zip(st.per_problem, ms, ml)]
+        print(f"[multi-loop] {label}: K={Y.shape[0]} joint_iters="
+              f"{st.joint_iters} iterations={st.iterations} compactions="
+              f"{st.compactions} reconstructions={st.reconstructions} hits="
+              f"{st.cache_hits} converged={st.converged} wall batched "
+              f"{wall:.1f} s, loop {wall_l:.1f} s; us/problem-iter batched "
+              f"{1e6 * st.train_time / max(st.iterations, 1):.1f}, loop "
+              f"{loop_us(ml):.1f}; bitwise equal to the loop per "
+              f"problem: {all(same)}; {hot} launches={n[hot]}", flush=True)
+        if not all(same):
+            fail(f"{label}: batched differs from the loop on problems "
+                 f"{[k for k, v in enumerate(same) if not v]}")
+        if not st.converged or n[hot] < st.iterations:
+            fail(f"{label}: converged={st.converged}, {hot} launched "
+                 f"{n[hot]} times for {st.iterations} problem-iterations")
+        launches.setdefault(hot, {})[key] = n[hot]
+
+    X, y, Xt, _ = make("covtype", COVTYPE_SCALE, seed=0)
+    _, Y = ovr_tasks(y)
+    loop1 = fit(X, Y, "loop", selection="wss1", **COVTYPE)
+    base = fit(X, Y, "batched", selection="wss1", **COVTYPE)
+    held("covtype wss1 cache off", X, Y, base, loop1, "gamma_update",
+         "multi-loop covtype wss1")
+    cached = fit(X, Y, "batched", selection="wss1", row_cache=True,
+                 row_cache_slots=MULTI_CACHE_SLOTS, **COVTYPE)
+    held(f"covtype wss1 cache on ({MULTI_CACHE_SLOTS} slots)", X, Y, cached,
+         loop1, "rbf_rows2", "multi-loop covtype wss1 cache")
+    if cached[0][0].stats.cache_hits <= 0:
+        fail("the shared cache never hit")
+    held("covtype wss2 cache off", X, Y,
+         fit(X, Y, "batched", selection="wss2", **COVTYPE),
+         fit(X, Y, "loop", selection="wss2", **COVTYPE), "rbf_rows2",
+         "multi-loop covtype wss2")
+    Xn, yn, _, _ = make("news20", NEWS20_LOOP_SCALE, seed=0)
+    _, Yn = ovr_tasks(yn)
+    Xnc = to_csr(Xn)
+    held(f"news20 scale {NEWS20_LOOP_SCALE} CSR in ell wss1", Xn, Yn,
+         fit(Xnc, Yn, "batched", selection="wss1", format="ell", **NEWS20),
+         fit(Xnc, Yn, "loop", selection="wss1", format="ell", **NEWS20),
+         "ell_gamma_update", "multi-loop news20")
+
+    from repro_torch.core.multi import OvRSVMModel, _union_model
+    ms = base[0]
+    mdl = OvRSVMModel(np.arange(Y.shape[0]), ms, ms[0].stats,
+                      _union_model(ms))
+    eng = mdl.union_engine()
+    cuda.reset_launches()
+    scores = mdl.decision_matrix(Xt)
+    n_acc = cuda.launches["rbf_accumulate"]
+    err = float(np.abs(scores - mdl.decision_matrix_host(Xt)).max())
+    want = Y.shape[0] * bucket_calls(eng, Xt.shape[0])
+    print(f"[multi-loop] covtype union engine over {Xt.shape[0]} test rows "
+          f"({eng.describe()['n_sv']} union SVs, K={eng.n_out}): "
+          f"max|score-host|={err:.3e} (<= 1e-4); rbf_accumulate launches="
+          f"{n_acc} (K x buckets = {want})", flush=True)
+    if not err <= 1e-4:
+        fail("the dense union engine disagrees with the host oracle")
+    if n_acc != want:
+        fail(f"the dense union engine launched rbf_accumulate {n_acc} "
+             f"times, not {want}")
+    launches["rbf_accumulate"] = {"multi-loop covtype union": n_acc}
+    return launches, (X, Y, ms)
 
 
 def predict_device_time(torch, predict, n_acc_want) -> str:
@@ -1568,16 +1847,23 @@ def main() -> None:
     model, w7a_wss2, ell_launches, Xt = run_path(torch, np, dev, time_ms,
                                                  "w7a", "ell")
     launches.update(ell_launches)
+    # the multi-problem phases' launches, by kernel and then by fit
+    multi = multi_ovr(torch, np, dev)
+    loop_launches, covtype = multi_loop(torch, np, dev)
     # the distributed phases' launches, by kernel and then by fit
-    dist_launches = dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a)
-    del w7a_wss2
+    dist_launches, dist_multi_launches, a9a_dist = dist_paths(
+        torch, np, dev, a9a, w7a_wss2, Xt_a9a, covtype)
+    del w7a_wss2, covtype
+    for fits in (loop_launches, dist_multi_launches):
+        for name, by_fit in fits.items():
+            multi.setdefault(name, {}).update(by_fit)
     # the cached phases' two-row kernel launches, by kernel and then by fit
     cached = cache_workload(torch, np, dev)
-    for fits in (train_cache(torch, np, dev, a9a),
+    for fits in (train_cache(torch, np, dev, a9a_dist),
                  wss2_cache(torch, np, dev, a9a_wss2)):
         for name, by_fit in fits.items():
             cached[name].update(by_fit)
-    del a9a, a9a_wss2
+    del a9a, a9a_wss2, a9a_dist
     phase("check-ell")
     check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
     launches.update(row_path(torch, dev, w7a_buffer))
@@ -1585,6 +1871,8 @@ def main() -> None:
         kernels[name]["cache_launches"] = by_fit
     for name, by_fit in dist_launches.items():
         kernels[name]["dist_launches"] = by_fit
+    for name, by_fit in multi.items():
+        kernels[name]["multi_launches"] = by_fit
 
     phase("report")
     record = []
@@ -1598,6 +1886,7 @@ def main() -> None:
                                        "b64_ms", "k16_ms", "k16_warm_ms",
                                        "hit_ms", "hit_bound_ms",
                                        "cache_launches", "dist_launches",
+                                       "multi_launches",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

@@ -63,6 +63,27 @@ def ell_model(sv_vals: np.ndarray, sv_cols: np.ndarray, n_features: int,
                     n_features=int(n_features))
 
 
+def ovr_model(classes, models: list, device: str = "cuda"):
+    """A port ``core.multi.OvRSVMModel`` (with its union serving model)
+    from a reference one-vs-rest model's per-class binary models, each
+    given as a dict of its numpy fields: ``sv_coef``, ``beta``, ``alpha``,
+    ``config`` (the config's fields) and either ``sv_x`` or ``sv_vals`` /
+    ``sv_cols`` / ``n_features``."""
+    from repro_torch.core import multi
+    out = []
+    for f in models:
+        if f.get("sv_vals") is not None:
+            out.append(ell_model(f["sv_vals"], f["sv_cols"],
+                                 f["n_features"], f["sv_coef"], f["beta"],
+                                 f["alpha"], f["config"], device))
+        else:
+            out.append(model(f["sv_x"], f["sv_coef"], f["beta"], f["alpha"],
+                             f["config"], device))
+    stats = FitStats(n_problems=len(out))
+    return multi.OvRSVMModel(np.asarray(classes), out, stats,
+                             multi._union_model(out))
+
+
 def solver_state(alpha: np.ndarray, gamma: np.ndarray, active: np.ndarray,
                  X, y: np.ndarray, sq_norms: np.ndarray,
                  device: str = "cuda", gids: "np.ndarray | None" = None,

@@ -106,6 +106,14 @@ class FitStats:
     cache_hits: int = 0          # kernel rows served from the row cache
     cache_misses: int = 0        # kernel rows (re)computed by the provider
     cache_hit_rate: float = 0.0  # hits / (hits + misses); 0 when cache off
+    n_problems: int = 1          # problems sharing this fit (K of a batched
+                                 # core.multi fit; 1 for ordinary fits)
+    per_problem: list = dataclasses.field(default_factory=list)
+                                 # one record per problem of a multi fit
+                                 # (iterations, converged, stalled,
+                                 # shrink_events, reconstructions, n_sv, ...)
+    joint_iters: int = 0         # joint iterations of a batched multi fit:
+                                 # iterations in which any problem ran
 
 
 def betas(gamma, alpha, y, C: float) -> tuple:
@@ -120,6 +128,63 @@ def betas(gamma, alpha, y, C: float) -> tuple:
                      torch.max(torch.where(in_low, gamma, float("-inf")))])
     b_up, b_low = b.cpu().tolist()
     return b_up, b_low
+
+
+class Phase:
+    """One problem's phase-end policy (Alg. 5 l. 26-33 and the port's fp64
+    recheck). :meth:`EpochDriver.fit` keeps one; the batched multi driver
+    keeps one a problem lane, so each lane ends its phases as the single
+    driver would."""
+
+    def __init__(self, cfg, policy: str):
+        self.shrink_on = policy != "none"
+        self.single = policy == "single"
+        self.max_recon = cfg.max_reconstructions
+        self.tol20 = smo.f32(cfg.recon_eps_factor * cfg.eps)
+        self.tol2 = smo.f32(2.0 * cfg.eps)
+        self._tol2_cut = smo.f32(2.0 * cfg.eps * (1.0 - 1e-3))
+        self.recon_count = 0
+        self.eq9_rechecks = 0
+        self.recheck_step = -1
+
+    def tol(self) -> float:
+        """The tolerance of the next phase: 20*eps until the first
+        reconstruction of a shrinking fit, then 2*eps."""
+        return (self.tol20 if self.shrink_on and self.recon_count == 0
+                else self.tol2)
+
+    def end(self, eq9, tol: float, step: int, spent: bool,
+            stalled: bool) -> bool:
+        """End the phase that ran at ``tol`` and stopped at ``step``.
+        ``eq9()`` recomputes every sample's gamma and returns whether Eq. 9
+        holds on its fp64 values. True: the problem is done. False: the
+        caller un-shrinks (rebuilds the full buffer) and optimises on,
+        shrinking only while :attr:`shrink_on`, its countdown re-armed."""
+        if self.shrink_on and self.recon_count < self.max_recon \
+                and not spent:
+            # gradient reconstruction + un-shrink
+            self.recon_count += 1
+            if eq9():
+                return True
+        else:
+            # No reconstruction is due (original, a Single re-optimisation,
+            # a spent budget), so the epochs' verdict stands on gamma they
+            # updated in fp32: recheck it on recomputed gamma, and optimise
+            # on from there if it fails.
+            self.eq9_rechecks += 1
+            if eq9() or self.shrink_on or spent or stalled \
+                    or step == self.recheck_step:
+                return True
+            self.recheck_step = step
+        if tol == self.tol2:
+            # Eq. 9 on fp64 gamma refuted epochs that stopped at 2*eps.
+            # Rebuilt from those values, their f32 gamma sits within ~1e-7
+            # of them; aim 0.1% below 2*eps so that they cannot stop again
+            # at once on a rounding.
+            self.tol2 = self._tol2_cut
+        if self.single:
+            self.shrink_on = False     # Single disables shrinking
+        return False
 
 
 def _scatter_full(alpha_d, gamma_d, alpha_buf, gamma_buf, gids):
@@ -449,10 +514,8 @@ class EpochDriver:
         self.stats = stats = FitStats(min_active=n)
 
         interval = self._interval = h.interval(n)
-        tol20 = smo.f32(cfg.recon_eps_factor * cfg.eps)
-        tol2 = smo.f32(2.0 * cfg.eps)
-        shrink_on = h.policy != "none"
-        recon_count = 0
+        ph = Phase(cfg, h.policy)
+        shrink_on = ph.shrink_on
         t_train = 0.0
         t_recon = 0.0
         stalled = False
@@ -483,17 +546,16 @@ class EpochDriver:
         fuse = max(1, int(cfg.fuse_iters))
         mper_lo = max(cfg.min_buffer // p, 8)   # full_m_per's clamp floor
         step_host = 0
-        recheck_step = -1
 
         while True:
-            tol = tol20 if (shrink_on and recon_count == 0) else tol2
+            tol = ph.tol()
             # ---- inner optimization at the current tolerance ------------
             while True:
                 tc = time.perf_counter()
                 step_before = step_host
                 # integer-exact host twin of the compaction trigger
                 compact_lt = (math.ceil(cfg.compact_ratio * (self.data.m * p))
-                              if shrink_on else 0)
+                              if ph.shrink_on else 0)
                 self.state, self.cache, summ_d = runner(
                     self.data, self.yb, self.state, self.cache, tol, fuse,
                     cfg.chunk_iters, cfg.max_iters, compact_lt, mper_lo)
@@ -537,34 +599,12 @@ class EpochDriver:
             else:
                 self._writeback()
 
-            spent = step_host >= cfg.max_iters
             tr = time.perf_counter()
-            if shrink_on and recon_count < cfg.max_reconstructions \
-                    and not spent:
-                # ---- gradient reconstruction + un-shrink (Alg. 5 l. 26-33)
-                recon_count += 1
-                ok = self._eq9_on_recomputed_gamma()
-                t_recon += time.perf_counter() - tr
-                if ok:
-                    break
-            else:
-                # No reconstruction is due (original, a Single
-                # re-optimisation, a spent budget), so the epochs' verdict
-                # stands on gamma they updated in fp32: recheck it on
-                # recomputed gamma, and optimise on from there if it fails.
-                stats.eq9_rechecks += 1
-                ok = self._eq9_on_recomputed_gamma()
-                t_recon += time.perf_counter() - tr
-                if ok or shrink_on or spent or summ.stalled \
-                        or step_host == recheck_step:
-                    break
-                recheck_step = step_host
-            if tol == tol2:
-                # Eq. 9 on fp64 gamma refuted epochs that stopped at 2*eps.
-                # Rebuilt from those values, their f32 gamma sits within
-                # ~1e-7 of them; aim 0.1% below 2*eps so that they cannot
-                # stop again at once on a rounding.
-                tol2 = smo.f32(2.0 * cfg.eps * (1.0 - 1e-3))
+            done = ph.end(self._eq9_on_recomputed_gamma, tol, step_host,
+                          step_host >= cfg.max_iters, summ.stalled)
+            t_recon += time.perf_counter() - tr
+            if done:
+                break
             # un-shrink: rebuild the full buffer; Single disables shrinking
             step_t, nshr_t = self.state.step, self.state.n_shrinks
             self.data, self.yb, self.state, self.idx = self._build_buffer(
@@ -576,8 +616,7 @@ class EpochDriver:
             self.cache = sv._regrow_cache(
                 self.cache, self.data, cfg.selection != "wss2", n)
             self._note_buffer()
-            if not shrink_on or h.policy == "single":
-                shrink_on = False
+            if not ph.shrink_on:
                 runner = sv._runner(cfg, 0)
                 next_shrink = self.state.next_shrink
             else:
@@ -590,7 +629,8 @@ class EpochDriver:
         if self.mirror is not None:
             self.gamma = self.gamma_d.cpu().numpy().copy()
         stats.iterations = step_host
-        stats.reconstructions = recon_count
+        stats.reconstructions = ph.recon_count
+        stats.eq9_rechecks = ph.eq9_rechecks
         stats.train_time = t_train
         stats.recon_time = t_recon
         stats.stalled = stalled

@@ -1,6 +1,7 @@
 """Distributed SMO — the paper's Algorithms 3/4 on a ``torch.distributed``
 process group (twin of ``repro.core.parallel``; dense or block-ELL, with or
-without the kernel-row cache).
+without the kernel-row cache), and the process-group hooks of the batched
+multi-problem runner (``GroupExchange``, ``make_parallel_multi_runner``).
 
 The outer Alg. 5 control flow (shrink -> compact -> reconstruct ->
 un-shrink -> re-optimize) is not here: it lives in :mod:`core.driver` and
@@ -48,6 +49,7 @@ import torch
 
 from repro_torch.core import dataplane, kernel_fns
 from repro_torch.core import mirror as mirror_mod
+from repro_torch.core import multi
 from repro_torch.core import reconstruct, rowcache, smo, solver, util
 from repro_torch.data import sparse as spfmt
 from repro_torch.kernels import ops
@@ -289,6 +291,64 @@ def make_parallel_chunk_runner(kernel: str, C: float, inv_2s2: float,
         return s, c, summary
 
     return run_epoch
+
+
+# -- batched multi-problem training ----------------------------------------
+
+class GroupExchange:
+    """The process-group twin of ``core.multi.LocalExchange``: the hooks
+    that make the batched multi-problem runner sharded. Per joint
+    iteration, selection is ONE all-gather of every rank's (K, 6 + 2d)
+    candidate payloads [beta_up, beta_low, alpha_up, y_up, alpha_low,
+    y_low, x_up, x_low] with a (K,) argmin / argmax over ranks (ties to the
+    lowest rank, so to the lowest global index); the elected rows' owners
+    write the new alphas; counts are all-reduced."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.me = dist.rank(group)
+
+    def select(self, data, ystk, gamma, alpha, active, thr0, thr1):
+        take = multi.take
+        b_up, j_up, b_low, j_low = smo.select_pair_multi(
+            gamma, alpha, ystk, active, thr0, thr1)
+        pay = torch.cat([
+            torch.stack([b_up, b_low, take(alpha, j_up), take(ystk, j_up),
+                         take(alpha, j_low), take(ystk, j_low)], 1),
+            data.dense_rows(j_up), data.dense_rows(j_low)], 1)
+        pays = dist.all_gather(pay, self.group)              # (p, K, 6+2d)
+        kk = torch.arange(pay.shape[0], device=pay.device)
+        k_up = torch.argmin(pays[:, :, 0], 0)
+        k_low = torch.argmax(pays[:, :, 1], 0)
+        up, low = pays[k_up, kk], pays[k_low, kk]
+        d = (pay.shape[1] - 6) // 2
+        return multi.Sel(up[:, 0], low[:, 1], j_up, j_low, up[:, 2], up[:, 3],
+                   low[:, 4], low[:, 5], up[:, 6: 6 + d].contiguous(),
+                   low[:, 6 + d:].contiguous(), k_up, k_low)
+
+    def write(self, alpha, kk, j, owner, v):
+        """alpha[k, j[k]] = v[k] on the rank that owns the elected row of
+        problem k."""
+        alpha.index_put_((kk, j), torch.where(owner == self.me, v,
+                                              multi.take(alpha, j)))
+
+    def count(self, t: torch.Tensor) -> torch.Tensor:
+        return dist.all_reduce(t, "sum", self.group)
+
+
+def make_parallel_multi_runner(kernel: str, inv_2s2: float,
+                               shrink_interval: int, fmt: str = "dense",
+                               group=None):
+    """The batched multi-problem runner (``core.multi.make_multi_runner``,
+    wss1, cache off) on the process group ``group``, through
+    :class:`GroupExchange`. ``data``, ``ystk`` and the state's (K, m_per)
+    arrays are this rank's shard of the buffer; the state's (K,) vectors,
+    ``lanes`` and the summary are the same on every rank. Each rank updates
+    its rows' gamma with the same per-problem kernel calls as the
+    single-device runner. Shrinking is logical only: the driver keeps the
+    buffer whole (it passes ``compact_lt`` 0), as in the reference."""
+    return multi.make_multi_runner(kernel, inv_2s2, shrink_interval,
+                                   fmt=fmt, exchange=GroupExchange(group))
 
 
 # -- Alg. 6: the ring ------------------------------------------------------

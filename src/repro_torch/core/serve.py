@@ -22,6 +22,14 @@ bucket against its block, and the ranks all-reduce the partial sums in
 fp64 before beta is subtracted once — the reference's psum over the mesh.
 Every rank then calls ``decision_function`` with the same queries. bf16 SV
 storage is a later slice of the port.
+
+Multi-coef engines (the one-vs-rest union model of ``core.multi``): a
+model whose ``beta`` is a (K,) array, or whose ``sv_coef`` is an
+(n_sv, K) table, scores K problems over one resident SV set —
+``decision_function`` returns (B, K). On the card each bucket launches the
+accumulate kernel once per coefficient column (the reference's Pallas
+path); a coef-0 row adds exactly 0, so column k scores problem k's SVs
+alone. Sharded, the ranks all-reduce the (B, K) fp64 partials.
 """
 from __future__ import annotations
 
@@ -91,12 +99,21 @@ class ServeEngine:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
         self.min_bucket = int(min_bucket)
         self.max_bucket = int(max_bucket)
-        self.beta = smo.f32(model.beta)
+        # a (K,) beta or an (n_sv, K) coef table: the multi-coef engine
+        beta = np.asarray(model.beta, np.float32).reshape(-1)
+        coef = np.asarray(model.sv_coef, np.float32)
+        self.multi = beta.size > 1 or coef.ndim == 2
+        self.n_out = int(beta.size)
+        self.beta = beta if self.multi else smo.f32(beta[0])
         self.fmt = "ell" if getattr(model, "sv_vals", None) is not None \
             else "dense"
         self._provider = kernel_fns.make_provider(cfg.kernel, self.fmt, True,
                                                   cfg.inv_2s2)
-        coef = np.asarray(model.sv_coef, np.float32).reshape(-1)
+        coef = coef.reshape(coef.shape[0], -1) if self.multi \
+            else coef.reshape(-1)
+        if self.multi and coef.shape[1] != self.n_out:
+            raise ValueError(f"coef table has {coef.shape[1]} columns for "
+                             f"{self.n_out} betas")
         self.n_sv = int(coef.shape[0])
         # this rank's SV block (the deal of the SVs over the ranks)
         base, extra = divmod(self.n_sv, self.shards)
@@ -106,8 +123,10 @@ class ServeEngine:
         coef = coef[blk]
         n_blk = int(coef.shape[0])
         self.m_pad = _LANE * max(1, -(-n_blk // _LANE))
-        coef_p = np.zeros((self.m_pad,), np.float32)
+        coef_p = np.zeros((self.m_pad,) + coef.shape[1:], np.float32)
         coef_p[: n_blk] = coef
+        if self.multi:      # one contiguous (m_pad,) row per column
+            coef_p = coef_p.T
         put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                         device=self.device)
         if self.fmt == "dense":
@@ -131,6 +150,7 @@ class ServeEngine:
                                            put((v_p * v_p).sum(axis=1)),
                                            self.n_features)
         self._coef = put(coef_p)
+        self._beta = put(self.beta) if self.multi else self.beta
         self._buckets: set = set()
 
     def _bucket_of(self, remaining: int) -> int:
@@ -139,16 +159,21 @@ class ServeEngine:
 
     def score_bucket(self, zb: torch.Tensor) -> torch.Tensor:
         """Scores of one padded (b, width) query bucket already on the
-        device — one ``accumulate`` call. ``width`` is the features the
-        device rows hold (``n_features``; dense, ``row_width`` of it)."""
+        device — one ``accumulate`` call, (b,); on a multi-coef engine one
+        call a column, (b, K). ``width`` is the features the device rows
+        hold (``n_features``; dense, ``row_width`` of it)."""
         if zb.ndim != 2 or zb.shape[1] != self.width:
             raise ValueError(f"bucket shape {tuple(zb.shape)}: needs "
                              f"(b, {self.width}) (the engine's width)")
         self._buckets.add(int(zb.shape[0]))
-        f = self._provider.accumulate(self._data, zb, self._coef)
+        if self.multi:        # one accumulate launch per column: (b, K)
+            f = torch.stack([self._provider.accumulate(self._data, zb, c)
+                             for c in self._coef], 1)
+        else:
+            f = self._provider.accumulate(self._data, zb, self._coef)
         if self._grouped:     # the ranks' partial sums, added in fp64
             f = dist.all_reduce(f.double(), "sum").float()
-        return f - self.beta
+        return f - self._beta
 
     def decision_function(self, Z) -> np.ndarray:
         """Scores for a dense (n, d) batch or CSR-like queries (a
@@ -165,7 +190,7 @@ class ServeEngine:
             n, d = Z.shape
         if d != self.n_features:
             raise ValueError(f"query dim {d} != model dim {self.n_features}")
-        out = np.empty((n,), np.float32)
+        out = np.empty((n, self.n_out) if self.multi else (n,), np.float32)
         s = 0
         while s < n:
             b = self._bucket_of(n - s)
@@ -181,6 +206,11 @@ class ServeEngine:
         return out
 
     def predict(self, Z) -> np.ndarray:
+        if self.multi:
+            raise ValueError(
+                "a multi-coef engine scores K problems; vote at the model "
+                "level (OvRSVMModel.predict takes the argmax of "
+                "decision_function)")
         return np.where(self.decision_function(Z) >= 0.0, 1.0,
                         -1.0).astype(np.float32)
 
@@ -194,7 +224,8 @@ class ServeEngine:
 
     def describe(self) -> dict:
         return {"fmt": self.fmt, "dtype": "float32", "shards": self.shards,
-                "n_sv": self.n_sv, "m_pad": self.m_pad, "K": self.K,
+                "n_sv": self.n_sv, "n_out": self.n_out, "m_pad": self.m_pad,
+                "K": self.K,
                 "n_features": self.n_features, "device": str(self.device),
                 "buckets": sorted(self._buckets),
                 "memory_bytes": self.memory_bytes()}

@@ -115,10 +115,10 @@ def _sets(alpha, pos, active, thr0, thr1):
     return in_up, in_low
 
 
-def _select(gamma, alpha, pos, active, thr0, thr1):
+def _select(gamma, alpha, pos, active, thr0, thr1, dim: int = 0):
     in_up, in_low = _sets(alpha, pos, active, thr0, thr1)
-    b_up, i_up = torch.min(torch.where(in_up, gamma, _INF), 0)
-    b_low, i_low = torch.max(torch.where(in_low, gamma, -_INF), 0)
+    b_up, i_up = torch.min(torch.where(in_up, gamma, _INF), dim)
+    b_low, i_low = torch.max(torch.where(in_low, gamma, -_INF), dim)
     return b_up, i_up, b_low, i_low
 
 
@@ -156,7 +156,13 @@ def pair_update(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul, k_uu,
     """Analytic two-variable solve, Eq. 11/12, with joint L/H clipping that
     preserves sum(alpha*y) and keeps both alphas in [0, C]. Arguments are
     0-d f32 tensors (``C`` a float); returns (a_up_new, a_low_new)."""
-    C = f32(C)
+    return _pair_update(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul,
+                        k_uu, k_ll, f32(C))
+
+
+def _pair_update(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul, k_uu,
+                 k_ll, C):
+    # C is an f32-exact float or an f32 tensor of the arguments' shape
     rho = 2.0 * k_ul - k_uu - k_ll          # Eq. 12 (== -eta, negative for PD)
     rho = torch.clamp(rho, max=-_TAU)
     a_low_unc = alpha_low - y_low * (g_up - g_low) / rho
@@ -168,7 +174,9 @@ def pair_update(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul, k_uu,
                      torch.clamp(C + alpha_low - alpha_up, max=C))
     a_low_new = torch.minimum(torch.maximum(a_low_unc, lo), hi)
     a_up_new = alpha_up + s * (alpha_low - a_low_new)
-    a_up_new = torch.clamp(a_up_new, 0.0, C)   # exact box (guards fp drift)
+    # exact box (guards fp drift); a tensor bound needs a tensor minimum
+    lo0 = 0.0 if not torch.is_tensor(C) else torch.zeros_like(C)
+    a_up_new = torch.clamp(a_up_new, lo0, C)
     return a_up_new, a_low_new
 
 
@@ -186,6 +194,55 @@ def _wss2(gamma, alpha, pos, active, thr0, thr1, g_up, row_up, kdiag, k_uu):
     b = gamma - g_up
     a = torch.clamp(k_uu + kdiag - 2.0 * row_up, min=_TAU)
     return torch.where(in_low & (b > 0), b * b / a, -_INF)
+
+
+# -- the multi-problem twins ---------------------------------------------
+# K problems over one buffer: (K, M) state, (K,) box constants and scalars.
+# Each is the 1-D function's elementwise ops on a problem axis, and the
+# (K, M) reductions break ties to the lowest index along dim 1, so every
+# problem's lane has the bits the 1-D function gives it alone. Eager torch
+# rounds every op on its own, so unlike the reference (which unrolls the
+# pair update per problem to pin XLA's FMA contraction) the (K,) update is
+# vectorized.
+
+def box_thresholds(Cs):
+    """Per-problem (thr0, thr1, Cv) as (K,) f32 numpy arrays: each lane's
+    ``bounds(C_k)`` and ``f32(C_k)`` (products in f64, rounded once)."""
+    Cs = np.asarray(Cs, np.float64).reshape(-1)
+    return (np.asarray(Cs * _BND, np.float32),
+            np.asarray(Cs * (1.0 - _BND), np.float32),
+            np.asarray(Cs, np.float32))
+
+
+def select_pair_multi(gamma, alpha, y, active, thr0, thr1):
+    """Eq. 8 for K problems: (K, M) state and (K,) cuts -> (beta_up, i_up,
+    beta_low, i_low), each (K,); ties to the lowest index per problem."""
+    return _select(gamma, alpha, y > 0, active, thr0[:, None],
+                   thr1[:, None], dim=1)
+
+
+def shrink_rule_multi(gamma, alpha, y, active, beta_up, beta_low, thr0,
+                      thr1):
+    """Eq. 10 for K problems: the (K, M) active masks after the rule."""
+    return _shrink(gamma, alpha, y > 0, active, beta_up[:, None],
+                   beta_low[:, None], thr0[:, None], thr1[:, None])
+
+
+def pair_update_multi(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul,
+                      k_uu, k_ll, Cv):
+    """Eq. 11/12 for K problems: (K,) f32 tensors and the (K,) f32 box
+    ``Cv``; returns (a_up_new, a_low_new), each (K,)."""
+    return _pair_update(alpha_up, alpha_low, y_up, y_low, g_up, g_low, k_ul,
+                        k_uu, k_ll, Cv)
+
+
+def wss2_scores_multi(gamma, alpha, y, active, thr0, thr1, g_up, rows_up,
+                      kdiag, k_uu):
+    """Second-order i_low scores for K problems: (K, M) state, each
+    problem's i_up row ``rows_up`` (K, M), (K,) ``g_up`` / ``k_uu`` and the
+    buffer's (M,) ``kdiag`` -> (K, M) scores."""
+    return _wss2(gamma, alpha, y > 0, active, thr0[:, None], thr1[:, None],
+                 g_up[:, None], rows_up, kdiag, k_uu[:, None])
 
 
 def make_chunk_runner(kernel: str, C: float, inv_2s2: float,

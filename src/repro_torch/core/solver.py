@@ -31,14 +31,15 @@ __all__ = ["SVMConfig", "SVMModel", "SMOSolver", "FitStats", "train"]
 
 # Fields of the reference config whose features later slices of the port
 # bring; a value other than the default raises instead of being ignored.
+_CKPT = "the checkpoint/elastic slice (ROADMAP item 12)"
 _LATER = {
-    "checkpoint_dir": (None, "the checkpoint/elastic slice"),
-    "checkpoint_every": (1, "the checkpoint/elastic slice"),
-    "resume": (False, "the checkpoint/elastic slice"),
-    "ckpt_retries": (3, "the checkpoint/elastic slice"),
-    "watchdog_threshold": (0.0, "the checkpoint/elastic slice"),
-    "watchdog_window": (32, "the checkpoint/elastic slice"),
-    "watchdog_warmup": (3, "the checkpoint/elastic slice"),
+    "checkpoint_dir": (None, _CKPT),
+    "checkpoint_every": (1, _CKPT),
+    "resume": (False, _CKPT),
+    "ckpt_retries": (3, _CKPT),
+    "watchdog_threshold": (0.0, _CKPT),
+    "watchdog_window": (32, _CKPT),
+    "watchdog_warmup": (3, _CKPT),
 }
 
 

@@ -175,8 +175,8 @@ def make(spec: "DatasetSpec | str", scale: float = 1.0, seed: int = 0):
     (CPU-friendly benchmark sizes) without changing d or statistics.
     Binary specs label with float32 +-1; multi-class specs
     (``spec.n_classes > 2`` — the covtype/news20 stand-ins) label with
-    int32 class ids, the input of one-vs-rest training (a later slice
-    of the port)."""
+    int32 class ids, the input of one-vs-rest training
+    (``core.multi.train_ovr``)."""
     if isinstance(spec, str):
         spec = SPECS[spec]
     # crc32, not hash(): str hashing is salted per process, which made the

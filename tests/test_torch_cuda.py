@@ -868,3 +868,72 @@ def test_cuda_nccl_world1_equals_single_device_solver(cuda_device,
         assert r["alpha_eq"], (case, r)
         assert r["stats"][0] == r["stats"][1], (case, r)
         assert r["stats"][0][1] >= 1 and r["stats"][0][2] >= 1, (case, r)
+
+
+# -- batched multi-problem training (core/multi.py) ------------------------
+
+def _multi_set():
+    """The reference multi-problem set (tests/test_multi.py): N 384 x D 24,
+    labels from a noisy linear rule, 3 points of its C grid."""
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(384, 24)).astype(np.float32)
+    X[rng.random(X.shape) < 0.5] = 0.0
+    w = rng.normal(size=24)
+    s = X @ w + 0.4 * rng.normal(size=384)
+    y = np.where(s > np.median(s), 1.0, -1.0).astype(np.float32)
+    return X, np.broadcast_to(y, (3, 384)).copy(), np.geomspace(0.5, 8.0, 8)[:3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+@pytest.mark.parametrize("rc", [False, True])
+def test_cuda_batched_multi_equals_loop_bitwise(cuda_device, fmt, rc):
+    """K = 3 problems batched on the card equal the same problems fitted one
+    by one (``backend='loop'``) bit for bit — alpha, iterations,
+    reconstructions — through the card's (K, M) reductions, with the cache
+    off (one fused update a problem and joint iteration) and on (one shared
+    cache, fused epochs); the rows come from the kernels."""
+    from repro_torch.core import MultiProblemDriver, SVMConfig
+    X, Y, Cs = _multi_set()
+    kw = dict(C=1.0, sigma2=4.0, eps=1e-3, heuristic="multi5pc",
+              chunk_iters=64, min_buffer=64, row_cache_slots=128, format=fmt,
+              row_cache=rc, fuse_iters=4 if rc else 1, device="cuda")
+    loop = MultiProblemDriver(SVMConfig(**kw), backend="loop").fit_tasks(
+        X, Y, C=Cs)
+    cuda.reset_launches()
+    mb = MultiProblemDriver(SVMConfig(**kw)).fit_tasks(X, Y, C=Cs)
+    st = mb[0].stats
+    hot = {(False, "dense"): "gamma_update", (True, "dense"): "rbf_rows2",
+           (False, "ell"): "ell_gamma_update",
+           (True, "ell"): "ell_kernel_rows2"}[(rc, fmt)]
+    assert cuda.launches[hot] >= st.iterations > 0
+    for k in range(3):
+        rec, solo = st.per_problem[k], loop[k].stats
+        assert rec["iterations"] == solo.iterations, k
+        assert rec["reconstructions"] == solo.reconstructions, k
+        np.testing.assert_array_equal(mb[k].alpha.view(np.int32),
+                                      loop[k].alpha.view(np.int32))
+    assert st.converged and (st.cache_hits > 0) == rc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+def test_cuda_union_engine_matches_host_oracle(cuda_device, fmt):
+    """The one-vs-rest union engine on the card: one accumulate launch a
+    class and bucket, scores within 1e-4 of the per-model host oracle,
+    predictions its argmax."""
+    from repro_torch.core import train_ovr
+    r = np.random.default_rng(11)
+    X = r.normal(size=(500, 12)).astype(np.float32)
+    y = np.argmax(X @ r.normal(size=(12, 4)) + 0.5 * r.normal(size=(500, 4)),
+                  axis=1).astype(np.int32)
+    mdl = train_ovr(X, y, C=1.0, sigma2=4.0, heuristic="multi5pc",
+                    chunk_iters=64, min_buffer=64, format=fmt, device="cuda")
+    acc = "rbf_accumulate" if fmt == "dense" else "ell_rbf_accumulate"
+    eng = mdl.union_engine()
+    cuda.reset_launches()
+    got = eng.decision_function(X)
+    buckets = len(eng.describe()["buckets"])
+    assert cuda.launches[acc] == 4 * buckets
+    np.testing.assert_allclose(got, mdl.decision_matrix_host(X), atol=1e-4)
+    assert (mdl.predict(X) == mdl.classes[np.argmax(got, 1)]).all()
