@@ -48,7 +48,19 @@ entry points a user calls:
   and the batched covtype fit through the group, bitwise equal to
   ``[multi-loop]``'s (``[dist]``, ``[dist-ell]``, ``[dist-serve]``,
   ``[dist-multi]``); with two or more cards, ``[dist]`` also at min(4,
-  cards) ranks, one a card.
+  cards) ranks, one a card;
+* checkpoints, elastic resume and the chaos harness (``SVMConfig(
+  checkpoint_dir=..., resume=...)``, ``launch.chaos``), under a temporary
+  directory: ``[dist]``'s a9a fit killed at half its dispatches and
+  resumed, the same kill with its newest step bit-flipped (resumed from
+  the step before), one dispatch delayed under the straggler watchdog
+  (one forced save), ``[wss2-ell]``'s w7a fit killed at save 2, and the
+  a9a fit on the NCCL group of one rank killed and resumed (``[chaos]``);
+  ``[multi-loop]``'s covtype wss1 / wss2 and news20 batched fits killed
+  mid-sweep and resumed (``[chaos-multi]``). Each resumed fit must be
+  bitwise equal to its uncut twin, and the kernels line's
+  ``chaos_launches`` shows the resumed fits' launches of rows 1, 2, 6
+  and 7.
 
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
@@ -1301,7 +1313,7 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
     min(4, cards), one process a card, against the single fit's outcome.
     Returns each phase's launches of its kernel, by kernel and then by
     fit, those of ``[dist-multi]`` apart, and ``[dist]``'s single-device
-    fit."""
+    fit. The group stays up for ``[chaos]``; the caller destroys it."""
     from repro_torch.core import SVMConfig, SMOSolver, ServeEngine
     from repro_torch.core.parallel import ParallelSMOSolver
     from repro_torch.data import make, to_csr
@@ -1412,7 +1424,6 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
         fail("the group's serving engine did not launch rbf_accumulate")
     out["rbf_accumulate"] = {"dist-serve a9a": n_acc}
     multi_out = dist_multi(torch, np, multi)
-    dist.destroy()
     return out, multi_out, ms
 
 
@@ -1478,7 +1489,7 @@ def dist_multi(torch, np, multi) -> dict:
     from repro_torch.kernels import cuda
     from repro_torch.launch import dist
     phase("dist-multi")
-    X, Y, base = multi
+    X, _, Y, _, base, _ = multi
     cuda.reset_launches()
     dist.calls.clear()
     t0 = time.perf_counter()
@@ -1513,6 +1524,218 @@ def dist_multi(torch, np, multi) -> dict:
         fail(f"the group's batched fit launched gamma_update {n_gu} times "
              f"for {st.iterations} problem-iterations")
     return {"gamma_update": {"dist-multi covtype": n_gu}}
+
+
+# [chaos]: the a9a fit's saves land every CHAOS_EVERY segments; the
+# watchdog flags a dispatch slower than CHAOS_THRESHOLD x the running median
+# and one dispatch is delayed by CHAOS_DELAY s (a9a dispatches take ~0.35 s)
+CHAOS_EVERY = 4
+CHAOS_THRESHOLD = 5.0
+CHAOS_DELAY = 2.0
+
+
+def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
+    """The fault-tolerance path (``SVMConfig(checkpoint_dir=..., resume=
+    ...)``, ``launch.chaos``): fits killed by the chaos harness and resumed
+    from their step dirs (under a temporary directory), each bitwise equal
+    to a fit an earlier phase ran uncut, converged, with the fp64 Eq. 9 gap
+    over all samples <= 2e-3, and launching its kernel.
+
+    ``[chaos]``:
+    * ``[dist]``'s a9a fit (``DIST_SCALE``, dense, multi5pc, wss1, a save
+      every ``CHAOS_EVERY`` segments), killed at half its dispatches and
+      resumed; the same kill with its newest step bit-flipped, resumed
+      from the step before; and one dispatch delayed by ``CHAOS_DELAY`` s
+      under ``watchdog_threshold=CHAOS_THRESHOLD``: one straggle event,
+      one forced step dir, the same bits (twin: ``[dist]``'s
+      ``SMOSolver`` fit);
+    * ``[wss2-ell]``'s w7a fit (scale ``WSS2_SCALE``, CSR in, single5pc,
+      wss2) killed at save 2 and resumed from save 1;
+    * ``[dist]``'s a9a fit on the NCCL group of one rank, killed and
+      resumed.
+
+    ``[chaos-multi]``: ``[multi-loop]``'s batched covtype wss1 and wss2
+    fits and its news20 ELL fit, each killed mid-sweep and resumed, bitwise
+    per problem.
+
+    A kill that does not fire, a resume that starts fresh (or from another
+    step) or any difference fails the phase. Returns the launches of each
+    fit's kernel, by kernel and then by fit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core import MultiProblemDriver, SMOSolver, SVMConfig
+    from repro_torch.core.parallel import ParallelSMOSolver
+    from repro_torch.data import make, to_csr
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import chaos
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chaos_smoke_")
+    t_phases = time.perf_counter()
+
+    def killed(what, fit, **plan):
+        with chaos.inject(chaos.FaultPlan(**plan)) as p:
+            try:
+                fit()
+            except chaos.InjectedKill:
+                return p
+        fail(f"{what}: the kill ({plan}) did not fire")
+
+    def run(fit, hot):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        m = fit()
+        torch.cuda.synchronize()
+        return m, cuda.launches[hot], time.perf_counter() - t0
+
+    def held(label, key, got, twin, X, y, C, inv, hot, step):
+        m, n, wall = got
+        st = m.stats
+        gap = eq9_gap(torch, X, y, m.alpha, C, inv, dev)
+        same = (st.iterations == twin.stats.iterations and np.array_equal(
+            m.alpha.view(np.int32), twin.alpha.view(np.int32)))
+        print(f"[{PHASE}] {label}: resumed_from={st.resumed_from} (want "
+              f"{step}) iterations={st.iterations} (uncut "
+              f"{twin.stats.iterations}) converged={st.converged} "
+              f"eq9_gap_all={gap:.3e} (<= 2eps 2e-03) wall={wall:.1f} s; "
+              f"alpha bitwise equal to the uncut fit: {same}; {hot} "
+              f"launches={n}", flush=True)
+        if st.resumed_from < 0:
+            fail(f"{label}: the resume started fresh")
+        if st.resumed_from != step:
+            fail(f"{label}: resumed from step {st.resumed_from}, not {step}")
+        if not same:
+            fail(f"{label}: the resumed fit differs from the uncut one")
+        if not (st.converged and gap <= 2e-3):
+            fail(f"{label}: converged={st.converged}, gap {gap:.3e}")
+        if n <= 0:
+            fail(f"{label}: the resumed fit did not launch {hot}")
+        launches.setdefault(hot, {})[key] = n
+
+    try:
+        phase("chaos")
+        X, y, _, _ = make("a9a", DIST_SCALE, seed=0)
+        kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc",
+                  selection="wss1", device="cuda")
+        d = f"{tmp}/a9a"
+        cfg = SVMConfig(**kw, checkpoint_dir=d, checkpoint_every=CHAOS_EVERY)
+        kill = a9a_dist.stats.dispatches // 2
+        plan = killed("a9a", lambda: SMOSolver(cfg).fit(X, y),
+                      kill_at_dispatch=kill)
+        steps = ck.complete_steps(d)
+        print(f"[chaos] a9a scale {DIST_SCALE} n={X.shape[0]} killed at "
+              f"dispatch {plan.dispatches - 1} of "
+              f"{a9a_dist.stats.dispatches}: complete steps {steps}",
+              flush=True)
+        if len(steps) < 2:
+            fail(f"the killed a9a fit left {len(steps)} complete steps")
+        shutil.copytree(d, d + "_flip")
+        held(f"a9a killed at dispatch {kill}", "chaos a9a kill",
+             run(lambda: SMOSolver(dataclasses.replace(
+                 cfg, resume=True)).fit(X, y), "gamma_update"),
+             a9a_dist, X, y, 32.0, INV, "gamma_update", steps[-1])
+        chaos.corrupt_step(d + "_flip", mode="flip")
+        if ck.complete_steps(d + "_flip") != steps[:-1]:
+            fail("the bit-flipped step still reads as complete")
+        held("a9a, newest step bit-flipped", "chaos a9a flip",
+             run(lambda: SMOSolver(dataclasses.replace(
+                 cfg, checkpoint_dir=d + "_flip", resume=True)).fit(X, y),
+                 "gamma_update"),
+             a9a_dist, X, y, 32.0, INV, "gamma_update", steps[-2])
+
+        wd = dataclasses.replace(
+            cfg, checkpoint_dir=d + "_wd", checkpoint_every=10**6,
+            watchdog_threshold=CHAOS_THRESHOLD)
+        with chaos.inject(chaos.FaultPlan(delay_dispatch=5,
+                                          delay_seconds=CHAOS_DELAY)):
+            m, n, wall = run(lambda: SMOSolver(wd).fit(X, y), "gamma_update")
+        st, forced = m.stats, ck.complete_steps(d + "_wd")
+        times = sorted(st.dispatch_times)
+        same = np.array_equal(m.alpha.view(np.int32),
+                              a9a_dist.alpha.view(np.int32))
+        print(f"[chaos] a9a, dispatch 5 delayed {CHAOS_DELAY} s under "
+              f"watchdog_threshold={CHAOS_THRESHOLD}: straggle_events="
+              f"{st.straggle_events} forced steps {forced} dispatch median "
+              f"{times[len(times) // 2]:.3f} s, max {times[-1]:.3f} s "
+              f"iterations={st.iterations} wall={wall:.1f} s; alpha bitwise "
+              f"equal to the uncut fit: {same}; gamma_update launches={n}",
+              flush=True)
+        if st.straggle_events != 1 or len(forced) != 1:
+            fail(f"the watchdog flagged {st.straggle_events} dispatches and "
+                 f"forced {len(forced)} saves, not one")
+        if not (same and st.iterations == a9a_dist.stats.iterations):
+            fail("the delayed fit differs from the uncut one")
+        launches["gamma_update"]["chaos a9a watchdog"] = n
+
+        X2, y2, _, _ = make("w7a", WSS2_SCALE, seed=0)
+        every = max(1, w7a_wss2.stats.dispatches // 6)
+        cfg2 = SVMConfig(C=32.0, sigma2=64.0, heuristic="single5pc",
+                         selection="wss2", format="ell", device="cuda",
+                         checkpoint_dir=f"{tmp}/w7a", checkpoint_every=every)
+        Xc2 = to_csr(X2)
+        killed("w7a", lambda: SMOSolver(cfg2).fit(Xc2, y2), kill_at_save=2)
+        steps = ck.complete_steps(cfg2.checkpoint_dir)
+        if len(steps) != 2:
+            fail(f"killed at save 2, the w7a fit left steps {steps}")
+        held(f"w7a scale {WSS2_SCALE} CSR in single5pc wss2, killed at save "
+             f"2 (a save every {every} segments)", "chaos w7a wss2",
+             run(lambda: SMOSolver(dataclasses.replace(
+                 cfg2, resume=True)).fit(Xc2, y2), "ell_kernel_rows2"),
+             w7a_wss2, X2, y2, 32.0, INV, "ell_kernel_rows2", steps[-1])
+
+        cfg3 = dataclasses.replace(cfg, checkpoint_dir=f"{tmp}/nccl")
+        killed("a9a on NCCL", lambda: ParallelSMOSolver(cfg3).fit(X, y),
+               kill_at_dispatch=kill)
+        steps = ck.complete_steps(cfg3.checkpoint_dir)
+        held("a9a on the NCCL group of one rank, killed at dispatch "
+             f"{kill}", "chaos a9a NCCL world 1",
+             run(lambda: ParallelSMOSolver(dataclasses.replace(
+                 cfg3, resume=True)).fit(X, y), "gamma_update"),
+             a9a_dist, X, y, 32.0, INV, "gamma_update",
+             steps[-1] if steps else -2)
+
+        phase("chaos-multi")
+        for label, (Xf, Xd, Y, fkw, twin, hot) in twins.items():
+            cfgm = SVMConfig(**dict(MULTI_FIT, **fkw),
+                             checkpoint_dir=f"{tmp}/multi_{hot}")
+            kill = twin[0].stats.dispatches // 2
+            killed(label, lambda: MultiProblemDriver(cfgm).fit_tasks(Xf, Y),
+                   kill_at_dispatch=kill)
+            ms, n, wall = run(lambda: MultiProblemDriver(dataclasses.replace(
+                cfgm, resume=True)).fit_tasks(Xf, Y), hot)
+            st = ms[0].stats
+            C, inv = fkw["C"], 1.0 / (2.0 * fkw["sigma2"])
+            gaps = [eq9_gap(torch, Xd, Y[k], m.alpha, C, inv, dev)
+                    for k, m in enumerate(ms)]
+            same = [r["iterations"] == t.stats.per_problem[k]["iterations"]
+                    and np.array_equal(m.alpha.view(np.int32),
+                                       t.alpha.view(np.int32))
+                    for k, (r, m, t) in enumerate(zip(st.per_problem, ms,
+                                                      twin))]
+            print(f"[chaos-multi] {label}: K={Y.shape[0]} killed at dispatch "
+                  f"{kill} of {twin[0].stats.dispatches}, resumed_from="
+                  f"{st.resumed_from} (problem-iterations) iterations="
+                  f"{st.iterations} (uncut {twin[0].stats.iterations}) "
+                  f"converged={st.converged} max eq9_gap_all={max(gaps):.3e}"
+                  f" (<= 2eps 2e-03) wall={wall:.1f} s; bitwise equal to the "
+                  f"uncut batched fit per problem: {all(same)}; {hot} "
+                  f"launches={n}", flush=True)
+            if st.resumed_from <= 0:
+                fail(f"{label}: the resume started fresh")
+            if not all(same):
+                fail(f"{label}: the resumed fit differs on problems "
+                     f"{[k for k, v in enumerate(same) if not v]}")
+            if not (st.converged and max(gaps) <= 2e-3):
+                fail(f"{label}: converged={st.converged}, gap {max(gaps):.3e}")
+            if n <= 0:
+                fail(f"{label}: the resumed fit did not launch {hot}")
+            launches.setdefault(hot, {})[f"chaos-multi {label}"] = n
+        print(f"[chaos-multi] [chaos] and [chaos-multi] took "
+              f"{time.perf_counter() - t_phases:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 # the one-vs-rest sets: the news20 and covtype stand-ins (data/synthetic.py
@@ -1695,15 +1918,15 @@ def multi_loop(torch, np, dev) -> tuple:
          loop1, "rbf_rows2", "multi-loop covtype wss1 cache")
     if cached[0][0].stats.cache_hits <= 0:
         fail("the shared cache never hit")
-    held("covtype wss2 cache off", X, Y,
-         fit(X, Y, "batched", selection="wss2", **COVTYPE),
+    wss2 = fit(X, Y, "batched", selection="wss2", **COVTYPE)
+    held("covtype wss2 cache off", X, Y, wss2,
          fit(X, Y, "loop", selection="wss2", **COVTYPE), "rbf_rows2",
          "multi-loop covtype wss2")
     Xn, yn, _, _ = make("news20", NEWS20_LOOP_SCALE, seed=0)
     _, Yn = ovr_tasks(yn)
     Xnc = to_csr(Xn)
-    held(f"news20 scale {NEWS20_LOOP_SCALE} CSR in ell wss1", Xn, Yn,
-         fit(Xnc, Yn, "batched", selection="wss1", format="ell", **NEWS20),
+    news = fit(Xnc, Yn, "batched", selection="wss1", format="ell", **NEWS20)
+    held(f"news20 scale {NEWS20_LOOP_SCALE} CSR in ell wss1", Xn, Yn, news,
          fit(Xnc, Yn, "loop", selection="wss1", format="ell", **NEWS20),
          "ell_gamma_update", "multi-loop news20")
 
@@ -1727,7 +1950,17 @@ def multi_loop(torch, np, dev) -> tuple:
         fail(f"the dense union engine launched rbf_accumulate {n_acc} "
              f"times, not {want}")
     launches["rbf_accumulate"] = {"multi-loop covtype union": n_acc}
-    return launches, (X, Y, ms)
+    # the batched fits [chaos-multi] kills and resumes: (fed X, dense X, Y,
+    # config, models, the kernel its fit launches)
+    twins = {
+        "covtype wss1": (X, X, Y, dict(selection="wss1", **COVTYPE), ms,
+                         "gamma_update"),
+        "covtype wss2": (X, X, Y, dict(selection="wss2", **COVTYPE),
+                         wss2[0], "rbf_rows2"),
+        f"news20 scale {NEWS20_LOOP_SCALE} ell": (
+            Xnc, Xn, Yn, dict(selection="wss1", format="ell", **NEWS20),
+            news[0], "ell_gamma_update")}
+    return launches, twins
 
 
 def predict_device_time(torch, predict, n_acc_want) -> str:
@@ -1849,11 +2082,15 @@ def main() -> None:
     launches.update(ell_launches)
     # the multi-problem phases' launches, by kernel and then by fit
     multi = multi_ovr(torch, np, dev)
-    loop_launches, covtype = multi_loop(torch, np, dev)
+    loop_launches, twins = multi_loop(torch, np, dev)
     # the distributed phases' launches, by kernel and then by fit
     dist_launches, dist_multi_launches, a9a_dist = dist_paths(
-        torch, np, dev, a9a, w7a_wss2, Xt_a9a, covtype)
-    del w7a_wss2, covtype
+        torch, np, dev, a9a, w7a_wss2, Xt_a9a, twins["covtype wss1"])
+    # the chaos phases' launches (resumed fits), by kernel and then by fit
+    chaos_launches = chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins)
+    from repro_torch.launch import dist
+    dist.destroy()
+    del w7a_wss2, twins
     for fits in (loop_launches, dist_multi_launches):
         for name, by_fit in fits.items():
             multi.setdefault(name, {}).update(by_fit)
@@ -1873,6 +2110,8 @@ def main() -> None:
         kernels[name]["dist_launches"] = by_fit
     for name, by_fit in multi.items():
         kernels[name]["multi_launches"] = by_fit
+    for name, by_fit in chaos_launches.items():
+        kernels[name]["chaos_launches"] = by_fit
 
     phase("report")
     record = []
@@ -1886,7 +2125,7 @@ def main() -> None:
                                        "b64_ms", "k16_ms", "k16_warm_ms",
                                        "hit_ms", "hit_bound_ms",
                                        "cache_launches", "dist_launches",
-                                       "multi_launches",
+                                       "multi_launches", "chaos_launches",
                                        "serve_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

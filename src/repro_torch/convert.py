@@ -26,8 +26,8 @@ _DROP = ("use_pallas", "use_flash")
 def config(fields: dict, device: str = "cuda") -> SVMConfig:
     """A port ``SVMConfig`` from the reference config's fields (e.g.
     ``dataclasses.asdict(ref_cfg)``). A heuristic given as a dict (what
-    ``asdict`` makes of a ``ShrinkHeuristic``) is taken by its name.
-    Fields of later slices raise ``NotImplementedError`` when set."""
+    ``asdict`` makes of a ``ShrinkHeuristic``) is taken by its name;
+    ``use_pallas`` has no counterpart and is dropped."""
     kw = {k: v for k, v in fields.items() if k not in _DROP}
     h = kw.get("heuristic")
     if isinstance(h, dict):

@@ -49,21 +49,29 @@ the buffer's gather plan, the host backend by the old and new ``idx_buf``,
 and an un-shrink rewarms every tagged slot over the grown buffer, so its
 tags, recency and counters carry across every rebuild.
 
-Checkpoints, elastic resume, the straggler watchdog and chaos hooks are
-later slices of the port; ``SVMConfig`` refuses them.
+Fault tolerance (``SVMConfig(checkpoint_dir=..., resume=...,
+watchdog_threshold=...)``): the driver saves atomic step dirs of the host
+(n,) masters, the active and buffer-membership masks and the phase state
+at dispatch boundaries (``ckpt.checkpoint``), resumes from the newest
+complete one, forces a save when ``launch.elastic.StragglerWatchdog`` flags
+a dispatch, and calls the chaos hooks (``launch.chaos``) at its two fault
+boundaries; see "fault tolerance" below.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import dataplane, mirror, rowcache, smo
+from repro_torch.core import dataplane, heuristics, mirror, rowcache, smo
 from repro_torch.data import sparse as spfmt
+from repro_torch.launch import chaos
 
 @dataclasses.dataclass
 class FitStats:
@@ -114,6 +122,11 @@ class FitStats:
                                  # shrink_events, reconstructions, n_sv, ...)
     joint_iters: int = 0         # joint iterations of a batched multi fit:
                                  # iterations in which any problem ran
+    straggle_events: int = 0     # dispatches the StragglerWatchdog flagged
+    ckpt_retries: int = 0        # transient-I/O retries spent on checkpoint
+                                 # writes (bounded by cfg.ckpt_retries)
+    resumed_from: int = -1       # checkpoint step this fit restored from;
+                                 # -1 for a fresh start
 
 
 def betas(gamma, alpha, y, C: float) -> tuple:
@@ -146,6 +159,28 @@ class Phase:
         self.recon_count = 0
         self.eq9_rechecks = 0
         self.recheck_step = -1
+
+    @property
+    def cut(self) -> bool:
+        """Whether tol2 was cut to 0.1% below 2*eps."""
+        return self.tol2 == self._tol2_cut
+
+    def snapshot(self) -> dict:
+        """The phase state a checkpoint carries: the reference's
+        ``recon_count`` / ``shrink_on`` and the port's own three."""
+        return {"recon_count": self.recon_count, "shrink_on": self.shrink_on,
+                "tol2_cut": self.cut, "recheck_step": self.recheck_step,
+                "eq9_rechecks": self.eq9_rechecks}
+
+    def load(self, meta: dict) -> None:
+        """Restore :meth:`snapshot`'s fields from a checkpoint's meta; the
+        port's own default when a reference checkpoint lacks them."""
+        self.recon_count = int(meta.get("recon_count", 0))
+        self.shrink_on = bool(meta.get("shrink_on", self.shrink_on))
+        if meta.get("tol2_cut", False):
+            self.tol2 = self._tol2_cut
+        self.recheck_step = int(meta.get("recheck_step", -1))
+        self.eq9_rechecks = int(meta.get("eq9_rechecks", 0))
 
     def tol(self) -> float:
         """The tolerance of the next phase: 20*eps until the first
@@ -480,6 +515,148 @@ class EpochDriver:
         self.stats.compact_time += time.perf_counter() - t0
         self._note_buffer()
 
+    # -- fault tolerance ---------------------------------------------------
+    # Save boundary == dispatch boundary == restore boundary:
+    #
+    #   dispatch #i -> EpochSummary -> [cadence or straggle?]
+    #                                     | yes: master writeback, one
+    #                                     v      atomic step_{N} save
+    #                   checkpoint_dir/step_{N}/ (host (n,) alpha, gamma,
+    #                   active, in_buffer + meta and phase state; no device
+    #                   or layout state: buffers are rebuilt, not saved)
+    #   crash / rescale -> restart with resume=True -> newest COMPLETE step
+    #   (torn or corrupt ones skipped) -> re-deal the saved membership for
+    #   the CURRENT world size, restore each row's active flag, the shrink
+    #   anchor and the phase, rebuild the row cache empty, and re-enter the
+    #   loop at the saved step.
+    #
+    # A save at a dispatch that ends in a compaction is taken after the
+    # compaction, so the saved membership is the geometry the next dispatch
+    # runs on: a resume at the same world size then replays the same
+    # segments bit for bit. The saved membership (not only the active set)
+    # is what reproduces the geometry; at another world size the same rows
+    # are dealt p' ways. On a process group every rank reaches every
+    # boundary with the same host state; the writer (rank 0) writes, and
+    # the others wait for it.
+    def _ckpt_meta(self, n: int) -> dict:
+        """Config fingerprint saved with (and checked against) every step;
+        the world size, buffer geometry, eps and iteration budgets are free
+        to change across a restore."""
+        cfg = self.cfg
+        return {"n": int(n), "format": cfg.format, "C": float(cfg.C),
+                "sigma2": float(cfg.sigma2), "selection": cfg.selection,
+                "heuristic": self.h.name}
+
+    def _validate_meta(self, meta: dict, n: int, d: str):
+        for k, v in self._ckpt_meta(n).items():
+            if k in meta and meta[k] != v:
+                raise ValueError(
+                    f"checkpoint {d} was saved with {k}={meta[k]!r} but "
+                    f"this fit has {k}={v!r}: refusing to resume a "
+                    "different problem or configuration")
+
+    def _save_ckpt(self, act_full: np.ndarray, in_buf: np.ndarray,
+                   meta: dict):
+        """Write one step dir (the writer only); every process learns
+        whether it failed."""
+        from repro_torch.ckpt import checkpoint as ck
+        sv = self.s
+        meta = dict(meta, **self._ckpt_meta(self.alpha.size))
+        d = os.path.join(self.cfg.checkpoint_dir, f"step_{meta['step']}")
+        err = None
+        if sv._is_writer():
+            try:
+                _, retries = ck.with_retries(
+                    lambda: ck.save(
+                        d, meta["step"],
+                        {"svm": {"alpha": self.alpha, "gamma": self.gamma,
+                                 "active": act_full.astype(np.int8),
+                                 "in_buffer": in_buf.astype(np.int8)}},
+                        extra=meta),
+                    attempts=max(1, self.cfg.ckpt_retries),
+                    what=f"checkpoint save {d}")
+                self.stats.ckpt_retries += retries
+            except IOError as e:
+                err = e
+        if sv._agree_max(int(err is not None)):
+            raise err or IOError(f"checkpoint save {d} failed on the writer")
+
+    def _pick_step(self, n: int, like: dict):
+        """The writer's walk: the newest COMPLETE step that validates and
+        restores, as (step, groups, meta), or None. A config mismatch
+        raises: that is a caller error, not a disk fault."""
+        from repro_torch.ckpt import checkpoint as ck
+        base = self.cfg.checkpoint_dir
+        for step in reversed(ck.complete_steps(base)):
+            d = os.path.join(base, f"step_{step}")
+            try:
+                meta = ck.load_manifest(d).get("extra", {})
+            except (OSError, ValueError):
+                continue
+            self._validate_meta(meta, n, d)
+            try:
+                g = ck.restore(d, "svm", like)
+            except (IOError, KeyError) as e:
+                warnings.warn(f"skipping corrupt checkpoint {d}: {e}")
+                continue
+            return step, g, meta
+        return None
+
+    def _load_ckpt(self, n: int):
+        """Restore the newest COMPLETE step: the writer picks it, walking
+        past torn or corrupt step dirs, and every process restores that
+        step. Returns (groups, meta), or None when there is none."""
+        from repro_torch.ckpt import checkpoint as ck
+        sv = self.s
+        like = {"alpha": np.zeros(n, np.float32),
+                "gamma": np.zeros(n, np.float32),
+                "active": np.zeros(n, np.int8),
+                "in_buffer": np.zeros(n, np.int8)}
+        got, err, step = None, None, -1
+        if sv._is_writer():
+            try:
+                got = self._pick_step(n, like)
+                step = -1 if got is None else got[0]
+            except ValueError as e:
+                err, step = e, -2
+        step = sv._from_writer(step)
+        if step == -2:
+            raise err or ValueError(
+                "the checkpoint's configuration differs from this fit's "
+                "(see the writer's error)")
+        if step < 0:
+            return None
+        if got is None:
+            d = os.path.join(self.cfg.checkpoint_dir, f"step_{step}")
+            meta = ck.load_manifest(d).get("extra", {})
+            self._validate_meta(meta, n, d)
+            got = (step, ck.restore(d, "svm", like), meta)
+        sv._agree_max(0)    # a barrier: every process has read it before
+                            # any save can replace it
+        self.stats.resumed_from = int(step)
+        return {k: np.array(v) for k, v in got[1].items()}, got[2]
+
+    def _checkpoint_now(self, n: int, step: int, nshr: int, ph: Phase):
+        """Sync the masters to the host and write one step dir at the
+        CURRENT dispatch boundary (the cadence and the watchdog's forced
+        save share it). Besides masters and active mask the step records
+        buffer MEMBERSHIP (``in_buffer``: the rows the buffer holds, active
+        or shrunk but not yet compacted away), the shrink anchor
+        ``next_shrink`` and the phase state (:meth:`Phase.snapshot`)."""
+        chaos.on_save(self._saves)
+        self._saves += 1
+        self._writeback()
+        idx = self._host_idx()
+        active = self.s._gather(self.state.active).cpu().numpy()
+        valid = idx >= 0
+        act_full = np.zeros((n,), bool)
+        act_full[idx[valid & active]] = True
+        in_buf = np.zeros((n,), bool)
+        in_buf[idx[valid]] = True
+        self._save_ckpt(act_full, in_buf, dict(
+            step=int(step), shrink_events=int(nshr),
+            next_shrink=int(self.state.next_shrink), **ph.snapshot()))
+
     # -- main --------------------------------------------------------------
     def fit(self, X, y: np.ndarray):
         """Run Alg. 5 on ``(X, y)``; returns ``(alpha, gamma, y, stats)``
@@ -515,12 +692,29 @@ class EpochDriver:
 
         interval = self._interval = h.interval(n)
         ph = Phase(cfg, h.policy)
-        shrink_on = ph.shrink_on
         t_train = 0.0
         t_recon = 0.0
         stalled = False
-        runner = sv._runner(cfg, interval if shrink_on else 0)
         p = sv._nshards()
+        self._saves = 0
+        step0, nshr0, ns0, act0, inb0 = 0, 0, None, None, None
+        if cfg.resume and cfg.checkpoint_dir:
+            got = self._load_ckpt(n)
+            if got is not None:
+                g, meta = got
+                self.alpha, self.gamma = g["alpha"], g["gamma"]
+                act0 = g["active"].astype(bool)
+                inb0 = g["in_buffer"].astype(bool)
+                step0 = int(meta["step"])
+                nshr0 = int(meta.get("shrink_events", 0))
+                ns0 = meta.get("next_shrink")
+                ph.load(meta)
+        shrink_on = ph.shrink_on
+        # the runner and the mirror are built after a possible restore: a
+        # Single-policy step taken after its reconstruction carries
+        # shrink_on=False, and a runner built with the interval would switch
+        # shrinking back on
+        runner = sv._runner(cfg, interval if shrink_on else 0)
 
         mode, mir_m_per, mir_K, _ = mirror.resolve(cfg, sv._store, p,
                                                    shrink_on, sv.device)
@@ -532,32 +726,75 @@ class EpochDriver:
             self._refresh_masters()     # the mirror build gathers alpha/gamma
             self.y_d = sv._put_full(y)  # from the masters; Eq. 9 reads y_d
 
-        self.data, self.yb, self.state, self.idx = self._build_buffer(
-            np.arange(n))
+        resumed = act0 is not None and shrink_on
+        # a resume rebuilds the saved membership, not only the active set:
+        # at the same world size that is the saved geometry
+        rows = np.flatnonzero(inb0) if resumed else np.arange(n)
+        if self.mirror is not None and rows.size < n:
+            # a compacted membership is filled from the host store (bitwise
+            # the device compaction's buffer); the masters are the restored
+            # arrays already
+            self.data, self.yb, self.state, self.idx = self._make_buffer(
+                y, self.alpha, self.gamma, rows)
+        else:
+            self.data, self.yb, self.state, self.idx = self._build_buffer(
+                rows)
+        if resumed:
+            # a fresh build marks every row active: restore the saved flags
+            ib = self.idx
+            actb = np.where(ib >= 0, act0[np.maximum(ib, 0)], False)
+            self.state = self.state.replace(active=sv._put(actb))
         self._note_buffer()
+        i64 = lambda v: torch.tensor(int(v), dtype=torch.int64,
+                                     device=self.state.step.device)
+        self.state = self.state.replace(step=i64(step0), n_shrinks=i64(nshr0))
         if shrink_on:
-            self.state = self.state.replace(
-                next_shrink=self.state.step + interval)
-        # the kernel-row cache (None when off); miss_seen follows its
-        # cumulative miss counter, so each dispatch bills the rows it
+            # the shrink schedule is anchored at the last shrink or
+            # compaction, not at the save: a resume takes the saved anchor
+            self.state = self.state.replace(next_shrink=i64(
+                step0 + interval if ns0 is None else ns0))
+        # the kernel-row cache (None when off) is never saved: its rows are
+        # exact, so an empty one is trajectory-neutral. miss_seen follows
+        # its cumulative miss counter, so each dispatch bills the rows it
         # actually recomputed
         self.cache = sv._new_cache(self.data.m)
         miss_seen = 0
         fuse = max(1, int(cfg.fuse_iters))
         mper_lo = max(cfg.min_buffer // p, 8)   # full_m_per's clamp floor
-        step_host = 0
+        step_host = step0
+        ckpt_count = 0
+        # the straggler watchdog (off unless watchdog_threshold > 0) reads
+        # each dispatch's wall time; a flagged dispatch forces a save at its
+        # boundary and halves the segment budget. On a process group the
+        # flag is agreed (max over ranks) before anything uses it
+        watchdog = None
+        if cfg.watchdog_threshold > 0:
+            from repro_torch.launch.elastic import StragglerWatchdog
+            watchdog = StragglerWatchdog(
+                threshold=cfg.watchdog_threshold,
+                window=cfg.watchdog_window, warmup=cfg.watchdog_warmup)
 
         while True:
             tol = ph.tol()
             # ---- inner optimization at the current tolerance ------------
             while True:
+                if watchdog is not None:
+                    watchdog.start_step()
                 tc = time.perf_counter()
+                # inside the timed region: an injected delay inflates this
+                # dispatch's wall time as a real straggler would; a kill
+                # fires before the runner launches
+                chaos.on_dispatch(stats.dispatches)
                 step_before = step_host
+                # the segment budget stops where the k == 1 oracle saves
+                k_eff = (heuristics.fuse_budget(fuse, ckpt_count,
+                                                cfg.checkpoint_every)
+                         if cfg.checkpoint_dir else fuse)
                 # integer-exact host twin of the compaction trigger
                 compact_lt = (math.ceil(cfg.compact_ratio * (self.data.m * p))
                               if ph.shrink_on else 0)
                 self.state, self.cache, summ_d = runner(
-                    self.data, self.yb, self.state, self.cache, tol, fuse,
+                    self.data, self.yb, self.state, self.cache, tol, k_eff,
                     cfg.chunk_iters, cfg.max_iters, compact_lt, mper_lo)
                 summ = smo.EpochSummary.from_tensor(summ_d.cpu())  # one sync
                 dt = time.perf_counter() - tc
@@ -582,13 +819,30 @@ class EpochDriver:
                 stats.flops_epilogue += epi
                 stats.flops_est += prod + epi
                 stats.min_active = min(stats.min_active, summ.min_active)
+                straggled = False
+                if watchdog is not None:
+                    straggled = bool(sv._agree_max(int(watchdog.end_step())))
+                if straggled:
+                    stats.straggle_events += 1
+                    fuse = max(1, fuse // 2)
+                save = False
+                if cfg.checkpoint_dir:
+                    ckpt_count += summ.segs
+                    save = straggled or (cfg.checkpoint_every > 0 and
+                                         ckpt_count % cfg.checkpoint_every
+                                         == 0)
                 if summ.converged or summ.stalled \
                         or step_host >= cfg.max_iters:
+                    if save:
+                        self._checkpoint_now(n, step_host, summ.n_shrinks,
+                                             ph)
                     break
                 if summ.need_compact:
                     m_per = mirror.full_m_per(summ.n_active, p,
                                               cfg.min_buffer)
                     self._compact(summ.n_active, p, m_per, summ.shard_ext)
+                if save:
+                    self._checkpoint_now(n, step_host, summ.n_shrinks, ph)
             stalled = stalled or summ.stalled
             stats.shrink_events = summ.n_shrinks
             if self.mirror is not None:

@@ -33,12 +33,23 @@ at the next dispatch.
 Fused epochs follow ``core/smo.py``: a segment enqueues ``chunk_iters``
 joint iterations gated by a per-problem device flag ``run``, no host sync
 inside a dispatch, and the host reads ONE fixed-size summary per dispatch.
+
+Checkpoints (``SVMConfig(checkpoint_dir=..., resume=...)``): the batched
+backend saves its (K, n) masters, control flags and each lane's phase
+state as one self-validating ``multi_masters.npz`` with one older
+generation beside it (the reference's format, plus the port's own state
+as extra arrays); the loop backend gives each problem its own step-dir
+tree ``p{k}``. A resumed batched fit equals the uncut one bit for bit per
+problem.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import os
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +62,7 @@ from repro_torch.core import heuristics as H
 from repro_torch.core.solver import SVMConfig, SVMModel, SMOSolver
 from repro_torch.data import sparse as spfmt
 from repro_torch.kernels import ops
+from repro_torch.launch import chaos
 
 __all__ = ["MultiSMOState", "MultiEpochSummary", "init_multi_state",
            "make_multi_runner", "MultiProblemDriver", "OvRSVMModel",
@@ -554,10 +566,13 @@ class MultiProblemDriver:
         out: list = [None] * Cs.size
         for s2 in np.unique(sigma2s):
             sel = np.flatnonzero(sigma2s == s2)
-            drv = MultiProblemDriver(
-                dataclasses.replace(self.cfg, sigma2=float(s2)),
-                backend=self.backend, parallel=self.parallel,
-                group=self.group)
+            cfg = dataclasses.replace(self.cfg, sigma2=float(s2))
+            if cfg.checkpoint_dir:      # one checkpoint a batch
+                cfg = dataclasses.replace(cfg, checkpoint_dir=os.path.join(
+                    cfg.checkpoint_dir, f"sigma2_{float(s2)!r}"))
+            drv = MultiProblemDriver(cfg, backend=self.backend,
+                                     parallel=self.parallel,
+                                     group=self.group)
             ms = drv.fit_tasks(X, np.broadcast_to(y, (sel.size, y.size)),
                                C=Cs[sel])
             for j, k in enumerate(sel):
@@ -566,8 +581,14 @@ class MultiProblemDriver:
 
     # -- loop oracle -------------------------------------------------------
     def _fit_loop(self, X, Y, Cs) -> list:
-        models = [SMOSolver(dataclasses.replace(self.cfg, C=float(Cs[k])))
-                  .fit(X, Y[k]) for k in range(Y.shape[0])]
+        models = []
+        for k in range(Y.shape[0]):
+            ck = dataclasses.replace(self.cfg, C=float(Cs[k]))
+            if ck.checkpoint_dir:       # one step-dir tree a problem
+                ck = dataclasses.replace(
+                    ck, checkpoint_dir=os.path.join(ck.checkpoint_dir,
+                                                    f"p{k}"))
+            models.append(SMOSolver(ck).fit(X, Y[k]))
         _aggregate_loop_stats(models)
         return models
 
@@ -642,7 +663,15 @@ class MultiProblemDriver:
 
         next_shrink = np.full((Kp,), interval if shrink_on else _INT32_MAX,
                               np.int64)
-        self._build(np.arange(n), steps, next_shrink, nshr, live)
+        rows = np.arange(n)
+        self._saves = 0
+        if cfg.resume and cfg.checkpoint_dir:
+            got = self._load_ckpt(n, Kp)
+            if got is not None:
+                rows, next_shrink, steps, nshr, live = self._resume(
+                    got, phases, interval)
+                stats.resumed_from = int(steps.sum())
+        self._build(rows, steps, next_shrink, nshr, live)
         self.cache = (rowcache.init_cache(cache_slots, self.data.m,
                                           self.device)
                       if cache_slots else None)
@@ -666,6 +695,7 @@ class MultiProblemDriver:
                           if shrink_on and not self.parallel else 0)
             lanes = np.flatnonzero(live)
             tc = time.perf_counter()
+            chaos.on_dispatch(stats.dispatches)
             steps_before = steps.copy()
             self.state, self.cache, summ_d = runner(
                 self.data, self.ystk, self.state, self.cache, *self._thr,
@@ -750,6 +780,14 @@ class MultiProblemDriver:
                 # no geometry change: retire the lanes on the device
                 self.state = self.state.replace(
                     live=torch.tensor(live, device=self.device))
+            if cfg.checkpoint_dir and stats.dispatches % max(
+                    1, cfg.checkpoint_every) == 0:
+                if not (unshrink or summ.need_compact):
+                    # a rebuild reads the masters, so they are current
+                    # after one; without one the live lanes are synced
+                    # here (masters are only read right after a sync)
+                    self._writeback(live)
+                self._save_ckpt(steps, live, nshr, phases)
 
         stats.iterations = int(steps.sum())
         stats.reconstructions = sum(ph.recon_count for ph in phases)
@@ -827,6 +865,216 @@ class MultiProblemDriver:
         self._build(rows, steps, next_shrink, nshr, live)
         self.cache = rowcache.remap_cache(self.cache, idx_old, self.idx)
         self._note_buffer()
+
+    # -- checkpoints -------------------------------------------------------
+    # The (K, n) masters travel as ONE self-validating .npz (the
+    # reference's format): the payload's content checksum and the config
+    # fingerprint ride inside the file. A save is atomic (tmp +
+    # os.replace) and first rotates the previous file to
+    # multi_masters.prev.npz, so a resume always has one known-good
+    # generation to fall back to. The reference checks only _CKPT_KEYS;
+    # the port adds its own state as extra arrays (the buffer membership,
+    # each lane's shrink anchor and phase state, C, sigma2 and the
+    # heuristic), covered by a second checksum, so the file stays readable
+    # by both.
+    # On a process group rank 0 writes and every rank agrees on the
+    # outcome; on resume rank 0 picks the generation.
+    _CKPT_KEYS = ("alpha", "gamma", "active", "live", "converged",
+                  "stalled", "recon_count", "shrink_act", "step",
+                  "n_shrinks")
+    _EXTRA_KEYS = ("in_buffer", "next_shrink", "tol2_cut", "recheck_step",
+                   "eq9_rechecks", "final_gap", "C", "sigma2", "heuristic")
+
+    def _ckpt_path(self) -> str:
+        return os.path.join(self.cfg.checkpoint_dir, "multi_masters.npz")
+
+    def _ckpt_prev_path(self) -> str:
+        return os.path.join(self.cfg.checkpoint_dir,
+                            "multi_masters.prev.npz")
+
+    @staticmethod
+    def _ckpt_checksum(payload: dict, keys: tuple) -> str:
+        from repro_torch.ckpt import checkpoint as ck
+        joined = "\n".join(f"{k}:{ck.array_sha(np.asarray(payload[k]))}"
+                           for k in keys)
+        return hashlib.sha256(joined.encode()).hexdigest()
+
+    def _agree_max(self, v: int) -> int:
+        """The largest ``v`` over the group's ranks (``v`` alone)."""
+        if not self.parallel:
+            return v
+        from repro_torch.launch import dist
+        return dist.max_int(v, self.group, self.device)
+
+    def _from_writer(self, v: int) -> int:
+        """Rank 0's ``v`` on every rank."""
+        if not self.parallel:
+            return v
+        from repro_torch.launch import dist
+        return dist.rank0_int(v, self.group, self.device)
+
+    def _save_ckpt(self, steps, live, nshr, phases):
+        from repro_torch.ckpt import checkpoint as ck
+        chaos.on_save(self._saves)
+        self._saves += 1
+        lane = lambda f, dt: np.array([f(ph) for ph in phases], dt)
+        in_buf = np.zeros((self.Y.shape[1],), np.int8)
+        in_buf[self.idx[self.idx >= 0]] = 1
+        payload = dict(
+            alpha=self.alpha_m, gamma=self.gamma_m,
+            active=self.act_m.astype(np.int8), live=live.astype(np.int8),
+            converged=self._conv.astype(np.int8),
+            stalled=self._stall.astype(np.int8),
+            recon_count=lane(lambda ph: ph.recon_count, np.int64),
+            shrink_act=lane(lambda ph: ph.shrink_on, np.int8),
+            step=np.asarray(steps, np.int64),
+            n_shrinks=np.asarray(nshr, np.int64))
+        extra = dict(
+            in_buffer=in_buf,
+            next_shrink=self.state.next_shrink.cpu().numpy().astype(
+                np.int64),
+            tol2_cut=lane(lambda ph: ph.cut, np.int8),
+            recheck_step=lane(lambda ph: ph.recheck_step, np.int64),
+            eq9_rechecks=lane(lambda ph: ph.eq9_rechecks, np.int64),
+            final_gap=self._gap.astype(np.float64),
+            C=np.asarray(self.Cs, np.float64),
+            sigma2=np.float64(self.cfg.sigma2),
+            heuristic=np.str_(self.h.name))
+        meta = dict(
+            checksum=np.str_(self._ckpt_checksum(payload, self._CKPT_KEYS)),
+            extra_checksum=np.str_(self._ckpt_checksum(extra,
+                                                       self._EXTRA_KEYS)),
+            format=np.str_(self.cfg.format))
+        path, prev = self._ckpt_path(), self._ckpt_prev_path()
+
+        def _write():
+            os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+            tmp = path + ".tmp.npz"
+            np.savez(tmp, **payload, **extra, **meta)
+            if os.path.exists(path):
+                os.replace(path, prev)
+            os.replace(tmp, path)
+
+        err = None
+        if self.rank == 0:
+            try:
+                _, retries = ck.with_retries(
+                    _write, attempts=max(1, self.cfg.ckpt_retries),
+                    what=f"checkpoint save {path}")
+                self.stats.ckpt_retries += retries
+            except IOError as e:
+                err = e
+        if self._agree_max(int(err is not None)):
+            raise err or IOError(f"checkpoint save {path} failed on rank 0")
+
+    def _read_ckpt(self, path: str, n: int, Kp: int) -> dict:
+        """Load and validate ONE generation. IOError: corrupt (the caller
+        falls back); ValueError: a config mismatch (a caller error, never
+        remapped)."""
+        try:
+            with np.load(path) as z:
+                data = {k: np.array(z[k]) for k in z.files}
+        except Exception as e:          # torn zip / short read / bad CRC
+            raise IOError(f"unreadable checkpoint {path}: {e}") from e
+        missing = [k for k in self._CKPT_KEYS if k not in data]
+        if missing:
+            raise IOError(f"checkpoint {path} is missing {missing}")
+        if "checksum" in data and str(data["checksum"]) \
+                != self._ckpt_checksum(data, self._CKPT_KEYS):
+            raise IOError(f"checkpoint {path} content checksum mismatch")
+        if "extra_checksum" in data and (
+                any(k not in data for k in self._EXTRA_KEYS)
+                or str(data["extra_checksum"])
+                != self._ckpt_checksum(data, self._EXTRA_KEYS)):
+            raise IOError(f"checkpoint {path} extra checksum mismatch")
+        if data["alpha"].shape != (Kp, n):
+            raise ValueError(
+                f"checkpoint shape {data['alpha'].shape} does not match "
+                f"the requested (K, n) = {(Kp, n)}")
+        for key, want in (("format", self.cfg.format),
+                          ("heuristic", self.h.name)):
+            if key in data and str(data[key]) != want:
+                raise ValueError(
+                    f"checkpoint {path} was saved with {key}="
+                    f"{str(data[key])!r} but this fit has {key}={want!r}")
+        for key, want in (("C", np.asarray(self.Cs, np.float64)),
+                          ("sigma2", np.float64(self.cfg.sigma2))):
+            if key in data and not np.array_equal(data[key], want):
+                raise ValueError(
+                    f"checkpoint {path} was saved with {key}="
+                    f"{data[key].tolist()} but this fit has {key}="
+                    f"{want.tolist()}")
+        return data
+
+    def _load_ckpt(self, n: int, Kp: int):
+        """Newest-first resume with a one-generation fallback: a torn or
+        corrupt multi_masters.npz falls back to the rotated .prev one;
+        when no generation is readable the fit starts fresh (with a
+        warning). Rank 0 picks the generation on a process group."""
+        paths = (self._ckpt_path(), self._ckpt_prev_path())
+        pick, err, got = -1, None, None
+        if self.rank == 0:
+            tried = False
+            for i, path in enumerate(paths):
+                if not os.path.exists(path):
+                    continue
+                tried = True
+                try:
+                    got, pick = self._read_ckpt(path, n, Kp), i
+                    break
+                except IOError as e:
+                    warnings.warn(f"skipping corrupt checkpoint: {e}")
+                except ValueError as e:
+                    err, pick = e, -2
+                    break
+            if tried and pick == -1:
+                warnings.warn("no readable multi-problem checkpoint "
+                              "generation; starting fresh")
+        pick = self._from_writer(pick)
+        if pick == -2:
+            raise err or ValueError("the checkpoint's configuration "
+                                    "differs from this fit's (see rank 0)")
+        if pick < 0:
+            return None
+        if got is None:
+            got = self._read_ckpt(paths[pick], n, Kp)
+        self._agree_max(0)       # every rank has read it before any save
+        return got
+
+    def _resume(self, data: dict, phases: list, interval: int) -> tuple:
+        """Restore the masters, the per-problem verdicts and each lane's
+        phase from a checkpoint; returns (buffer rows, next_shrink, steps,
+        n_shrinks, live). A reference file lacks the port's extra arrays:
+        its buffer is the union of the live lanes' active rows and each
+        shrinking lane's countdown restarts one interval on."""
+        self.alpha_m = data["alpha"].astype(np.float32)
+        self.gamma_m = data["gamma"].astype(np.float32)
+        self.act_m = data["active"].astype(bool)
+        live = data["live"].astype(bool)
+        self._conv = data["converged"].astype(bool)
+        self._stall = data["stalled"].astype(bool)
+        steps = data["step"].astype(np.int64)
+        nshr = data["n_shrinks"].astype(np.int64)
+        ext = "in_buffer" in data
+        if ext:
+            self._gap = data["final_gap"].astype(np.float64)
+        for k, ph in enumerate(phases):
+            ph.load({"recon_count": int(data["recon_count"][k]),
+                     "shrink_on": bool(data["shrink_act"][k]),
+                     **({"tol2_cut": bool(data["tol2_cut"][k]),
+                         "recheck_step": int(data["recheck_step"][k]),
+                         "eq9_rechecks": int(data["eq9_rechecks"][k])}
+                        if ext else {})})
+        n = self.alpha_m.shape[1]
+        shrink = np.array([ph.shrink_on for ph in phases])
+        if ext:
+            rows = np.flatnonzero(data["in_buffer"])
+            next_shrink = data["next_shrink"].astype(np.int64)
+        else:
+            rows = (np.flatnonzero(self.act_m[live].any(axis=0))
+                    if shrink.any() and live.any() else np.arange(n))
+            next_shrink = np.where(shrink, steps + interval, _INT32_MAX)
+        return rows, next_shrink, steps, nshr, live
 
     def _writeback(self, lanes: np.ndarray):
         """Buffer -> (K, n) masters for the problems ``lanes`` (a mask)."""

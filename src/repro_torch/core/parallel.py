@@ -39,6 +39,17 @@ rank a step for p steps while each rank adds ``kernel_fns.recon_block``
 partials for its own stale rows, over the single solver's block plan. At
 one rank that is the single solver's computation, bit for bit; the host
 (``mirror='host'``) and device-mirror backends feed it the same bits.
+
+Checkpoints (``SVMConfig(checkpoint_dir=...)``, ``core/driver.py``): every
+rank reaches every save and dispatch boundary with the same host state and
+the same chaos counters; rank 0 writes the step (the (n,) masters are whole
+on every rank) and every rank learns whether the write failed; on resume
+rank 0 picks the newest complete step and every rank restores it; the
+straggler watchdog's flag is all-reduced (max) before it is used.
+``ParallelSMOSolver(devices=m)`` trains on the first m ranks of the group
+(a subgroup made collectively) and hands rank 0's model to the others: an
+elastic rescale is a restart at another world size, re-dealt from the
+step's masters.
 """
 from __future__ import annotations
 
@@ -475,26 +486,51 @@ class ParallelSMOSolver(solver.SMOSolver):
 
     def __init__(self, config: solver.SVMConfig, group=None,
                  devices: "int | None" = None):
-        if devices is not None:
-            raise NotImplementedError(
-                f"ParallelSMOSolver(devices={devices!r}): training on a "
-                "subset of the devices (an elastic rescale target) arrives "
-                "with ROADMAP item 12 (checkpoints, elastic resume and "
-                "chaos)")
+        """``devices``: train on the first ``devices`` ranks of ``group``
+        (an elastic rescale target: a resumed checkpoint is re-dealt for
+        this many shards, whatever world size saved it). Every rank of
+        ``group`` builds the solver (the subgroup is made collectively) and
+        calls ``fit``; ranks past ``devices`` take no part in training and
+        receive rank 0's model."""
         if not dist.initialized():
             raise RuntimeError(
                 "ParallelSMOSolver needs a process group: call "
                 "repro_torch.launch.dist.init() in every rank first")
         super().__init__(config)
+        self.parent = group
+        self.member = True
+        if devices is not None:
+            world = dist.world(group)
+            if not 1 <= int(devices) <= world:
+                raise ValueError(
+                    f"ParallelSMOSolver(devices={devices!r}) on a group of "
+                    f"{world} ranks: want 1 <= devices <= {world}")
+            ranks = [torch.distributed.get_global_rank(group, r)
+                     if group is not None else r for r in range(devices)]
+            self.member = dist.rank(group) < int(devices)
+            sub = torch.distributed.new_group(ranks=ranks,
+                                              timeout=dist.TIMEOUT)
+            group = sub if devices < world else group
         self.group = group
-        self.p, self.rank = dist.world(group), dist.rank(group)
-        backend = torch.distributed.get_backend(group)
+        self.p, self.rank = ((dist.world(group), dist.rank(group))
+                             if self.member else (int(devices), -1))
+        backend = torch.distributed.get_backend(self.parent)
         want = "nccl" if self.device.type == "cuda" else "gloo"
         if backend != want:
             raise ValueError(f"device {config.device!r} needs a {want} "
                              f"process group, not {backend}")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+
+    # -- checkpoint hooks: rank 0 writes, every verdict is agreed ----------
+    def _is_writer(self) -> bool:
+        return self.rank == 0
+
+    def _agree_max(self, v: int) -> int:
+        return dist.max_int(v, self.group, self.device)
+
+    def _from_writer(self, v: int) -> int:
+        return dist.rank0_int(v, self.group, self.device)
 
     # -- placement of the buffer's shards ----------------------------------
     def _nshards(self) -> int:
@@ -669,11 +705,22 @@ class ParallelSMOSolver(solver.SMOSolver):
 
     def fit(self, X, y: np.ndarray) -> solver.SVMModel:
         """Train on ``(X, y)`` on every rank of the group (each passes the
-        same arrays); returns the same model on every rank."""
-        self._agree("the training input (n, d, crc32 of y and X)",
-                    torch.tensor(self._fingerprint(X, y), dtype=torch.int64,
-                                 device=self.device))
-        model = super().fit(X, y)
-        self._agree("the trained alpha", torch.as_tensor(
-            model.alpha.view(np.int32), device=self.device))
+        same arrays); returns the same model on every rank. With
+        ``devices`` below the group's size the first ``devices`` ranks
+        train and the others receive rank 0's model."""
+        model = None
+        if self.member:
+            self._agree("the training input (n, d, crc32 of y and X)",
+                        torch.tensor(self._fingerprint(X, y),
+                                     dtype=torch.int64, device=self.device))
+            model = super().fit(X, y)
+            self._agree("the trained alpha", torch.as_tensor(
+                model.alpha.view(np.int32), device=self.device))
+        if self.group is not self.parent:
+            box = [model if dist.rank(self.parent) == 0 else None]
+            torch.distributed.broadcast_object_list(
+                box, src=(torch.distributed.get_global_rank(self.parent, 0)
+                          if self.parent is not None else 0),
+                group=self.parent)
+            model = model if self.member else box[0]
         return model

@@ -5,7 +5,8 @@
   trained model (``predict`` / ``decision_function`` /
   ``decision_function_host`` / ``dual_objective`` / ``compact``);
 * :class:`SMOSolver` — the hooks ``core.driver.EpochDriver`` calls (runner
-  construction, device placement, Alg. 6 in both backends) and the model
+  construction, device placement, Alg. 6 in both backends, and the
+  checkpoint hooks: who writes, barriers, agreed flags) and the model
   finalize (beta, support vectors in the store's native format — dense
   rows, or ELL rows at the SVs' own lane budget; the Eq. 9 verdict over
   all samples is the driver's, taken on recomputed fp64 gamma).
@@ -28,20 +29,6 @@ from repro_torch.core import mirror as mirror_mod
 from repro_torch.core.driver import FitStats
 
 __all__ = ["SVMConfig", "SVMModel", "SMOSolver", "FitStats", "train"]
-
-# Fields of the reference config whose features later slices of the port
-# bring; a value other than the default raises instead of being ignored.
-_CKPT = "the checkpoint/elastic slice (ROADMAP item 12)"
-_LATER = {
-    "checkpoint_dir": (None, _CKPT),
-    "checkpoint_every": (1, _CKPT),
-    "resume": (False, _CKPT),
-    "ckpt_retries": (3, _CKPT),
-    "watchdog_threshold": (0.0, _CKPT),
-    "watchdog_window": (32, _CKPT),
-    "watchdog_warmup": (3, _CKPT),
-}
-
 
 @dataclasses.dataclass
 class SVMConfig:
@@ -79,21 +66,16 @@ class SVMConfig:
                                  # of two)
     row_cache_policy: str = "lru"   # eviction: 'lru' | 'slru' (segmented,
                                  # scan-resistant)
-    # -- refused until their slice lands (see _LATER) --------------------
-    checkpoint_dir: "str | None" = None
-    checkpoint_every: int = 1
-    resume: bool = False
-    ckpt_retries: int = 3
-    watchdog_threshold: float = 0.0
-    watchdog_window: int = 32
-    watchdog_warmup: int = 3
-
-    def __post_init__(self):
-        for name, (default, where) in _LATER.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"SVMConfig({name}={getattr(self, name)!r}) is not in "
-                    f"this port yet; it arrives with {where}")
+    # -- fault tolerance (core/driver.py, ckpt/, launch/elastic.py) -------
+    checkpoint_dir: "str | None" = None   # step dirs go here (None: off)
+    checkpoint_every: int = 1    # save every N fused segments
+    resume: bool = False         # restore the newest complete step first
+    ckpt_retries: int = 3        # attempts per checkpoint write
+    watchdog_threshold: float = 0.0  # >0: flag a dispatch slower than this
+                                 # many times the running median, then save
+                                 # at once and halve the segment budget
+    watchdog_window: int = 32    # dispatches in the running median
+    watchdog_warmup: int = 3     # dispatches before the watchdog arms
 
     @property
     def inv_2s2(self) -> float:
@@ -313,6 +295,19 @@ class SMOSolver:
         return mirror_mod.reconstruct_device(
             provider, mir, alpha_d, gamma_d, self._put(sv_pos),
             self._put(stale_pos), sv_blk, row_blk, nsb, nrb, K_sv)
+
+    # -- checkpoint hooks (one process: the identity) --------------------
+    def _is_writer(self) -> bool:
+        """Whether this process writes the checkpoint files."""
+        return True
+
+    def _agree_max(self, v: int) -> int:
+        """The largest ``v`` over the processes (also a barrier)."""
+        return v
+
+    def _from_writer(self, v: int) -> int:
+        """The writer's ``v`` on every process."""
+        return v
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Placement of a global buffer array (host layout of p shards):

@@ -129,6 +129,18 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     return out.to(torch.bool) if t.dtype == torch.bool else out
 
 
+def max_int(v: int, group=None, device=None) -> int:
+    """The largest of every rank's int ``v`` (an agreed flag or count)."""
+    t = torch.tensor([int(v)], dtype=torch.int64, device=device)
+    return int(all_reduce(t, "max", group)[0])
+
+
+def rank0_int(v: int, group=None, device=None) -> int:
+    """Rank 0's int ``v`` on every rank."""
+    t = torch.tensor([int(v)], dtype=torch.int64, device=device)
+    return int(all_gather(t, group)[0, 0])
+
+
 def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     """Send ``t`` to the next rank and receive the previous rank's (one
     step of the Alg. 6 ring). Every rank's ``t`` must have one shape."""

@@ -937,3 +937,34 @@ def test_cuda_union_engine_matches_host_oracle(cuda_device, fmt):
     assert cuda.launches[acc] == 4 * buckets
     np.testing.assert_allclose(got, mdl.decision_matrix_host(X), atol=1e-4)
     assert (mdl.predict(X) == mdl.classes[np.argmax(got, 1)]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_killed_fit_resumes_bitwise(cuda_device, tmp_path):
+    """An a9a-shaped fit (the a9a stand-in at scale 0.02, C 32, sigma2 64,
+    multi5pc) killed by the chaos harness at half its dispatches resumes
+    on the card from its newest step, bit for bit, and the resumed fit
+    launches ``gamma_update``."""
+    import dataclasses
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core import SMOSolver, SVMConfig
+    from repro_torch.data import make
+    from repro_torch.launch import chaos
+    X, y, _, _ = make("a9a", 0.02, seed=0)
+    cfg = SVMConfig(C=32.0, sigma2=64.0, heuristic="multi5pc",
+                    chunk_iters=64, device="cuda")
+    base = SMOSolver(cfg).fit(X, y)
+    d = str(tmp_path)
+    cfg = dataclasses.replace(cfg, checkpoint_dir=d, checkpoint_every=2)
+    with chaos.inject(chaos.FaultPlan(
+            kill_at_dispatch=base.stats.dispatches // 2)):
+        with pytest.raises(chaos.InjectedKill):
+            SMOSolver(cfg).fit(X, y)
+    steps = ck.complete_steps(d)
+    cuda.reset_launches()
+    m = SMOSolver(dataclasses.replace(cfg, resume=True)).fit(X, y)
+    assert cuda.launches["gamma_update"] > 0
+    assert m.stats.resumed_from == steps[-1] > 0
+    assert m.stats.iterations == base.stats.iterations and m.stats.converged
+    np.testing.assert_array_equal(m.alpha.view(np.int32),
+                                  base.alpha.view(np.int32))

@@ -381,11 +381,12 @@ def test_ovr_vote_permutation_invariant(mdata):
 
 # -- guards ------------------------------------------------------------------
 
-def test_guards():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cfg(checkpoint_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cfg(resume=True)
+def test_guards(tmp_path):
+    # the checkpoint fields, once refused, are accepted by both backends
+    for backend in ("batched", "loop"):
+        drv = MultiProblemDriver(cfg(checkpoint_dir=str(tmp_path / backend),
+                                     resume=True), backend=backend)
+        assert drv.cfg.checkpoint_dir.endswith(backend) and drv.cfg.resume
     with pytest.raises(ValueError, match="backend"):
         MultiProblemDriver(cfg(), backend="vmap")
     with pytest.raises(ValueError, match="batched"):

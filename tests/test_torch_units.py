@@ -224,9 +224,62 @@ def test_cuda_request_without_card_raises():
     ("checkpoint_every", 2), ("watchdog_window", 16),
     ("checkpoint_dir", "ckpt"), ("resume", True), ("watchdog_threshold", 2.0),
     ("ckpt_retries", 5)])
-def test_later_slice_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="slice"):
-        tsolver.SVMConfig(**{field: value, "device": "cpu"})
+def test_later_slice_fields_raise(field, value, tmp_path, monkeypatch):
+    """The fault-tolerance fields, once refused, are accepted and each
+    reaches the driver: a small fit shows its effect."""
+    from repro_torch.ckpt import checkpoint as tck
+    from repro_torch.launch import elastic
+    seen = {}
+
+    class Watchdog(elastic.StragglerWatchdog):
+        def __init__(self, **kw):
+            seen.update(kw)
+            super().__init__(**kw)
+
+    monkeypatch.setattr(elastic, "StragglerWatchdog", Watchdog)
+    real_retries = tck.with_retries
+
+    def retries(fn, attempts=3, **kw):
+        seen["attempts"] = attempts
+        return real_retries(fn, attempts=attempts, **kw)
+
+    monkeypatch.setattr(tck, "with_retries", retries)
+    X, y = _blobs()
+    d = str(tmp_path / "ckpt")
+    if field == "checkpoint_dir":
+        value = d = str(tmp_path / value)
+
+    def fit(**kw):
+        kw = dict(dict(C=1.0, sigma2=1.0, chunk_iters=8, device="cpu",
+                       checkpoint_dir=d), **kw)
+        return tsolver.SMOSolver(tsolver.SVMConfig(**kw)).fit(X, y)
+
+    if field == "resume":
+        fit()
+    extra = {"watchdog_window": {"watchdog_threshold": 2.0}}.get(field, {})
+    m = fit(**{field: value, **extra})
+    steps = tck.complete_steps(d)
+    if field == "checkpoint_dir":
+        assert steps and steps[-1] == m.stats.iterations
+    elif field == "checkpoint_every":
+        every1 = fit(checkpoint_dir=str(tmp_path / "every1"))
+        ones = tck.complete_steps(str(tmp_path / "every1"))
+        assert steps == ones[1::2] and m.stats.iterations \
+            == every1.stats.iterations
+    elif field == "resume":
+        assert m.stats.resumed_from == steps[-1]
+    elif field == "ckpt_retries":
+        assert seen["attempts"] == 5
+    else:
+        assert seen[field.replace("watchdog_", "")] == value
+
+
+def _blobs():
+    r = np.random.default_rng(5)
+    X = np.vstack([r.normal(1, 1, (40, 4)),
+                   r.normal(-1, 1, (40, 4))]).astype(np.float32)
+    y = np.repeat([1.0, -1.0], 40).astype(np.float32)
+    return X, y
 
 
 def test_unknown_row_cache_policy_raises():
