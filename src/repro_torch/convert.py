@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core import dataplane, smo
+from repro_torch.core import bf16, dataplane, smo
 from repro_torch.core.driver import FitStats
 from repro_torch.core.solver import SVMConfig, SVMModel
 from repro_torch.models.api import ModelConfig
@@ -40,12 +40,22 @@ def config(fields: dict, device: str = "cuda") -> SVMConfig:
     return SVMConfig(**kw)
 
 
+def _sv_values(a):
+    """SV values in the port's storage: fp32 numpy, or a host
+    ``torch.bfloat16`` tensor for bf16 input (``ml_dtypes`` arrays are
+    read through their ``uint16`` view; nothing imports ``ml_dtypes``)."""
+    if bf16.is_bf16(a):
+        return bf16.round_bf16(a)
+    return np.ascontiguousarray(a, np.float32)
+
+
 def model(sv_x: np.ndarray, sv_coef: np.ndarray, beta: float,
           alpha: np.ndarray, config_fields: dict,
           device: str = "cuda") -> SVMModel:
-    """A port ``SVMModel`` scoring the reference model's support set."""
-    return SVMModel(config(config_fields, device),
-                    np.ascontiguousarray(sv_x, np.float32),
+    """A port ``SVMModel`` scoring the reference model's support set. A
+    bf16 model (``sv_x`` an ``ml_dtypes.bfloat16`` array, e.g. from the
+    reference's ``compact(dtype='bfloat16')``) stays bf16, bit for bit."""
+    return SVMModel(config(config_fields, device), _sv_values(sv_x),
                     np.ascontiguousarray(sv_coef, np.float32).reshape(-1),
                     float(beta), np.asarray(alpha, np.float32), FitStats())
 
@@ -54,11 +64,12 @@ def ell_model(sv_vals: np.ndarray, sv_cols: np.ndarray, n_features: int,
               sv_coef: np.ndarray, beta: float, alpha: np.ndarray,
               config_fields: dict, device: str = "cuda") -> SVMModel:
     """A port ``SVMModel`` scoring a reference ELL model's support set
-    (its ``sv_vals`` / ``sv_cols`` / ``n_features``)."""
+    (its ``sv_vals`` / ``sv_cols`` / ``n_features``); bf16 ``sv_vals``
+    stay bf16, as in :func:`model`."""
     return SVMModel(config(config_fields, device), None,
                     np.ascontiguousarray(sv_coef, np.float32).reshape(-1),
                     float(beta), np.asarray(alpha, np.float32), FitStats(),
-                    sv_vals=np.ascontiguousarray(sv_vals, np.float32),
+                    sv_vals=_sv_values(sv_vals),
                     sv_cols=np.ascontiguousarray(sv_cols, np.int32),
                     n_features=int(n_features))
 

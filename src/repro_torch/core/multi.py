@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core import (dataplane, driver, kernel_fns, mirror,
+from repro_torch.core import (bf16, dataplane, driver, kernel_fns, mirror,
                                reconstruct, rowcache, smo, util)
 from repro_torch.core import heuristics as H
 from repro_torch.core.solver import SVMConfig, SVMModel, SMOSolver
@@ -1189,7 +1189,7 @@ def _union_model(models: list) -> "SVMModel | None":
     sv_x = np.zeros((union.size, m0.sv_x.shape[1]), np.float32)
     for mdl in models:
         sv_x[np.searchsorted(union, np.flatnonzero(mdl.alpha > 0.0))] = \
-            mdl.sv_x
+            bf16.widen(mdl.sv_x)
     return SVMModel(m0.config, sv_x, coef, beta, m0.alpha, m0.stats)
 
 
@@ -1204,7 +1204,7 @@ def _union_from_ell(models: list, union, coef, beta) -> "SVMModel":
     for mdl in models:
         sel = np.searchsorted(union, np.flatnonzero(mdl.alpha > 0.0))
         k = mdl.sv_vals.shape[1]
-        vals[sel, :k] = mdl.sv_vals
+        vals[sel, :k] = bf16.widen(mdl.sv_vals)
         cols[sel, :k] = mdl.sv_cols
     return SVMModel(m0.config, None, coef, beta, m0.alpha, m0.stats,
                     sv_vals=vals, sv_cols=cols, n_features=m0.n_features)

@@ -1,5 +1,5 @@
 """Inference plane: batched, low-latency SVM scoring on one device (twin of
-``repro.core.serve``; dense or block-ELL SVs, fp32).
+``repro.core.serve``; dense or block-ELL SVs, stored in fp32 or bf16).
 
 A :class:`ServeEngine` holds a trained model's support vectors resident on
 the device (dense rows, or ELL (vals, cols) rows at the model's own lane
@@ -20,8 +20,17 @@ Sharded serving (``shards=p`` under a process group of p ranks, see
 padded on its own to whole chunks of 128 with coef-0 rows, scores every
 bucket against its block, and the ranks all-reduce the partial sums in
 fp64 before beta is subtracted once — the reference's psum over the mesh.
-Every rank then calls ``decision_function`` with the same queries. bf16 SV
-storage is a later slice of the port.
+Every rank then calls ``decision_function`` with the same queries.
+
+bf16 SV storage (``dtype='bfloat16'``, or a ``model.compact(dtype=
+'bfloat16')`` artifact; ``core.bf16``): the SV values stay bf16 on the
+device, half the value bytes; the squared norms are taken in fp32 from the
+rounded values, as the reference takes them. On the card the accumulate
+kernels load the bf16 values themselves and widen them exactly, so a bf16
+engine's scores are bitwise those of an fp32 engine over the rounded SVs,
+and one storage rounding of the SVs is all that separates them from the
+fp32 model's. Other kernels than RBF score through the provider's
+``matrix @ coef`` on widened values.
 
 Multi-coef engines (the one-vs-rest union model of ``core.multi``): a
 model whose ``beta`` is a (K,) array, or whose ``sv_coef`` is an
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core import dataplane, kernel_fns, smo, util
+from repro_torch.core import bf16, dataplane, kernel_fns, smo, util
 from repro_torch.data import sparse as sp
 from repro_torch.launch import dist
 
@@ -68,7 +77,9 @@ class ServeEngine:
     ``device`` defaults to the model's. Buckets are scored by the
     hand-written kernel on CUDA tensors, its plain version on CPU tensors.
     ``min_bucket`` / ``max_bucket`` clamp the pow2 query
-    buckets, so at most log2(max/min)+1 bucket shapes exist. ``shards=1``
+    buckets, so at most log2(max/min)+1 bucket shapes exist. ``dtype`` is
+    the SV values' storage, ``'float32'`` or ``'bfloat16'``; ``None``
+    takes the model's own (see the module docstring). ``shards=1``
     (the default) holds every SV on this device, group or not; ``None``
     means the process group's size (1 without a group), and any count
     other than 1 must be that size: the SVs are then dealt over the
@@ -91,10 +102,6 @@ class ServeEngine:
                 "rank(s): sharded serving holds one SV block per rank "
                 "(launch.dist.init)")
         self.shards = int(shards) if self._grouped else 1
-        if dtype not in (None, "float32", "fp32", "f32"):
-            raise NotImplementedError(
-                f"SV storage dtype {dtype!r}: bf16 serving arrives with a "
-                "later slice of the port (fp32 only)")
         if min_bucket <= 0 or max_bucket < min_bucket:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
         self.min_bucket = int(min_bucket)
@@ -107,6 +114,13 @@ class ServeEngine:
         self.beta = beta if self.multi else smo.f32(beta[0])
         self.fmt = "ell" if getattr(model, "sv_vals", None) is not None \
             else "dense"
+        stored = model.sv_vals if self.fmt == "ell" else model.sv_x
+        self.dtype = bf16.storage_dtype(dtype, stored)
+        # the SV values as fp32, rounded to bf16 first for bf16 storage:
+        # the norms are taken from the values the device holds
+        store = bf16.widen(stored)
+        if self.dtype == "bfloat16":
+            store = bf16.widen(bf16.round_bf16(store))
         self._provider = kernel_fns.make_provider(cfg.kernel, self.fmt, True,
                                                   cfg.inv_2s2)
         coef = coef.reshape(coef.shape[0], -1) if self.multi \
@@ -129,24 +143,26 @@ class ServeEngine:
             coef_p = coef_p.T
         put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                         device=self.device)
+        # SV values in their storage type (exact: they are bf16 values)
+        put_sv = put if self.dtype == "float32" else \
+            lambda a: bf16.round_bf16(a).to(self.device)
         if self.fmt == "dense":
-            sv = np.asarray(model.sv_x, np.float32)
-            self.n_features = int(sv.shape[1])
+            self.n_features = int(store.shape[1])
             self.width = row_width(self.n_features)
             self.K = 0
             x_p = np.zeros((self.m_pad, self.width), np.float32)
-            x_p[: n_blk, : self.n_features] = sv[blk]
-            self._data = dataplane.DenseData(put(x_p),
+            x_p[: n_blk, : self.n_features] = store[blk]
+            self._data = dataplane.DenseData(put_sv(x_p),
                                              put((x_p * x_p).sum(axis=1)))
         else:
-            vals = np.asarray(model.sv_vals, np.float32)
             self.n_features = self.width = int(model.n_features)
-            self.K = int(vals.shape[1])
+            self.K = int(store.shape[1])
             v_p = np.zeros((self.m_pad, self.K), np.float32)
             c_p = np.zeros((self.m_pad, self.K), np.int32)
-            v_p[: n_blk] = vals[blk]
+            v_p[: n_blk] = store[blk]
             c_p[: n_blk] = np.asarray(model.sv_cols, np.int32)[blk]
-            self._data = dataplane.ELLData(put(v_p), put(c_p),
+            self.nnz = int(np.count_nonzero(v_p))   # priced by roofline
+            self._data = dataplane.ELLData(put_sv(v_p), put(c_p),
                                            put((v_p * v_p).sum(axis=1)),
                                            self.n_features)
         self._coef = put(coef_p)
@@ -166,11 +182,19 @@ class ServeEngine:
             raise ValueError(f"bucket shape {tuple(zb.shape)}: needs "
                              f"(b, {self.width}) (the engine's width)")
         self._buckets.add(int(zb.shape[0]))
+        data = self._data
+        if self.dtype == "bfloat16" and self._provider.kernel != "rbf":
+            # matrix @ coef on the widened values (the accumulate kernels,
+            # RBF only, widen bf16 themselves)
+            data = (dataplane.DenseData(data.X.float(), data.sq_norms)
+                    if self.fmt == "dense" else
+                    dataplane.ELLData(data.vals.float(), data.cols,
+                                      data.sq_norms, data.n_features))
         if self.multi:        # one accumulate launch per column: (b, K)
-            f = torch.stack([self._provider.accumulate(self._data, zb, c)
+            f = torch.stack([self._provider.accumulate(data, zb, c)
                              for c in self._coef], 1)
         else:
-            f = self._provider.accumulate(self._data, zb, self._coef)
+            f = self._provider.accumulate(data, zb, self._coef)
         if self._grouped:     # the ranks' partial sums, added in fp64
             f = dist.all_reduce(f.double(), "sum").float()
         return f - self._beta
@@ -223,9 +247,62 @@ class ServeEngine:
                        for a in (*arrays, d.sq_norms, self._coef)))
 
     def describe(self) -> dict:
-        return {"fmt": self.fmt, "dtype": "float32", "shards": self.shards,
+        return {"fmt": self.fmt, "dtype": self.dtype, "shards": self.shards,
                 "n_sv": self.n_sv, "n_out": self.n_out, "m_pad": self.m_pad,
                 "K": self.K,
                 "n_features": self.n_features, "device": str(self.device),
                 "buckets": sorted(self._buckets),
                 "memory_bytes": self.memory_bytes()}
+
+    # -- pricing -----------------------------------------------------------
+
+    def model_flops(self, b: int) -> float:
+        """Model FLOPs of one bucket: a kernel-row pass over the padded SV
+        set per query plus the coef FMA epilogue, over every shard — the
+        reference's count, its padding (each of the ``shards`` blocks
+        rounded up to whole chunks of 128 rows) included."""
+        row_pass = (2.0 * self.n_features + 5.0 if self.fmt == "dense"
+                    else 4.0 * self.K + 5.0)
+        per = _LANE * max(1, -(-max(1, -(-self.n_sv // self.shards))
+                               // _LANE))
+        return float(b) * self.shards * per * (row_pass + 2.0 * self.n_out)
+
+    def roofline(self, b: "int | None" = None):
+        """Price one bucket of ``b`` queries (default ``max_bucket``)
+        against the card's peaks (``launch.roofline``), from shapes, over
+        every shard. The reference prices its compiled program; here the
+        terms are the accumulate kernels' own:
+
+        * flops: 2·B·M·d + 6·B·M a coefficient column (dense, M the padded
+          SVs, d the row width), or 2·B·nnz + 10·B·M + 2·B·d (ELL, nnz the
+          stored nonzeros);
+        * bytes: the SV values at their stored width (ELL: every value,
+          the cols of the nonzeros only), sq, coef, the queries, the fp64
+          partials (written, then read) and the output;
+        * the collective: the fp64 all-reduce of a sharded engine's (B,
+          K) partial sums, by the ring rule.
+
+        ``t_compute`` takes the fp32 peak for either storage type: the
+        math is fp32 on the CUDA cores."""
+        from repro_torch.launch import roofline as rl
+        b = self.max_bucket if b is None else int(b)
+        p, k = self.shards, self.n_out
+        M, d = self.m_pad, self.width
+        sv = self._data.X if self.fmt == "dense" else self._data.vals
+        elt = sv.element_size()
+        chunks = M // _LANE      # the kernels' SV chunks: 128 rows each
+        if self.fmt == "dense":
+            flops = k * (2.0 * b * M * d + 6.0 * b * M)
+            sv_bytes = float(M) * d * elt
+        else:
+            flops = k * (2.0 * b * self.nnz + 10.0 * b * M + 2.0 * b * d)
+            sv_bytes = float(M) * self.K * elt + 4.0 * self.nnz
+        call = 4.0 * b * d + k * (8.0 * chunks * b + 4.0 * b)  # Z, part, out
+        moved = sv_bytes + 4.0 * M * (1 + k) + call + k * 8.0 * chunks * b
+        link = 2.0 * (p - 1) / p * 8.0 * b * k
+        coll = ({"counts": {"all-reduce": 1}, "bytes": {"all-reduce":
+                                                        8.0 * b * k}}
+                if p > 1 else {"counts": {}, "bytes": {}})
+        return rl.analyze(flops * p, moved * p, link, p, self.model_flops(b),
+                          collectives=coll,
+                          bytes_per_device=self.memory_bytes() + call)

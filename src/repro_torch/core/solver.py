@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core import (dataplane, driver, kernel_fns, reconstruct,
-                               rowcache, smo)
+from repro_torch.core import (bf16, dataplane, driver, kernel_fns,
+                               reconstruct, rowcache, smo)
 from repro_torch.core import heuristics as H
 from repro_torch.core import mirror as mirror_mod
 from repro_torch.core.driver import FitStats
@@ -85,12 +85,15 @@ class SVMConfig:
 @dataclasses.dataclass
 class SVMModel:
     config: SVMConfig
-    sv_x: "np.ndarray | None"    # (n_sv, d); None when SVs are stored ELL
+    sv_x: "np.ndarray | torch.Tensor | None"   # (n_sv, d); None when SVs
+                                 # are stored ELL; bf16 storage is a host
+                                 # torch.bfloat16 tensor (core.bf16)
     sv_coef: np.ndarray          # (n_sv,)  alpha_i * y_i
     beta: float
     alpha: np.ndarray            # (N,) full multipliers (diagnostics)
     stats: FitStats
-    sv_vals: "np.ndarray | None" = None   # (n_sv, K) ELL support vectors
+    sv_vals: "np.ndarray | torch.Tensor | None" = None   # (n_sv, K) ELL
+                                          # support vectors (f32 or bf16)
     sv_cols: "np.ndarray | None" = None   # (n_sv, K) int32
     n_features: "int | None" = None       # d (set for ELL models)
 
@@ -99,19 +102,19 @@ class SVMModel:
         put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
                                             device=dev)
         if self.sv_vals is not None:
-            vals = put(self.sv_vals, np.float32)
+            vals = put(bf16.widen(self.sv_vals), np.float32)
             return dataplane.ELLData(vals, put(self.sv_cols, np.int32),
                                      torch.sum(vals * vals, dim=-1),
                                      int(self.n_features)), "ell"
-        svx = put(self.sv_x, np.float32)
+        svx = put(bf16.widen(self.sv_x), np.float32)
         return dataplane.DenseData(svx, torch.sum(svx * svx, dim=-1)), \
             "dense"
 
     def _sv_dense(self) -> np.ndarray:
         """Support vectors as a dense (n_sv, d) block."""
         if self.sv_vals is None:
-            return np.asarray(self.sv_x, np.float32)
-        store = dataplane.ELLStore(self.sv_vals, self.sv_cols,
+            return bf16.widen(self.sv_x)
+        store = dataplane.ELLStore(bf16.widen(self.sv_vals), self.sv_cols,
                                    self.n_features)
         return store.dense_rows(np.arange(self.sv_vals.shape[0]))
 
@@ -164,20 +167,20 @@ class SVMModel:
                 dtype: "str | None" = None) -> "SVMModel":
         """Deployment-artifact shrink: drop zero-coef SVs and optionally
         merge bitwise-duplicate SV rows (coefs add — exact, their kernel
-        rows are equal); ELL models compare (vals, cols) rows. fp32 only in
-        this slice."""
-        if dtype not in (None, "float32", "fp32", "f32"):
-            raise NotImplementedError(
-                f"SV storage dtype {dtype!r}: bf16 serving arrives with a "
-                "later slice of the port (fp32 only)")
+        rows are equal); ELL models compare (vals, cols) rows. ``dtype``
+        stores the SV values as ``'float32'`` (``None``, as in the
+        reference) or ``'bfloat16'`` (rounded to nearest even, the bits the
+        reference stores: half the resident value bytes, and scores one
+        storage rounding of the SVs away from fp32)."""
+        store_dt = bf16.storage_dtype(dtype or "float32")
         coef = np.asarray(self.sv_coef, np.float32).copy()
         if self.sv_vals is not None:
+            vals = bf16.widen(self.sv_vals)
             rows = np.ascontiguousarray(np.concatenate(
-                [np.asarray(self.sv_vals, np.float32),
-                 np.asarray(self.sv_cols, np.int32).view(np.float32)],
+                [vals, np.asarray(self.sv_cols, np.int32).view(np.float32)],
                 axis=1))
         else:
-            rows = np.ascontiguousarray(np.asarray(self.sv_x, np.float32))
+            rows = np.ascontiguousarray(bf16.widen(self.sv_x))
         if dedup and rows.shape[0]:
             view = rows.view(np.uint32).reshape(rows.shape[0], -1)
             _, first, inv = np.unique(view, axis=0, return_index=True,
@@ -190,14 +193,15 @@ class SVMModel:
             keep_rows = np.arange(rows.shape[0])
         nz = coef != 0.0
         keep_rows, coef = keep_rows[nz], coef[nz]
+        stored = ((lambda a: a) if store_dt == "float32" else bf16.round_bf16)
         if self.sv_vals is not None:
             return SVMModel(
                 self.config, None, coef, self.beta, self.alpha, self.stats,
-                sv_vals=np.asarray(self.sv_vals, np.float32)[keep_rows],
+                sv_vals=stored(vals[keep_rows]),
                 sv_cols=np.asarray(self.sv_cols, np.int32)[keep_rows],
                 n_features=self.n_features)
-        return SVMModel(self.config, rows[keep_rows], coef, self.beta,
-                        self.alpha, self.stats)
+        return SVMModel(self.config, stored(rows[keep_rows]), coef,
+                        self.beta, self.alpha, self.stats)
 
     def dual_objective(self) -> float:
         """L_D (Eq. 1) over the support set."""

@@ -49,6 +49,12 @@
 // the bucket, the tile, G nor trailing coef-0 rows change a bit. No
 // atomics: scores are identical from run to run.
 //
+// bf16 SVs: vals may be stored as bf16 (2 bytes a slot; cols stay int32,
+// and sq, coef, Z and the output fp32). Each slot is widened to fp32 as it
+// is loaded (sv_load.cuh, exact), before the nonzero test and the list, so
+// everything after the load is the fp32 kernel's code: on bf16 vals the
+// kernel gives the bits it gives on their fp32 copy.
+//
 // Tried and measured slower (PERF.md §6), in order: one block per 32
 // queries walking every SV row (16 warps, nonzeros broadcast one shuffle
 // pair at a time; 1.39 ms at B = 4096, ~0.94 ms at B = 64); two warps a
@@ -62,6 +68,7 @@
 #include "async_copy.cuh"
 #include "chunk_sum.cuh"
 #include "occupancy.cuh"
+#include "sv_load.cuh"
 
 namespace {
 
@@ -108,10 +115,11 @@ struct Vec<4> {
 };
 
 // kQL queries a lane (queries kQL*lane.. of the tile); the tile staged in
-// shared memory (kShared) or read from global memory.
-template <int kQL, bool kShared>
+// shared memory (kShared) or read from global memory. TV: the stored type
+// of vals, float or __nv_bfloat16.
+template <int kQL, bool kShared, typename TV>
 __global__ void __launch_bounds__(kThreads, 1)
-ell_accumulate_chunks(const float* __restrict__ vals,
+ell_accumulate_chunks(const TV* __restrict__ vals,
                       const int* __restrict__ cols,
                       const float* __restrict__ sq,
                       const float* __restrict__ coef,
@@ -238,13 +246,14 @@ ell_accumulate_chunks(const float* __restrict__ vals,
           int i = fi, g = fg;
 #pragma unroll
           for (int j = 0; j < kSegs; ++j) {
-            const float* vr =
+            const TV* vr =
                 vals + static_cast<long>(r0 + kWarps * i) * K + 128 * g;
             const int left = j < n_sg ? K - 128 * g : 0;
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              v[j][q] = 32 * q + lane < left ? __ldg(vr + 32 * q + lane)
-                                             : 0.0f;
+              v[j][q] = 32 * q + lane < left
+                            ? sv_load::one(vr + 32 * q + lane)
+                            : 0.0f;
             if (++g == segs) { g = 0; ++i; }
           }
         }
@@ -361,12 +370,12 @@ ell_accumulate_chunks(const float* __restrict__ vals,
   }
 }
 
-template <int kQL, bool kShared>
-cudaError_t launch_chunks(const float* vals, const int* cols, const float* sq,
+template <int kQL, bool kShared, typename TV>
+cudaError_t launch_chunks(const TV* vals, const int* cols, const float* sq,
                           const float* coef, const float* Z, float inv_2s2,
                           double* part, int m, int K, int b, int d,
                           int n_chunks, cudaStream_t s) {
-  auto kernel = ell_accumulate_chunks<kQL, kShared>;
+  auto kernel = ell_accumulate_chunks<kQL, kShared, TV>;
   const int smem = Smem<kQL>::bytes(d, kShared);
   static int cached_smem = -1, cached_blocks = 0;
   cudaError_t e = cudaFuncSetAttribute(
@@ -394,22 +403,10 @@ cudaError_t launch_chunks(const float* vals, const int* cols, const float* sq,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// SV rows a chunk: part holds ceil(m / this) rows of partials.
-extern "C" int repro_ell_rbf_accumulate_chunk_rows() { return kChunk; }
-
-// vals (m, K) f32 and cols (m, K) i32 in [0, d) SVs, sq (m,), coef (m,),
-// Z (b, d) queries -> out (b,); contiguous, on the current device; part
-// (ceil(m / kChunk), b) fp64 scratch. Returns the first cudaGetLastError()
-// of the two launches.
-extern "C" int repro_ell_rbf_accumulate(const float* vals, const int* cols,
-                                        const float* sq, const float* coef,
-                                        const float* Z, float inv_2s2,
-                                        float* out, double* part, int m,
-                                        int K, int b, int d, void* stream) {
-  if (b <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename TV>
+cudaError_t run(const TV* vals, const int* cols, const float* sq,
+                const float* coef, const float* Z, float inv_2s2, float* out,
+                double* part, int m, int K, int b, int d, cudaStream_t s) {
   const int n_chunks = (m + kChunk - 1) / kChunk;
   if (n_chunks > 0) {
     cudaError_t e;
@@ -422,7 +419,31 @@ extern "C" int repro_ell_rbf_accumulate(const float* vals, const int* cols,
     else
       e = launch_chunks<2, false>(vals, cols, sq, coef, Z, inv_2s2, part, m,
                                   K, b, d, n_chunks, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
   }
-  return static_cast<int>(chunk_sum::launch(part, out, n_chunks, b, s));
+  return chunk_sum::launch(part, out, n_chunks, b, s);
+}
+
+}  // namespace
+
+// SV rows a chunk: part holds ceil(m / this) rows of partials.
+extern "C" int repro_ell_rbf_accumulate_chunk_rows() { return kChunk; }
+
+// vals (m, K) of the type vals_bf16 names (0: f32, 1: bf16) and cols (m, K)
+// i32 in [0, d) SVs, sq (m,), coef (m,), Z (b, d) queries -> out (b,), all
+// f32; contiguous, on the current device; part (ceil(m / kChunk), b) fp64
+// scratch. Returns the first cudaGetLastError() of the two launches.
+extern "C" int repro_ell_rbf_accumulate(const void* vals, int vals_bf16,
+                                        const int* cols, const float* sq,
+                                        const float* coef, const float* Z,
+                                        float inv_2s2, float* out,
+                                        double* part, int m, int K, int b,
+                                        int d, void* stream) {
+  if (b <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      vals_bf16 ? run(static_cast<const __nv_bfloat16*>(vals), cols, sq,
+                      coef, Z, inv_2s2, out, part, m, K, b, d, s)
+                : run(static_cast<const float*>(vals), cols, sq, coef, Z,
+                      inv_2s2, out, part, m, K, b, d, s));
 }

@@ -42,6 +42,14 @@
 // +0; a chunk past M is never launched). No atomics: scores are identical
 // from run to run.
 //
+// bf16 SVs: X may be stored as bf16 (the serving engine's bf16 storage;
+// Z, sq, coef and the output stay fp32). A bf16 slab is read into
+// registers by 8-byte loads of 4 values (2-byte ones where rows are not
+// aligned) and widened to fp32 exactly (sv_load.cuh) before it is stored to
+// the same shared tiles, so everything after the load is the fp32 kernel's
+// code: on bf16 SVs the kernel gives the bits it gives on their fp32 copy,
+// and the SV stream is half as many bytes.
+//
 // Tried and measured slower (PERF.md §6), in order: one block per 32
 // queries walking every SV (2x4 outputs a thread, load then sync per
 // 32-feature slab; 3.67 ms at B = 4096, ~2.5 ms at B = 64); the split
@@ -53,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "chunk_sum.cuh"
+#include "sv_load.cuh"
 
 namespace {
 
@@ -63,11 +72,12 @@ constexpr int kXLd = kChunk + 4;  // stride of a staged SV feature (floats)
 
 // Thread (ty, tx) holds queries 4ty.. (and 64 + 4ty.. when kQI = 8) and SVs
 // 4tx.., 64 + 4tx.. of the block's tile: kQI x 8 outputs. kTQ = 16 kQI
-// queries a block. kVec: rows are read in 16-byte loads (d % 4 == 0, rows
-// 16-byte aligned), else in 4-byte ones.
-template <int kQI, bool kVec>
+// queries a block. kVec: rows are read 4 values a load (d % 4 == 0, rows
+// aligned to 4 values), else one value a load. TX: the SVs' stored type,
+// float or __nv_bfloat16.
+template <int kQI, bool kVec, typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
-rbf_accumulate_chunks(const float* __restrict__ X,
+rbf_accumulate_chunks(const TX* __restrict__ X,
                       const float* __restrict__ sq,
                       const float* __restrict__ coef,
                       const float* __restrict__ Z, float inv_2s2,
@@ -90,17 +100,18 @@ rbf_accumulate_chunks(const float* __restrict__ X,
   // of the slab; read into registers, stored transposed ([k][row]) after
   // the current slab's math.
   float4 zr[kZLoads], xr[kXLoads];
-  auto fetch = [&](float4& v, const float* src, int row, int lim, int k) {
+  // src: Z (f32) or X (TX); a bf16 value is widened as it is loaded
+  auto fetch = [&](float4& v, const auto* src, int row, int lim, int k) {
     v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row >= lim) return;
-    const float* p = src + static_cast<long>(row) * d + k;
+    const auto* p = src + static_cast<long>(row) * d + k;
     if constexpr (kVec) {
-      if (k < d) v = __ldg(reinterpret_cast<const float4*>(p));
+      if (k < d) v = sv_load::four(p);
     } else {
-      if (k < d) v.x = __ldg(p);
-      if (k + 1 < d) v.y = __ldg(p + 1);
-      if (k + 2 < d) v.z = __ldg(p + 2);
-      if (k + 3 < d) v.w = __ldg(p + 3);
+      if (k < d) v.x = sv_load::one(p);
+      if (k + 1 < d) v.y = sv_load::one(p + 1);
+      if (k + 2 < d) v.z = sv_load::one(p + 2);
+      if (k + 3 < d) v.w = sv_load::one(p + 3);
     }
   };
   auto load = [&](int k0) {
@@ -210,35 +221,23 @@ rbf_accumulate_chunks(const float* __restrict__ X,
   }
 }
 
-template <int kQI, bool kVec>
-cudaError_t launch_chunks(const float* X, const float* sq, const float* coef,
+template <int kQI, bool kVec, typename TX>
+cudaError_t launch_chunks(const TX* X, const float* sq, const float* coef,
                           const float* Z, float inv_2s2, double* part, int m,
                           int b, int d, int n_chunks, cudaStream_t s) {
   const dim3 grid(n_chunks, (b + 16 * kQI - 1) / (16 * kQI));
-  rbf_accumulate_chunks<kQI, kVec><<<grid, kThreads, 0, s>>>(
+  rbf_accumulate_chunks<kQI, kVec, TX><<<grid, kThreads, 0, s>>>(
       X, sq, coef, Z, inv_2s2, part, m, b, d);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// SV rows a chunk: part holds ceil(m / this) rows of partials.
-extern "C" int repro_rbf_accumulate_chunk_rows() { return kChunk; }
-
-// X (m, d) SVs, sq (m,), coef (m,), Z (b, d) queries -> out (b,); all f32,
-// contiguous, on the current device; part (ceil(m / kChunk), b) fp64
-// scratch. Returns the first cudaGetLastError() of the two launches.
-extern "C" int repro_rbf_accumulate(const float* X, const float* sq,
-                                    const float* coef, const float* Z,
-                                    float inv_2s2, float* out, double* part,
-                                    int m, int b, int d, void* stream) {
-  if (b <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename TX>
+cudaError_t run(const TX* X, const float* sq, const float* coef,
+                const float* Z, float inv_2s2, float* out, double* part,
+                int m, int b, int d, cudaStream_t s) {
   const int n_chunks = (m + kChunk - 1) / kChunk;
   if (n_chunks > 0) {
-    const bool vec = d % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(Z) % 16 == 0;
+    const bool vec = sv_load::vec_ok(X, d) && sv_load::vec_ok(Z, d);
     cudaError_t e;
     if (b <= 64)
       e = vec ? launch_chunks<4, true>(X, sq, coef, Z, inv_2s2, part, m, b, d,
@@ -250,7 +249,30 @@ extern "C" int repro_rbf_accumulate(const float* X, const float* sq,
                                        n_chunks, s)
               : launch_chunks<8, false>(X, sq, coef, Z, inv_2s2, part, m, b,
                                         d, n_chunks, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
   }
-  return static_cast<int>(chunk_sum::launch(part, out, n_chunks, b, s));
+  return chunk_sum::launch(part, out, n_chunks, b, s);
+}
+
+}  // namespace
+
+// SV rows a chunk: part holds ceil(m / this) rows of partials.
+extern "C" int repro_rbf_accumulate_chunk_rows() { return kChunk; }
+
+// X (m, d) SVs of the type x_bf16 names (0: f32, 1: bf16); sq (m,), coef
+// (m,), Z (b, d) queries -> out (b,), all f32; contiguous, on the current
+// device; part (ceil(m / kChunk), b) fp64 scratch. Returns the first
+// cudaGetLastError() of the two launches.
+extern "C" int repro_rbf_accumulate(const void* X, int x_bf16,
+                                    const float* sq, const float* coef,
+                                    const float* Z, float inv_2s2, float* out,
+                                    double* part, int m, int b, int d,
+                                    void* stream) {
+  if (b <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      x_bf16 ? run(static_cast<const __nv_bfloat16*>(X), sq, coef, Z,
+                   inv_2s2, out, part, m, b, d, s)
+             : run(static_cast<const float*>(X), sq, coef, Z, inv_2s2, out,
+                   part, m, b, d, s));
 }

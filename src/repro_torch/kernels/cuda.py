@@ -176,15 +176,20 @@ def constant(kernel: str, what: str) -> int:
     return v
 
 
+SV_DTYPES = (torch.float32, torch.bfloat16)   # stored SV values' types
+
+
 def check(t: torch.Tensor, what: str, shape: tuple,
-          dtype: torch.dtype = torch.float32) -> None:
+          dtype: "torch.dtype | tuple" = torch.float32) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (f32 by
-    default) and ``shape``."""
+    default; a tuple names every type taken) and ``shape``."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    taken = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in taken:
+        want = " or ".join(str(d) for d in taken)
+        raise TypeError(f"{what}: expected {want}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
@@ -193,15 +198,16 @@ def check(t: torch.Tensor, what: str, shape: tuple,
 
 
 def check_ell(vals: torch.Tensor, cols: torch.Tensor,
-              sq_norms: torch.Tensor) -> tuple:
-    """Check a block-ELL operand triple — vals (N, K) f32, cols (N, K)
-    int32, sq_norms (N,) f32, contiguous, on the card — and return
-    ``(N, K)``."""
+              sq_norms: torch.Tensor,
+              vals_dtype: "torch.dtype | tuple" = torch.float32) -> tuple:
+    """Check a block-ELL operand triple — vals (N, K) of ``vals_dtype``
+    (f32 by default), cols (N, K) int32, sq_norms (N,) f32, contiguous, on
+    the card — and return ``(N, K)``."""
     if not isinstance(vals, torch.Tensor) or vals.dim() != 2:
         raise ValueError(f"vals: expected an (N, K) tensor, got "
                          f"{tuple(getattr(vals, 'shape', ()))}")
     n, K = vals.shape
-    check(vals, "vals", (n, K))
+    check(vals, "vals", (n, K), vals_dtype)
     check(cols, "cols", (n, K), torch.int32)
     check(sq_norms, "sq_norms", (n,))
     return n, K

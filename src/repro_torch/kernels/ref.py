@@ -58,8 +58,10 @@ def rbf_accumulate(X: torch.Tensor, sq_norms: torch.Tensor,
     terms that mostly cancel, and an fp32 contraction of the full-size
     a9a model (17,063 SVs) is off by ~1e-3 of max |score|. Materializes the
     (B, M) kernel matrix, which the kernel never does. Padding SV rows
-    carry coef 0, so they contribute exactly 0.
+    carry coef 0, so they contribute exactly 0. bf16 SVs are widened to
+    fp32 first (exact).
     """
+    X = X.float()
     qn = torch.sum(Z * Z, dim=-1)
     d2 = qn[:, None] - 2.0 * (Z @ X.T) + sq_norms[None, :]
     k = torch.exp(-torch.clamp(d2, min=0.0) * inv_2s2)
@@ -131,7 +133,9 @@ def ell_rbf_accumulate(vals: torch.Tensor, cols: torch.Tensor,
     :func:`rbf_accumulate` and the CUDA kernel). The (B, M, K) gather is
     taken in SV blocks of at most ``max_gather`` elements; the block
     partials add in fp64. Padding SV rows carry coef 0 and add exactly 0.
+    bf16 vals are widened to fp32 first (exact).
     """
+    vals = vals.float()
     B = Z.shape[0]
     M, K = vals.shape
     qn = torch.sum(Z * Z, dim=-1)

@@ -1,16 +1,22 @@
-"""LM serving: prefill a batch of prompts, then greedy-decode against the
-KV cache (twin of ``repro.launch.serve`` and the ``examples/serve_lm.py``
-it runs).
+"""Unified serving launcher: SVM scoring, or LM serving — prefill a batch
+of prompts, then greedy-decode against the KV cache (twin of
+``repro.launch.serve`` and the ``examples/serve_lm.py`` it runs).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --device cpu            # the arch's smoke config; default cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --svm --dataset a9a \\
+        --device cpu            # launch.svm_serve's flags
+
+``--svm`` dispatches to :mod:`repro_torch.launch.svm_serve` (the SVM
+inference plane, ``core.serve.ServeEngine``); everything else is LM
+serving.
 
 Same flags and the same smoke config as the reference example, plus
 ``--device``. ``generate`` is the library function (``chip_smoke.py``
 calls it with a full config). Unlike the example, which builds the cache
 by one-token decode over the prompt, the prompt goes through the prefill
 step in one pass (through the flash kernel on the card) and that pass
-fills the cache. ``--svm`` (SVM serving) is not ported yet.
+fills the cache.
 """
 from __future__ import annotations
 
@@ -73,9 +79,9 @@ def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--svm" in argv:
-        raise NotImplementedError(
-            "SVM serving (--svm) is not ported yet: it comes with the CLIs "
-            "(ROADMAP item 13)")
+        argv.remove("--svm")
+        from repro_torch.launch import svm_serve
+        return svm_serve.main(argv)
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="llama3-8b", choices=configs.ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)

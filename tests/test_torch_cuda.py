@@ -654,6 +654,116 @@ def test_cuda_accumulates_are_bucket_invariant(cuda_device, kind, m, d, K):
         assert torch.equal(f["wide"](big)[at], small)
 
 
+# -- bf16 SVs in the two accumulates (the serving engine's bf16 storage) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,d,K", [
+    ("dense", 5, 123, 0), ("dense", 1000, 37, 0), ("dense", 130, 1, 0),
+    ("dense", 18048, 124, 0), ("dense", 18048 + 77, 300, 0),
+    ("ell", 5, 300, 128), ("ell", 777, 300, 13), ("ell", 7936, 300, 128),
+    ("ell", 300, 300, 1100), ("ell", 777, 40000, 40)])
+def test_cuda_bf16_accumulates_equal_fp32_on_widened_svs(cuda_device, kind,
+                                                         m, d, K):
+    """SVs stored as bf16 (dense rows, or ELL vals) are widened exactly as
+    the kernel loads them: the bf16 call gives the bits of the fp32 call on
+    ``X16.float()`` at every bucket shape (B 64, ragged 200, 4,096), for
+    ragged M, d and K, with rows that do not start on 8 bytes (dense: the
+    2-byte-load path), one counted launch under the kernel's name; and it
+    stays within 1e-5 of max |sum| of the plain version (which widens)."""
+    r = np.random.default_rng(m + d + K)
+    dev = cuda_device
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    cf = t(r.normal(size=m).astype(np.float32))
+    inv = 1 / 64
+    if kind == "dense":
+        name = "rbf_accumulate"
+        x16 = t((r.normal(size=(m, d)) * (4.0 / np.sqrt(d)))
+                .astype(np.float32)).to(torch.bfloat16)
+        xw = x16.float()
+        sq = (xw * xw).sum(1)
+        flat = torch.zeros(m * d + 1, dtype=torch.bfloat16, device=dev)
+        mis = flat[1:].view(m, d)
+        mis.copy_(x16)
+        calls = dict(
+            bf16=lambda Z: ops.rbf_accumulate(x16, sq, cf, Z, inv),
+            fp32=lambda Z: ops.rbf_accumulate(xw, sq, cf, Z, inv),
+            misaligned=lambda Z: ops.rbf_accumulate(mis, sq, cf, Z, inv),
+            plain=lambda Z: ref.rbf_accumulate(x16, sq, cf, Z, inv))
+    else:
+        name = "ell_rbf_accumulate"
+        vals = (r.normal(size=(m, K)) * (4.0 / np.sqrt(K))).astype(np.float32)
+        vals[r.random(vals.shape) < 0.3] = 0.0     # padding and zeros
+        v16 = t(vals).to(torch.bfloat16)
+        vw = v16.float()
+        c = t(r.integers(0, d, (m, K)).astype(np.int32))
+        sq = (vw * vw).sum(1)
+        calls = dict(
+            bf16=lambda Z: ops.ell_rbf_accumulate(v16, c, sq, cf, Z, inv),
+            fp32=lambda Z: ops.ell_rbf_accumulate(vw, c, sq, cf, Z, inv),
+            plain=lambda Z: ref.ell_rbf_accumulate(v16, c, sq, cf, Z, inv))
+    for b in (64, 200, 4096):
+        Z = t((r.normal(size=(b, d)) * (4.0 / np.sqrt(d))).astype(np.float32))
+        before = cuda.launches[name]
+        got = calls["bf16"](Z)
+        assert cuda.launches[name] == before + 1
+        assert torch.equal(got, calls["fp32"](Z))
+        if "misaligned" in calls:
+            assert torch.equal(got, calls["misaligned"](Z))
+        want = calls["plain"](Z)
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+    # the bucket invariance holds on bf16 SVs too
+    small = calls["bf16"](Z[:64].contiguous())
+    assert torch.equal(got[:64], small)
+
+
+@pytest.mark.cuda
+def test_cuda_accumulates_take_bf16_svs_only(cuda_device):
+    """bf16 is taken for the stored SV values (X, vals) and nothing else:
+    a bf16 query, norm or coefficient raises."""
+    X = torch.zeros((8, 4), device=cuda_device)
+    s, cf, Z = X[:, 0].contiguous(), X[:, 1].contiguous(), X[:3]
+    bf = torch.bfloat16
+    ops.rbf_accumulate(X.to(bf), s, cf, Z, 0.5)
+    for args in ((X, s, cf, Z.to(bf)), (X, s, cf.to(bf), Z),
+                 (X, s.to(bf), cf, Z), (X.half(), s, cf, Z)):
+        with pytest.raises(TypeError):
+            ops.rbf_accumulate(*args, 0.5)
+    c = torch.zeros((8, 4), dtype=torch.int32, device=cuda_device)
+    ops.ell_rbf_accumulate(X.to(bf), c, s, cf, Z, 0.5)
+    with pytest.raises(TypeError):
+        ops.ell_rbf_accumulate(X, c, s, cf, Z.to(bf), 0.5)
+    with pytest.raises(TypeError):
+        ops.ell_rbf_accumulate(X.half(), c, s, cf, Z, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+def test_cuda_bf16_engine_equals_fp32_engine_on_rounded_svs(cuda_device,
+                                                             fmt):
+    """``ServeEngine(dtype='bfloat16')`` on the card: bf16 values resident,
+    the scores bitwise those of an fp32 engine over the bf16-rounded SVs,
+    and within one storage rounding of the fp32 model's."""
+    import dataclasses
+    from repro_torch.core import ServeEngine, bf16, train
+    from repro_torch.data import make_sparse, to_csr
+    X, y = make_sparse(600, 300, 0.05, seed=2)
+    kw = dict(C=4.0, sigma2=8.0, device="cuda")
+    m = (train(X, y, **kw) if fmt == "dense"
+         else train(to_csr(X), y, format="ell", **kw))
+    e16 = ServeEngine(m, dtype="bfloat16")
+    held = e16._data.X if fmt == "dense" else e16._data.vals
+    assert held.dtype == torch.bfloat16 and held.is_cuda
+    field = "sv_x" if fmt == "dense" else "sv_vals"
+    rounded = dataclasses.replace(m, **{field: bf16.widen(
+        bf16.round_bf16(getattr(m, field)))})
+    got = e16.decision_function(X)
+    same = ServeEngine(rounded).decision_function(X)
+    assert np.array_equal(got.view(np.int32), same.view(np.int32))
+    np.testing.assert_allclose(got, m.decision_function(X), rtol=2e-2,
+                               atol=3e-2)
+
+
 # -- the row cache's hit path (rbf_rows2_cached, ell_kernel_rows2_cached) --
 
 INV = 1.0 / 128.0          # sigma2 = 64, the a9a / w7a value

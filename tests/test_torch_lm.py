@@ -365,5 +365,8 @@ def test_serve_cli_on_cpu(capsys):
                       "--tokens", "4", "--batch", "2"])
     assert res["tokens"].shape == (2, 4)
     assert "llama3-8b: generated (2, 4) on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        serve.main(["--svm", "--dataset", "a9a"])
+    # --svm goes to the SVM serving CLI (launch.svm_serve)
+    rep = serve.main(["--svm", "--dataset", "a9a", "--scale", "0.01",
+                      "--device", "cpu", "--repeats", "2", "--batch", "64"])
+    assert rep["engine"]["fmt"] == "dense" and rep["p50_s"] > 0
+    assert "batch=64: p50=" in capsys.readouterr().out

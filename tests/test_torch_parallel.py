@@ -265,6 +265,16 @@ def serve():
         out[fmt] = dict(shards=eng.describe()['shards'],
                         err=[float(v) for v in np.abs(got - host)],
                         host=[float(v) for v in np.abs(host)])
+        # bf16 SVs dealt over the group against one device's bf16 engine
+        e16 = ServeEngine(m, shards=int(world), dtype='bfloat16')
+        one = ServeEngine(m, dtype='bfloat16').decision_function(Z)
+        got = e16.decision_function(Z)
+        out[fmt + '-bf16'] = dict(
+            shards=e16.describe()['shards'], dtype=e16.describe()['dtype'],
+            err=[float(v) for v in np.abs(got - one)],
+            host=[float(v) for v in np.abs(one)],
+            n_sv=e16.n_sv, flops=e16.model_flops(64),
+            row=e16.roofline(64).row())
     res['serve'] = out
 
 
@@ -514,6 +524,25 @@ def test_sharded_engine_matches_the_host_loop(runs, fmt):
     err, host = np.asarray(r["err"]), np.asarray(r["host"])
     assert np.all(err <= 2e-5 + 1e-4 * host), err.max()
     assert host.max() > 0.5
+
+
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+def test_sharded_bf16_engine_matches_one_device(runs, fmt):
+    """bf16 SVs dealt over 4 ranks score as one device's bf16 engine (the
+    fp64 all-reduce moves only the order of the adds), and the pricing
+    counts every shard: the reference's model FLOPs, with each rank's
+    block padded to whole chunks, and the fp64 all-reduce on the link."""
+    r = runs["port"]["serve"][fmt + "-bf16"]
+    assert (r["shards"], r["dtype"]) == (4, "bfloat16")
+    err, host = np.asarray(r["err"]), np.asarray(r["host"])
+    assert np.all(err <= 2e-5 + 1e-4 * host), err.max()
+    per = 128 * -(-(-(-r["n_sv"] // 4)) // 128)
+    flops = r["flops"] / (64 * 4 * per)
+    assert flops == int(flops) and flops > 2.0
+    row = r["row"]
+    assert row["link_bytes_per_chip"] == 2 * 3 / 4 * 8 * 64
+    assert row["t_collective_s"] > 0
+    assert row["collectives"]["counts"] == {"all-reduce": 1}
 
 
 def test_shards_other_than_the_world_size_raise(runs):

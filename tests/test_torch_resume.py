@@ -341,6 +341,101 @@ def test_multi_shrink_events_counted_once(tmp_path, data):
     assert m.stats.shrink_events == man["extra"]["shrink_events"]
 
 
+
+# -- the saved active flags --------------------------------------------------
+
+def _active_sets(data, active):
+    """The buffer's rows and, per problem, its active rows, as sets of
+    global sample ids: ``(rows, (active of problem 0, ...))``."""
+    gids = data.gids.cpu().numpy()
+    act = active.cpu().numpy().reshape(-1, gids.size)
+    ok = gids >= 0
+    return (frozenset(gids[ok].tolist()),
+            tuple(frozenset(gids[ok & a].tolist()) for a in act))
+
+
+def spy_dispatches(monkeypatch, owner, name, lanes_at=None):
+    """Wrap the runner that ``owner.name`` makes so every dispatch of the
+    fits that follow records what it is handed: the iteration counters,
+    the buffer's rows and each problem's active rows (global ids) and the
+    live lanes (the runner's argument ``lanes_at``, else lane 0)."""
+    seen = []
+    make = getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        run = make(*a, **kw)
+
+        def spied(data, yb, state, *rest):
+            rows, act = _active_sets(data, state.active)
+            lanes = (0,) if lanes_at is None else \
+                tuple(int(k) for k in rest[lanes_at])
+            seen.append((tuple(state.step.reshape(-1).tolist()), rows,
+                         {k: act[k] for k in lanes}))
+            return run(data, yb, state, *rest)
+        return spied
+
+    monkeypatch.setattr(owner, name, wrapped)
+    return seen
+
+
+def kill_with_shrunk_rows(seen) -> int:
+    """A dispatch to kill at: one whose start finds rows of the buffer
+    shrunk (inactive but not compacted away) for a live problem, so the
+    save before it must carry those flags; the middle such dispatch."""
+    hits = [i for i, (_, rows, act) in enumerate(seen)
+            if i >= 2 and any(a < rows for a in act.values())]
+    assert hits, "no dispatch starts with shrunk rows in its buffer"
+    return hits[len(hits) // 2]
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_resume_restores_the_saved_active_flags(tmp_path, fmt, monkeypatch):
+    """Right after a resume the buffer's active mask is the uncut fit's at
+    the same step, shrunk rows included (the shrink-heavy set: its
+    buffers hold shrunk rows between compactions). A fresh buffer marks
+    every row active, so a resume that dropped the saved flags would
+    start with rows active that the uncut fit had shrunk; those rows are
+    never selected again and the bits still agree, which is why the
+    bitwise tests above cannot see it."""
+    X, y = make_sparse(400, 300, 0.05, seed=3, noise=0.05, label_noise=0.0,
+                       margin=0.5)
+    seen = spy_dispatches(monkeypatch, SMOSolver, "_runner")
+    ref = SMOSolver(cfg(fmt, **SHRINKY)).fit(X, y)
+    uncut = seen[:]
+    kill = kill_with_shrunk_rows(uncut)
+    c = cfg(fmt, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+            **SHRINKY)
+    kill_fit(X, y, c, kill_at_dispatch=kill)
+    del seen[:]
+    m = SMOSolver(dataclasses.replace(c, resume=True)).fit(X, y)
+    assert m.stats.resumed_from == uncut[kill][0][0]
+    assert seen[0] == uncut[kill]
+    same_fit(m, ref)
+
+
+def test_multi_resume_restores_the_saved_active_flags(tmp_path, mdata,
+                                                      monkeypatch):
+    """The batched driver's twin of the test above: the saved flags go
+    into ``act_m`` and the lane buffer is built from them, so the first
+    dispatch after a resume hands every live lane the uncut fit's active
+    mask at the same per-problem steps."""
+    from repro_torch.core import multi
+    X, Y = mdata
+    seen = spy_dispatches(monkeypatch, multi, "make_multi_runner",
+                          lanes_at=-1)
+    ref = MultiProblemDriver(SVMConfig(**MKW)).fit_tasks(X, Y, C=CS)
+    uncut = seen[:]
+    kill = kill_with_shrunk_rows(uncut)
+    c = SVMConfig(**MKW, checkpoint_dir=str(tmp_path))
+    with chaos.inject(chaos.FaultPlan(kill_at_dispatch=kill)):
+        with pytest.raises(chaos.InjectedKill):
+            MultiProblemDriver(c).fit_tasks(X, Y, C=CS)
+    del seen[:]
+    m = MultiProblemDriver(dataclasses.replace(c, resume=True)).fit_tasks(
+        X, Y, C=CS)
+    assert seen[0] == uncut[kill]
+    same_models(m, ref)
+
 # -- batched multi-problem checkpoints ---------------------------------------
 
 N, D = 384, 24
