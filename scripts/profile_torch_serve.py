@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's LM serving time goes on one GPU.
 
-    python3 scripts/profile_torch_serve.py
+    python3 scripts/profile_torch_serve.py [--arch ARCH]
 
-Builds the full config of ``chip_smoke.py``'s serving arch (``LM_ARCH``,
-random bf16 weights from a seed) with ``repro_torch`` on ``cuda``, warms
+Builds the full config of ``--arch`` (default ``chip_smoke.py``'s serving
+arch ``LM_ARCH``, or one of its ``LM_FAMILIES`` archs at the depth the
+smoke serves it at; random bf16 weights from a seed) with ``repro_torch``
+on ``cuda``, warms
 up with one short ``launch.serve.generate``, then traces under
 ``torch.profiler`` one prefill step over the smoke's ``LM_BATCH`` prompts
 of ``LM_PROMPT`` tokens (which fills the KV cache) and ``STEPS`` greedy
@@ -16,7 +18,9 @@ non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import json
 import sys
 import time
@@ -25,7 +29,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from chip_smoke import LM_ARCH, LM_BATCH, LM_PROMPT  # noqa: E402
+from chip_smoke import (LM_ARCH, LM_BATCH, LM_FAMILIES,  # noqa: E402
+                        LM_PROMPT)
 
 STEPS = 8                      # decode steps traced
 
@@ -55,16 +60,22 @@ def _phase(torch, profile, activities, fn) -> dict:
 def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    depth = {LM_ARCH: None, **{a: n for _, a, n in LM_FAMILIES}}
+    ap = argparse.ArgumentParser(prog="profile_torch_serve.py")
+    ap.add_argument("--arch", default=LM_ARCH, choices=list(depth))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
-    from repro_torch import configs
     from repro_torch import device as devmod
     from repro_torch.launch import serve, train_lib
     from repro_torch.models.api import build
 
     dev = devmod.resolve("cuda")
-    cfg = configs.full_config(LM_ARCH)
+    cfg = configs.full_config(args.arch)
+    if depth[args.arch]:
+        cfg = dataclasses.replace(cfg, n_layers=depth[args.arch])
     model = build(cfg)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(1)
@@ -95,7 +106,8 @@ def main() -> None:
         per = "" if ph == "prefill" else (
             f" = {r['wall_ms'] / STEPS:.2f} ms and "
             f"{r['launches'] / STEPS:.0f} launches per step")
-        print(f"[profile-serve] {name}: {cfg.name} {ph} (B={LM_BATCH}, "
+        print(f"[profile-serve] {name}: {cfg.name} ({cfg.n_layers} layers) "
+              f"{ph} (B={LM_BATCH}, "
               f"prompt {LM_PROMPT}{'' if ph == 'prefill' else f', {STEPS} steps'}): "
               f"wall {r['wall_ms']:.1f} ms{per}, device kernel time "
               f"{r['device_ms']:.1f} ms = {100 * r['busy_share']:.1f}% busy, "
@@ -104,6 +116,7 @@ def main() -> None:
             print(f"[profile-serve]   {t['ms']:9.2f} ms  {t['count']:6d} x  "
                   f"{t['name'][:90]}")
     print(json.dumps({"device": name, "arch": cfg.name,
+                      "layers": cfg.n_layers,
                       "batch": LM_BATCH, "prompt_len": LM_PROMPT,
                       "steps": STEPS, **out}))
 

@@ -134,14 +134,14 @@ def model_config(fields: dict) -> ModelConfig:
                           if k not in _DROP})
 
 
-def lm_params(tree: dict, cfg: ModelConfig, device: str = "cuda") -> dict:
+def lm_params(tree: dict, device: str = "cuda") -> dict:
     """The port's parameter tree from the reference's, given as nested
-    dicts of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``).
-    Leaves keep their type; bf16 leaves (``ml_dtypes.bfloat16`` arrays) go
-    through float32, which holds every bf16 value exactly. Dense
-    transformer trees only (``api.build(cfg)`` must accept ``cfg``)."""
-    from repro_torch.models.api import build
-    build(cfg)                          # refuses the families not ported
+    dicts of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``): any
+    family's, stacked groups (``groups``, ``m_groups``, ...) included.
+    Leaves keep their type, so the fp32 leaves of a bf16 config (an MoE
+    ``router``, xLSTM gates, Zamba2's ``a_log`` / ``dt_bias``) stay fp32;
+    bf16 leaves (``ml_dtypes.bfloat16`` arrays) go through float32, which
+    holds every bf16 value exactly."""
     dev = devmod.resolve(device)
 
     def leaf(a) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Unified serving launcher: SVM scoring, or LM serving — prefill a batch
-of prompts, then greedy-decode against the KV cache (twin of
-``repro.launch.serve`` and the ``examples/serve_lm.py`` it runs).
+of prompts, then greedy-decode against the family's cache (KV cache /
+mLSTM and sLSTM states / Mamba2 states and shared-attention KV; twin of
+``repro.launch.serve`` and the ``examples/serve_lm.py`` it runs). Every
+arch of ``configs.ARCH_IDS`` serves.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --device cpu            # the arch's smoke config; default cuda
@@ -15,8 +17,11 @@ Same flags and the same smoke config as the reference example, plus
 ``--device``. ``generate`` is the library function (``chip_smoke.py``
 calls it with a full config). Unlike the example, which builds the cache
 by one-token decode over the prompt, the prompt goes through the prefill
-step in one pass (through the flash kernel on the card) and that pass
-fills the cache.
+step in one pass (attention through the flash kernel on the card, the
+recurrent families' chunkwise scans) and that pass fills the cache. An
+MoE prefill drops (token, slot) pairs over an expert's capacity as the
+reference's forward does, which one-token decode never does, so its
+continuation can differ from the example's.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ def generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
              n_tokens: int, embed_table: "torch.Tensor | None" = None
              ) -> dict:
     """Greedy continuation of ``prompts`` (B, Lp) int tokens: one prefill
-    step over the prompts (which fills the KV cache), then ``n_tokens - 1``
-    decode steps. The embeds frontend maps tokens to inputs through
+    step over the prompts (which fills the family's cache), then
+    ``n_tokens - 1`` decode steps. The recurrent families need Lp to be a
+    multiple of ``min(cfg.chunk, Lp)``. The embeds frontend maps tokens to inputs through
     ``embed_table`` (V, d), as the reference example does. Returns
     ``tokens`` (B, n_tokens), the wall seconds of the prefill and of the
     decode steps (each ending in a device synchronise), and the cache."""

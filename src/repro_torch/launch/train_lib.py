@@ -12,9 +12,10 @@ from repro_torch.models.api import ModelConfig, build
 
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: forward over the prompt; returns the last position's greedy
-    next token (B,). Given an empty KV cache (``init_cache``), the same
-    pass also fills it with the prompt's K / V, so decoding goes on from
-    position L (the reference's step leaves the cache to the caller)."""
+    next token (B,). Given an empty cache (``init_cache``), the same pass
+    also fills it (the prompt's K / V; the recurrent families' end
+    states), so decoding goes on from position L (the reference's step
+    leaves the cache to the caller)."""
     model = build(cfg)
 
     def prefill_step(params: dict, batch: dict,

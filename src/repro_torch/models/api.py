@@ -9,9 +9,9 @@ eagerly on one device, with a Python loop over layers. ``use_flash`` and
 ``attn_block_q``, which choose the attention path there, are kept and have
 no effect either: prefill attention always goes through
 ``ops.flash_attention`` (the kernel on the card, its plain version on the
-CPU), as every kernel of the port is chosen by tensor device. The port serves the
-dense transformer family (dense / vlm / audio without experts); ``build``
-raises ``NotImplementedError`` for the families of later slices.
+CPU), as every kernel of the port is chosen by tensor device. ``build``
+accepts every family the reference builds: the transformer (dense / moe /
+vlm / audio), xLSTM (``ssm``) and Zamba2 (``hybrid``).
 """
 from __future__ import annotations
 
@@ -117,14 +117,11 @@ class ModelConfig:
 
 def build(cfg: ModelConfig):
     """Returns the family module implementing init/forward/init_cache/decode."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (xLSTM / Zamba2) is not "
-            "ported yet; it comes with the xLSTM/Zamba2 slice (ROADMAP item "
-            "14)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported yet; they "
-            "come with the MoE slice (ROADMAP item 14)")
+    if cfg.family == "ssm":
+        from repro_torch.models import xlstm
+        return xlstm
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba
+        return zamba
     from repro_torch.models import transformer
     return transformer

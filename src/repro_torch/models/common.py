@@ -10,6 +10,8 @@ The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +31,38 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                ) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
     return _normal(generator, (d_in, d_out), dtype, scale)
+
+
+def stacked(lead: tuple, draw) -> dict:
+    """Per-layer parameters stacked on the leading dims ``lead`` (e.g.
+    ``(G, every)``): ``draw()`` gives one layer's (name, tensor) pairs,
+    layer after layer, and each tensor is written into its stacked tensor
+    (allocated at the first layer) as it comes, so a lazy ``draw`` holds
+    one layer tensor beside the stack at a time."""
+    out = {}
+    for idx in itertools.product(*map(range, lead)):
+        for k, v in draw():
+            if k not in out:
+                out[k] = torch.empty((*lead, *v.shape), dtype=v.dtype,
+                                     device=v.device)
+            out[k][idx] = v
+    return out
+
+
+def at(tree: dict, *idx) -> dict:
+    """One layer's weights (views) from a stacked dict."""
+    return {k: w[idx] for k, w in tree.items()}
+
+
+def scan_chunk(chunk: int, L: int) -> int:
+    """The chunk of a chunkwise scan over L positions, ``min(chunk, L)``
+    as in the reference, whose reshape needs L to be a multiple of it;
+    raises ``ValueError`` otherwise (padding would change the function)."""
+    c = min(chunk, L)
+    if L % c:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"scan chunk {c} (cfg.chunk = {chunk})")
+    return c
 
 
 # ------------------------------------------------------------------ norms

@@ -1,8 +1,9 @@
-"""Decoder-only transformer of the dense / VLM / audio archs (twin of
-``repro.models.transformer``): GQA + RoPE + RMSNorm + SwiGLU, optional
-QKV bias (qwen), optional stub frontend (precomputed embeddings instead of
-a token lookup). Mixture-of-experts layers come with a later slice
-(``api.build`` refuses MoE configs).
+"""Decoder-only transformer of the dense / MoE / VLM / audio archs (twin
+of ``repro.models.transformer``): GQA + RoPE + RMSNorm + SwiGLU, optional
+QKV bias (qwen), optional mixture-of-experts FFN (top-k softmax router,
+capacity-bounded dispatch per sequence, both of the reference's dispatch
+implementations), optional stub frontend (precomputed embeddings instead
+of a token lookup).
 
 The parameter tree is the reference's: per-layer weights stacked on a
 leading ``n_layers`` axis under ``layers``, plus ``ln_f``, ``unembed`` and
@@ -22,6 +23,7 @@ from the reference, neither changing the function:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.api import ModelConfig
@@ -34,47 +36,52 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 # ----------------------------------------------------------------- params
-def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random parameters in ``cfg.dtype`` (the reference's scales), drawn
-    from ``generator`` one layer at a time (a full-width stacked weight is
-    never materialised in fp32), on the generator's device."""
+def _init_layer(cfg: ModelConfig, generator: torch.Generator):
+    """One layer's (name, tensor) pairs, each drawn when it is reached (an
+    MoE layer's expert weights are ~2.5 GB a layer at phi3.5-moe's
+    width)."""
     d, hd, H, Hkv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, \
         cfg.d_ff
     dt = dtype_of(cfg)
     dev = generator.device
-    n = cfg.n_layers
-    normal = {  # name -> (per-layer shape, scale)
-        "wq": ((d, H, hd), d ** -0.5),
-        "wk": ((d, Hkv, hd), d ** -0.5),
-        "wv": ((d, Hkv, hd), d ** -0.5),
-        "wo": ((H, hd, d), (H * hd) ** -0.5),
-        "w_gate": ((d, ff), d ** -0.5),
-        "w_up": ((d, ff), d ** -0.5),
-        "w_down": ((ff, d), ff ** -0.5),
-    }
-    layers = {"ln1": torch.ones((n, d), dtype=dt, device=dev),
-              "ln2": torch.ones((n, d), dtype=dt, device=dev)}
-    for name, (shape, _) in normal.items():
-        layers[name] = torch.empty((n, *shape), dtype=dt, device=dev)
-    for i in range(n):
-        for name, (shape, scale) in normal.items():
-            layers[name][i] = common._normal(generator, shape, dt, scale)
+    nrm = lambda shape, scale, t=dt: common._normal(generator, shape, t,
+                                                    scale)
+    yield "ln1", torch.ones((d,), dtype=dt, device=dev)
+    yield "ln2", torch.ones((d,), dtype=dt, device=dev)
+    yield "wq", nrm((d, H, hd), d ** -0.5)
+    yield "wk", nrm((d, Hkv, hd), d ** -0.5)
+    yield "wv", nrm((d, Hkv, hd), d ** -0.5)
+    yield "wo", nrm((H, hd, d), (H * hd) ** -0.5)
+    if cfg.is_moe:
+        E = cfg.n_experts
+        yield "router", nrm((d, E), d ** -0.5, torch.float32)
+        yield "we_gate", nrm((E, d, ff), d ** -0.5)
+        yield "we_up", nrm((E, d, ff), d ** -0.5)
+        yield "we_down", nrm((E, ff, d), ff ** -0.5)
+    else:
+        yield "w_gate", nrm((d, ff), d ** -0.5)
+        yield "w_up", nrm((d, ff), d ** -0.5)
+        yield "w_down", nrm((ff, d), ff ** -0.5)
     if cfg.qkv_bias:
-        layers["bq"] = torch.zeros((n, H, hd), dtype=dt, device=dev)
-        layers["bk"] = torch.zeros((n, Hkv, hd), dtype=dt, device=dev)
-        layers["bv"] = torch.zeros((n, Hkv, hd), dtype=dt, device=dev)
-    p = {"layers": layers,
-         "ln_f": torch.ones((d,), dtype=dt, device=dev),
+        yield "bq", torch.zeros((H, hd), dtype=dt, device=dev)
+        yield "bk", torch.zeros((Hkv, hd), dtype=dt, device=dev)
+        yield "bv", torch.zeros((Hkv, hd), dtype=dt, device=dev)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Random parameters in ``cfg.dtype`` (the reference's scales; an MoE
+    layer's ``router`` in fp32, as there), drawn from ``generator`` one
+    layer at a time (a full-width stacked weight is never materialised in
+    fp32), on the generator's device."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+    p = {"layers": common.stacked((cfg.n_layers,),
+                                  lambda: _init_layer(cfg, generator)),
+         "ln_f": torch.ones((d,), dtype=dt, device=generator.device),
          "unembed": common._normal(generator, (d, cfg.vocab_size), dt,
                                    d ** -0.5)}
     if cfg.frontend == "tokens":
         p["embed"] = common._normal(generator, (cfg.vocab_size, d), dt, 1.0)
     return p
-
-
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s weights (views into the stacked tree)."""
-    return {k: w[i] for k, w in params["layers"].items()}
 
 
 # ------------------------------------------------------------------ layer
@@ -89,13 +96,92 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     return q, kk, v
 
 
-def _ffn(p: dict, h: torch.Tensor) -> torch.Tensor:
+# ------------------------------------------------------------------- MoE
+def _route(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
+    """Top-k routing and in-expert positions, shared by both dispatch
+    implementations. x: (B, L, d). Capacity ``cap`` per sequence; a
+    (token, slot) pair's position in its expert counts the pairs before it
+    in the flattened (L·k) order (slots in descending gate order, as
+    ``lax.top_k`` gives them), and the pair is kept when it is below
+    ``cap``. Returns (gi, gv, pos, keep, onehot, cap, aux): the Switch
+    load-balance term over the first choice."""
+    B, L, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    cap = max(1, int(cfg.capacity_factor * L * k / E))
+    logits = x.float() @ p["router"]                        # (B, L, E)
+    probs = torch.softmax(logits, dim=-1)
+    gv, gi = torch.topk(probs, k, dim=-1, sorted=True)      # (B, L, k)
+    gv = gv / torch.clamp(gv.sum(-1, keepdim=True), min=1e-9)
+    onehot = F.one_hot(gi, E).float()                       # (B, L, k, E)
+    flat = onehot.reshape(B, L * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat                  # (B, L*k, E)
+    pos = (pos * flat).sum(-1).reshape(B, L, k).to(torch.int32)
+    keep = pos < cap
+    frac = onehot[..., 0, :].mean(dim=(0, 1))
+    mean_p = probs.mean(dim=(0, 1))
+    aux = E * (frac * mean_p).sum()
+    return gi, gv, pos, keep, onehot, cap, aux
+
+
+def _experts(xin: torch.Tensor, p: dict) -> torch.Tensor:
+    """xin: (E, B, cap, d) -> (E, B, cap, d): each expert's SwiGLU."""
+    h = F.silu(torch.einsum("ebcd,edf->ebcf", xin, p["we_gate"])) \
+        * torch.einsum("ebcd,edf->ebcf", xin, p["we_up"])
+    return torch.einsum("ebcf,efd->ebcd", h, p["we_down"])
+
+
+def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
+    """Capacity-bounded top-k MoE over x (B, L, d); each sequence is a
+    dispatch group. ``cfg.moe_impl`` picks the reference's dispatch:
+    'einsum' (GShard one-hot dispatch and combine products) or 'scatter'
+    (tokens added into (B, E·cap + 1, d) slots, the last a sentinel that
+    takes the dropped pairs and is sliced away, then gathered back). The
+    combine runs in x's type, gates rounded to it first. Returns (y, aux)."""
+    B, L, d = x.shape
+    E = cfg.n_experts
+    gi, gv, pos, keep, onehot, cap, aux = _route(x, p, cfg)
+
+    if cfg.moe_impl == "einsum":
+        kept = onehot * keep.float()[..., None]
+        # one_hot of a position >= cap is all zeros, as jax.nn.one_hot's
+        disp_pos = (pos[..., None].long() == torch.arange(
+            cap, device=x.device)).float()                  # (B, L, k, cap)
+        dmat = torch.einsum("blke,blkc->blec", kept, disp_pos).to(x.dtype)
+        comb = torch.einsum("blke,blkc,blk->blec", kept, disp_pos,
+                            gv).to(x.dtype)
+        xin = torch.einsum("blec,bld->ebcd", dmat, x)
+        out_e = _experts(xin, p)
+        return torch.einsum("blec,ebcd->bld", comb, out_e), aux
+
+    k = cfg.top_k
+    slot = torch.where(keep, gi * cap + pos, E * cap)       # (B, L, k)
+    bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, L, k)
+    buf = torch.zeros((B, E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((bidx, slot), x[:, :, None, :].expand(B, L, k, d),
+                   accumulate=True)
+    xin = buf[:, :-1].reshape(B, E, cap, d).permute(1, 0, 2, 3)
+    out_e = _experts(xin, p)                                # (E, B, cap, d)
+    out_b = torch.cat([out_e.permute(1, 0, 2, 3).reshape(B, E * cap, d),
+                       torch.zeros((B, 1, d), dtype=x.dtype,
+                                   device=x.device)], dim=1)  # dropped -> 0
+    gathered = out_b[bidx, slot]                            # (B, L, k, d)
+    return torch.einsum("blkd,blk->bld", gathered, gv.to(x.dtype)), aux
+
+
+# ------------------------------------------------------------------ layer
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
+    """The layer's second half: h + FFN(norm(h)), and the MoE aux term (a
+    0-d fp32 zero for a dense layer)."""
     x = common.rms_norm(h, p["ln2"])
-    return h + common.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.is_moe:
+        y, aux = _moe_ffn(x, p, cfg)
+        return h + y, aux
+    y = common.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _layer(cfg: ModelConfig, p: dict, h: torch.Tensor,
-           positions: torch.Tensor, kv_out=None) -> torch.Tensor:
+           positions: torch.Tensor, kv_out=None) -> tuple:
     x = common.rms_norm(h, p["ln1"])
     q, kk, v = _qkv(cfg, p, x, positions)
     if kv_out is not None:                       # prefill fills the cache
@@ -104,7 +190,7 @@ def _layer(cfg: ModelConfig, p: dict, h: torch.Tensor,
         vc[:, : v.shape[1]] = v
     attn = common.attention(q, kk, v, causal=True)
     h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
-    return _ffn(p, h)
+    return _ffn(cfg, p, h)
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -121,7 +207,8 @@ def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             cache: "dict | None" = None) -> tuple:
     """batch: {'tokens': (B, L)} or {'embeds': (B, L, d)}. Returns
-    (logits (B, L, V), aux_loss 0-d tensor: 0 for dense layers). With
+    (logits (B, L, V), aux_loss 0-d fp32 tensor: the MoE layers' aux terms
+    summed, 0 for dense layers). With
     ``cache`` (from ``init_cache``, position 0), each layer's K / V are
     also written to its first L rows and the cache's position becomes L."""
     h = _embed_in(params, cfg, batch)
@@ -132,12 +219,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
             raise ValueError(f"prefill needs an empty cache of >= {L} rows, "
                              f"got pos {cache['pos']} of "
                              f"{cache['k'].shape[2]}")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
-        h = _layer(cfg, layer_params(params, i), h, positions, kv)
+        h, a = _layer(cfg, common.at(params["layers"], i), h, positions, kv)
+        aux = aux + a
     if cache is not None:
         cache["pos"] = L
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, h), aux
 
 
@@ -181,7 +269,7 @@ def _decode_layer(cfg: ModelConfig, p: dict, kc: torch.Tensor,
     vc[:, pos] = v[:, 0]
     attn = _decode_attention(q, kc, vc, pos)
     h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
-    return _ffn(p, h)
+    return _ffn(cfg, p, h)[0]
 
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
@@ -193,7 +281,7 @@ def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"KV cache full ({pos} rows)")
     for i in range(cfg.n_layers):
-        h = _decode_layer(cfg, layer_params(params, i), cache["k"][i],
+        h = _decode_layer(cfg, common.at(params["layers"], i), cache["k"][i],
                           cache["v"][i], h, pos)
     return _logits(params, h), {"k": cache["k"], "v": cache["v"],
                                 "pos": pos + 1}

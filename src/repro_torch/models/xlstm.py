@@ -1,0 +1,327 @@
+"""xLSTM (twin of ``repro.models.xlstm``, arXiv:2405.04517): mLSTM
+(matrix memory, chunkwise-parallel) and sLSTM (scalar memory, recurrent)
+blocks.
+
+Layout: groups of (slstm_every - 1) mLSTM blocks followed by one sLSTM
+block, then a tail of mLSTM blocks; the blocks are gated up / down
+projections (mLSTM pf = 2, sLSTM pf = 4/3), no separate FFN (d_ff = 0).
+
+The mLSTM runs a prompt in the reference's chunkwise form (exact,
+stabilized): within a chunk D_ij = b_i - b_j + ig_j gives an
+attention-like (c x c) product; across chunks a (dh x dh) matrix memory C,
+normalizer n and log-space stabilizer m carry. Decode is the single-step
+recurrence on (C, n, m). The two forms keep (C, n) scaled by exp(-m) for
+different m, so a prefill-filled state and a decode-built one agree in
+C·exp(m) and n·exp(m), not in raw C. The chunk scan runs over the batch
+and head axes at once and returns its end state, so ``forward`` fills a
+decode cache in the prefill pass (``cache=``): each mLSTM layer's end
+(C, n, m) and each sLSTM layer's end (c, n, h, m).
+
+The parameter tree is the reference's: ``m_groups`` (G, M, ...),
+``s_groups`` (G, ...), ``m_tail`` (tail, ...), ``embed``, ``unembed``,
+``ln_f``; the gate weights (``w_gates``, ``b_gates``, ``wx``, ``r``,
+``bias``) are fp32 in every config.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common, transformer
+from repro_torch.models.api import ModelConfig
+
+_NEG = -1e30
+
+
+# ----------------------------------------------------------- mLSTM core
+def _mlstm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      ig: torch.Tensor, lf: torch.Tensor, chunk: int
+                      ) -> tuple:
+    """q, k: (..., L, dhk); v: (..., L, dhv); ig / lf: (..., L) raw input
+    gate and log-sigmoid forget gate. L must be a multiple of ``chunk``.
+    Returns h (..., L, dhv) and the end state (C (..., dhk, dhv),
+    n (..., dhk), m (...)), one stabilizer per chunk as in the reference."""
+    *lead, L, dhk = q.shape
+    dhv = v.shape[-1]
+    scale = dhk ** -0.5
+    dev = q.device
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=dev).tril()
+    C = torch.zeros((*lead, dhk, dhv), dtype=torch.float32, device=dev)
+    n = torch.zeros((*lead, dhk), dtype=torch.float32, device=dev)
+    m = torch.zeros(lead, dtype=torch.float32, device=dev)
+    hs = []
+    for s in range(0, L, chunk):
+        q_c = q[..., s: s + chunk, :]
+        k_c = k[..., s: s + chunk, :]
+        v_c = v[..., s: s + chunk, :]
+        ig_c = ig[..., s: s + chunk]
+        b = torch.cumsum(lf[..., s: s + chunk], dim=-1)       # (..., c)
+        tot = b[..., -1]
+        # D_ij = (b_i - b_j) + ig_j  for j <= i
+        D = (b[..., :, None] - b[..., None, :]
+             + ig_c[..., None, :]).masked_fill(~tri, _NEG)
+        inter = m[..., None] + b                              # (..., c)
+        m_c = torch.maximum(D.amax(dim=(-2, -1)), inter.amax(dim=-1))
+        S = (q_c @ k_c.transpose(-1, -2)) * scale \
+            * torch.exp(D - m_c[..., None, None])             # (..., c, c)
+        w_int = torch.exp(inter - m_c[..., None])             # (..., c)
+        num = S @ v_c + w_int[..., None] * ((q_c @ C) * scale)
+        den = S.sum(-1) + (w_int * (q_c @ n[..., None])[..., 0]) * scale
+        den = torch.maximum(den.abs(), torch.exp(-m_c)[..., None])
+        hs.append(num / den[..., None])
+        # state to the chunk's end
+        m_new = torch.maximum(m + tot,
+                              (tot[..., None] - b + ig_c).amax(dim=-1))
+        dk = torch.exp(tot[..., None] - b + ig_c - m_new[..., None])
+        decay = torch.exp(m + tot - m_new)
+        kd = k_c * dk[..., None]
+        C = decay[..., None, None] * C + kd.transpose(-1, -2) @ v_c
+        n = decay[..., None] * n + kd.sum(dim=-2)
+        m = m_new
+    return torch.cat(hs, dim=-2), (C, n, m)
+
+
+def _mlstm_decode_step(C, n, m_prev, q, k, v, ig, lf) -> tuple:
+    """One-token mLSTM recurrence over leading dims: C (..., dhk, dhv),
+    n / q / k (..., dhk), v (..., dhv), m_prev / ig / lf (...). Returns
+    (C, n, m, h (..., dhv))."""
+    scale = q.shape[-1] ** -0.5
+    m_new = torch.maximum(lf + m_prev, ig)
+    fp = torch.exp(lf + m_prev - m_new)
+    ip = torch.exp(ig - m_new)
+    C = fp[..., None, None] * C + ip[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n = fp[..., None] * n + ip[..., None] * k
+    num = (q[..., None, :] @ C)[..., 0, :] * scale
+    den = torch.maximum((q * n).sum(-1).abs() * scale, torch.exp(-m_new))
+    return C, n, m_new, num / den[..., None]
+
+
+# ---------------------------------------------------------- mLSTM block
+def _init_mlstm(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    d = cfg.d_model
+    di = 2 * d                     # pf = 2 up-projection
+    H = cfg.n_heads
+    dh = di // H
+    dt = transformer.dtype_of(cfg)
+    dev = generator.device
+    nrm = lambda shape, t, scale: common._normal(generator, shape, t, scale)
+    return {
+        "ln": torch.ones((d,), dtype=dt, device=dev),
+        "w_up": nrm((d, 2 * di), dt, d ** -0.5),              # x | z
+        "wq": nrm((di, H, dh), dt, di ** -0.5),
+        "wk": nrm((di, H, dh), dt, di ** -0.5),
+        "wv": nrm((di, H, dh), dt, di ** -0.5),
+        "w_gates": nrm((di, 2, H), torch.float32, di ** -0.5),
+        "b_gates": torch.tensor([0.0, 3.0], device=dev)[:, None].expand(
+            2, H).contiguous(),                               # i, f bias
+        "ln_h": torch.ones((di,), dtype=dt, device=dev),
+        "w_down": nrm((di, d), dt, di ** -0.5),
+    }
+
+
+def _mlstm_in(p: dict, h: torch.Tensor, eq: str) -> tuple:
+    """The block's projections: (q, k, v fp32 by ``eq``, ig, lf, z)."""
+    x = common.rms_norm(h, p["ln"])
+    xm, z = torch.chunk(x @ p["w_up"], 2, dim=-1)             # (B, L, di)
+    q, k, v = (torch.einsum(eq, xm, p[w]).float() for w in ("wq", "wk", "wv"))
+    gates = torch.einsum("bld,dgh->bghl", xm.float(), p["w_gates"]) \
+        + p["b_gates"][None, :, :, None]                      # (B, 2, H, L)
+    return q, k, v, gates[:, 0], F.logsigmoid(gates[:, 1]), z
+
+
+def _mlstm_out(p: dict, h: torch.Tensor, hh: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """hh (B, H, L, dh) fp32 -> h + down(norm(hh) * silu(z))."""
+    B, _, L, _ = hh.shape
+    hh = hh.transpose(1, 2).reshape(B, L, -1).to(h.dtype)
+    hh = common.rms_norm(hh, p["ln_h"]) * F.silu(z)
+    return h + hh @ p["w_down"]
+
+
+def _mlstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
+    """Chunkwise mLSTM over h (B, L, d); returns (h, end (C, n, m))."""
+    q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhlk")
+    chunk = common.scan_chunk(cfg.chunk, h.shape[1])
+    hh, state = _mlstm_chunk_scan(q, k, v, ig, lf, chunk)    # (B, H, L, dh)
+    return _mlstm_out(p, h, hh, z), state
+
+
+def _mlstm_decode_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                        C, n, m) -> tuple:
+    """One token h (B, 1, d) from (C (B, H, dh, dh), n, m)."""
+    q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhk")
+    C, n, m, hh = _mlstm_decode_step(C, n, m, q, k, v, ig[..., 0],
+                                     lf[..., 0])
+    return _mlstm_out(p, h, hh[:, :, None], z), (C, n, m)
+
+
+# ---------------------------------------------------------- sLSTM block
+def _init_slstm(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    d = cfg.d_model
+    H = cfg.n_heads
+    dh = d // H
+    ff = max(1, (4 * d) // 3)      # pf = 4/3 post-block MLP
+    dt = transformer.dtype_of(cfg)
+    dev = generator.device
+    nrm = lambda shape, t, scale: common._normal(generator, shape, t, scale)
+    bias = torch.zeros((4, H, dh), dtype=torch.float32, device=dev)
+    bias[1] = 3.0                  # forget-gate bias
+    return {
+        "ln": torch.ones((d,), dtype=dt, device=dev),
+        "wx": nrm((d, 4, H, dh), torch.float32, d ** -0.5),
+        "r": nrm((4, H, dh, dh), torch.float32, dh ** -0.5),
+        "bias": bias,
+        "ln_h": torch.ones((d,), dtype=dt, device=dev),
+        "w_up": nrm((d, ff), dt, d ** -0.5),
+        "w_gate": nrm((d, ff), dt, d ** -0.5),
+        "w_down": nrm((ff, d), dt, ff ** -0.5),
+    }
+
+
+def _slstm_scan(p: dict, x: torch.Tensor, state: tuple) -> tuple:
+    """x: (B, L, 4, H, dh) preactivations, recurrent over L from state
+    (c, n, h, m), each (B, H, dh). Returns (h (B, L, H, dh), end state)."""
+    c, n, hs, m = state
+    out = []
+    for t in range(x.shape[1]):
+        pre = x[:, t] + torch.einsum("bhk,ghkj->bghj", hs, p["r"]) \
+            + p["bias"]
+        # gate order: z, f, i, o
+        zt = torch.tanh(pre[:, 0])
+        lf = F.logsigmoid(pre[:, 1])
+        it = pre[:, 2]
+        ot = torch.sigmoid(pre[:, 3])
+        m_new = torch.maximum(lf + m, it)
+        fp = torch.exp(lf + m - m_new)
+        ip = torch.exp(it - m_new)
+        c = fp * c + ip * zt
+        n = fp * n + ip
+        hs = ot * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        out.append(hs)
+    return torch.stack(out, dim=1), (c, n, hs, m)
+
+
+def _slstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                 state: "tuple | None" = None) -> tuple:
+    B, L, d = h.shape
+    H = cfg.n_heads
+    x = common.rms_norm(h, p["ln"])
+    pre = torch.einsum("bld,dghk->blghk", x.float(), p["wx"])
+    if state is None:
+        z = torch.zeros((B, H, d // H), dtype=torch.float32, device=h.device)
+        state = (z, z, z, z)
+    hseq, state = _slstm_scan(p, pre, state)                  # (B, L, H, dh)
+    hh = common.rms_norm(hseq.reshape(B, L, d).to(h.dtype), p["ln_h"])
+    h = h + hh
+    x2 = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
+    return h + x2 @ p["w_down"], state
+
+
+# ------------------------------------------------------------- full model
+def _group_struct(cfg: ModelConfig) -> tuple:
+    every = cfg.slstm_every or (cfg.n_layers + 1)
+    G = cfg.n_layers // every
+    return G, every - 1, cfg.n_layers - G * every
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Random parameters (the reference's scales; gate weights fp32), one
+    layer at a time, on the generator's device."""
+    dt = transformer.dtype_of(cfg)
+    G, M, tail = _group_struct(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    p = {"ln_f": torch.ones((d,), dtype=dt, device=generator.device),
+         "embed": common._normal(generator, (V, d), dt, 1.0),
+         "unembed": common._normal(generator, (d, V), dt, d ** -0.5)}
+    m_draw = lambda: _init_mlstm(cfg, generator).items()
+    if G:
+        p["m_groups"] = common.stacked((G, M), m_draw)
+        p["s_groups"] = common.stacked(
+            (G,), lambda: _init_slstm(cfg, generator).items())
+    if tail:
+        p["m_tail"] = common.stacked((tail,), m_draw)
+    return p
+
+
+def _schedule(cfg: ModelConfig, params: dict) -> list:
+    """The blocks in order, each as (kind "m" / "s", weights, its state's
+    cache keys (None: ``s_state``), index into those caches)."""
+    G, M, tail = _group_struct(cfg)
+    out = []
+    for g in range(G):
+        out += [("m", common.at(params["m_groups"], g, j),
+                 ("m_C", "m_n", "m_m"), (g, j)) for j in range(M)]
+        out.append(("s", common.at(params["s_groups"], g), None, g))
+    out += [("m", common.at(params["m_tail"], j), ("t_C", "t_n", "t_m"), (j,))
+            for j in range(tail)]
+    return out
+
+
+def _bufs(cache: dict, keys) -> tuple:
+    """The cache tensors of one block's state, in the state's order."""
+    return cache["s_state"] if keys is None else tuple(cache[k] for k in keys)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            cache: "dict | None" = None) -> tuple:
+    """batch: {'tokens': (B, L)}, L a multiple of ``min(cfg.chunk, L)``.
+    Returns (logits (B, L, V), aux 0-d fp32 zero). With ``cache`` (from
+    ``init_cache``, position 0), the same pass writes each block's end
+    state into it; its position becomes L."""
+    h = params["embed"][batch["tokens"].long()]
+    if cache is not None and cache["pos"] != 0:
+        raise ValueError(f"prefill needs an empty cache, got pos "
+                         f"{cache['pos']}")
+    for kind, lp, keys, idx in _schedule(cfg, params):
+        block = _slstm_block if kind == "s" else _mlstm_block
+        h, state = block(cfg, lp, h)
+        if cache is not None:
+            for b, st in zip(_bufs(cache, keys), state):
+                b[idx].copy_(st)
+    if cache is not None:
+        cache["pos"] = h.shape[1]
+    return transformer._logits(params, h), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
+
+
+# ----------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: "torch.device | str" = "cuda") -> dict:
+    """The reference's constant-size state, fp32: each mLSTM block's (C,
+    n, m) and each sLSTM block's (c, n, h, m) (``s_state``, a tuple);
+    ``max_len`` is kept for the interface. ``pos`` (a Python int) is the
+    number of positions seen."""
+    G, M, tail = _group_struct(cfg)
+    H = cfg.n_heads
+    dh_m = 2 * cfg.d_model // H
+    dh_s = cfg.d_model // H
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    cache = {"pos": 0}
+    if G:
+        cache["m_C"] = z(G, M, batch, H, dh_m, dh_m)
+        cache["m_n"] = z(G, M, batch, H, dh_m)
+        cache["m_m"] = z(G, M, batch, H)
+        cache["s_state"] = tuple(z(G, batch, H, dh_s) for _ in range(4))
+    if tail:
+        cache["t_C"] = z(tail, batch, H, dh_m, dh_m)
+        cache["t_n"] = z(tail, batch, H, dh_m)
+        cache["t_m"] = z(tail, batch, H)
+    return cache
+
+
+def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
+    """One decode step. batch: {'tokens': (B, 1)}. Returns (logits (B, 1,
+    V), cache): the same tensors, written in place, with ``pos + 1``."""
+    h = params["embed"][batch["tokens"].long()]
+    for kind, lp, keys, idx in _schedule(cfg, params):
+        bufs = _bufs(cache, keys)
+        state = tuple(b[idx] for b in bufs)
+        if kind == "s":
+            h, state = _slstm_block(cfg, lp, h, state)
+        else:
+            h, state = _mlstm_decode_block(cfg, lp, h, *state)
+        for b, st in zip(bufs, state):
+            b[idx].copy_(st)
+    return transformer._logits(params, h), dict(cache, pos=cache["pos"] + 1)

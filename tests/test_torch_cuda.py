@@ -376,6 +376,70 @@ def test_cuda_serve_cli_launches_flash_attention(cuda_device):
     assert cuda.launches["flash_attention"] == cfg.n_layers
 
 
+# -- the MoE, Zamba2 and xLSTM serving paths ---------------------------------
+
+def _tree_to(tree: dict, dev) -> dict:
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "zamba2-1.2b",
+                                  "xlstm-125m"])
+def test_cuda_family_forward_matches_cpu(cuda_device, arch):
+    """A smoke-config prefill on the card (MoE layers and Zamba2's shared
+    block through the flash kernel: once a layer / once a shared-block
+    invocation; xLSTM through no kernel) equals the same weights' prefill
+    on the CPU, the plain versions (fp32, 1e-4; MoE in both dispatch
+    modes and with capacity drops); the prefill-filled cache continues as
+    on the CPU."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.api import build
+    base = configs.smoke_config(arch)
+    overs = [{}, {"moe_impl": "einsum"}, {"capacity_factor": 0.25}] \
+        if base.is_moe else [{}]
+    r = np.random.default_rng(0)
+    tokens = torch.as_tensor(r.integers(0, base.vocab_size, (2, 32)))
+    for over in overs:
+        cfg = dataclasses.replace(base, **over)
+        model = build(cfg)
+        params = model.init(cfg, torch.Generator().manual_seed(0))
+        on = _tree_to(params, cuda_device)
+        cpu_cache = model.init_cache(cfg, 2, 33, device="cpu")
+        want, want_aux = model.forward(params, cfg, {"tokens": tokens},
+                                       cache=cpu_cache)
+        cache = model.init_cache(cfg, 2, 33, device=cuda_device)
+        cuda.reset_launches()
+        got, aux = model.forward(on, cfg, {"tokens": tokens.to(cuda_device)},
+                                 cache=cache)
+        want_fa = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                   "ssm": 0}.get(cfg.family, cfg.n_layers)
+        assert cuda.launches["flash_attention"] == want_fa
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5,
+                                   atol=1e-5)
+        nxt = tokens[:, :1]
+        lw, _ = model.decode(params, cfg, cpu_cache, {"tokens": nxt})
+        lg, _ = model.decode(on, cfg, cache, {"tokens": nxt.to(cuda_device)})
+        torch.testing.assert_close(lg.cpu(), lw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "zamba2-1.2b",
+                                  "xlstm-125m"])
+def test_cuda_serve_cli_serves_every_family(cuda_device, arch):
+    """The serving CLI on the card (its default device) for the families
+    of this slice: the generated ids lie in the vocabulary."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", arch, "--tokens", "4", "--batch", "2"])
+    toks = res["tokens"]
+    assert toks.device.type == "cuda" and toks.shape == (2, 4)
+    assert 0 <= int(toks.min()) and int(toks.max()) < \
+        configs.smoke_config(arch).vocab_size
+
+
 # -- the redesigned bodies: bf16 flash on the tensor cores, the dense row
 # stream ----------------------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """The port's LM serving path against the JAX reference on the same numpy
 inputs: the flash kernel's plain version against the Pallas body in
 interpret mode, ``mha`` and the model building blocks, forward logits with
-and without the flash path, decode step by step, greedy serving, and the
-families the port refuses. The CUDA kernel itself is tested in
-``test_torch_cuda.py``."""
+and without the flash path, decode step by step, greedy serving, every
+family through the serving CLI, and the weights each family's tree
+carries across. The MoE and recurrent families are held against the
+reference in ``test_torch_moe.py`` and ``test_torch_recurrent.py``; the
+CUDA kernel itself in ``test_torch_cuda.py``."""
 import dataclasses
 
 import jax
@@ -178,7 +180,7 @@ def _models(arch, seed, **over):
     jcfg = dataclasses.replace(jconfigs.smoke_config(arch), **over)
     jparams = jbuild(jcfg).init(jcfg, jax.random.PRNGKey(seed))
     cfg = convert.model_config(dataclasses.asdict(jcfg))
-    params = convert.lm_params(jax.tree.map(np.asarray, jparams), cfg,
+    params = convert.lm_params(jax.tree.map(np.asarray, jparams),
                                device="cpu")
     return jcfg, jparams, cfg, params
 
@@ -310,24 +312,55 @@ def test_configs_match_reference(arch):
                                         want.total_params())
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("phi3.5-moe-42b-a6.6b", "MoE"), ("llama4-scout-17b-a16e", "MoE"),
-    ("xlstm-125m", "xLSTM"), ("zamba2-1.2b", "Zamba2")])
-def test_later_families_raise(arch, match):
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_family_builds_and_serves(arch, capsys):
+    """Every arch the reference builds has a family module here, and the
+    serving CLI serves its smoke config on the CPU."""
     cfg = configs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=match):
-        build(cfg)
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", arch, "--device", "cpu", "--tokens", "2"])
+    model = build(cfg)
+    assert model is build(cfg) and hasattr(model, "init_cache")
+    res = serve.main(["--arch", arch, "--device", "cpu", "--tokens", "2"])
+    assert res["tokens"].shape == (4, 2)
+    assert 0 <= int(res["tokens"].min()) and int(
+        res["tokens"].max()) < cfg.vocab_size
+    assert f"{arch}: generated (4, 2) on cpu" in capsys.readouterr().out
+
+
+# one tree per family: leaves that stay fp32 in a bf16 config
+_MIXED = {"qwen1.5-32b": (), "phi3.5-moe-42b-a6.6b": ("layers/router",),
+          "xlstm-125m": ("m_groups/w_gates", "m_groups/b_gates",
+                         "s_groups/wx", "s_groups/r", "s_groups/bias"),
+          "zamba2-1.2b": ("groups/a_log", "groups/dt_bias", "tail/a_log",
+                          "tail/dt_bias")}
 
 
 def test_lm_params_keep_bf16_values():
-    jcfg, jparams, cfg, params = _models("qwen1.5-32b", 3, dtype="bfloat16")
-    assert params["layers"]["wq"].dtype == torch.bfloat16
-    assert set(params["layers"]) == set(jparams["layers"])
-    np.testing.assert_array_equal(
-        params["layers"]["wq"].float().numpy(),
-        np.asarray(jparams["layers"]["wq"], np.float32))
+    """``lm_params`` carries each family's tree in a bf16 config: the same
+    keys, bf16 leaves bit for bit, and the reference's fp32 leaves (MoE
+    router, xLSTM gates, Zamba2's SSM decay) fp32."""
+    for arch, fp32 in _MIXED.items():
+        jcfg, jparams, cfg, params = _models(arch, 3, dtype="bfloat16")
+        want = {"/".join(str(k.key) for k in path): np.asarray(leaf)
+                for path, leaf in
+                jax.tree_util.tree_flatten_with_path(jparams)[0]}
+        got = {}
+        for a, sub in params.items():
+            if isinstance(sub, dict):
+                got.update({f"{a}/{b}": t for b, t in sub.items()})
+            else:
+                got[a] = sub
+        assert set(got) == set(want), arch
+        for k, a in want.items():
+            if k in fp32:
+                assert a.dtype == np.float32 and got[k].dtype == \
+                    torch.float32, (arch, k)
+            else:
+                assert a.dtype.name == "bfloat16" and got[k].dtype == \
+                    torch.bfloat16, (arch, k)
+            np.testing.assert_array_equal(got[k].float().numpy(),
+                                          a.astype(np.float32),
+                                          err_msg=f"{arch} {k}")
+        assert params["unembed"].dtype == torch.bfloat16
 
 
 def test_serve_cli_prefill_goes_through_the_kernel_wrapper(monkeypatch):
