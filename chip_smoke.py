@@ -27,6 +27,14 @@ entry points a user calls:
   groups in fp32 flash == plain and the same cache gate) and
   ``xlstm-125m`` uncut (``[serve-xlstm]``: no kernel; the cache gate in
   fp32);
+* LM training: ``llama3-8b`` at full width cut to 8 of its 32 layers
+  (bf16 params, grads and fp32 AdamW moments of all 32 would not fit the
+  card), remat full, through ``launch.train.train``: one warm-up and 10
+  timed steps of 4 x 1,024 tokens, the flash kernel twice a layer a step
+  (the forward and the remat recompute; the backward recomputes the plain
+  attention), finite falling losses, every leaf updated
+  (``[train-lm]``); at 2 layers in fp32 the loss gradient with the kernel
+  against the plain attention's (``[train-lm-fp32]``);
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
   convergence, a Single-policy wss2 fit at scale 0.05, and
   ``SVMModel.predict`` over the test rows;
@@ -99,6 +107,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1236,6 +1246,193 @@ def serve_family(torch, dev, tag, arch, n_layers, card) -> int:
     del params
     torch.cuda.empty_cache()
     return n_fa
+
+
+# -- LM training --------------------------------------------------------------
+
+# llama3-8b at full width cut to 8 of its 32 layers: all 32 are 8.030 B
+# parameters, 96.4 GB of bf16 params and grads and fp32 AdamW moments (12
+# bytes a parameter), over the card's 80 GB; 8 layers are 2.796 B, 33.5 GB
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10   # after 1 warm-up step
+
+
+def rounds_away(torch, ocfg, opt, p, m, v) -> bool:
+    """Whether the last AdamW update of an unchanged bf16 leaf ``p``,
+    recomputed from the final moments ``m`` / ``v`` (the leaf equals its
+    value before that step), rounds back to ``p`` in its dtype: the update
+    was applied and lost under half an ulp, as it is in the reference."""
+    from repro_torch.optim import adamw
+    step = opt["step"]
+    lr = adamw.schedule(ocfg, step)
+    u = (m / (1 - ocfg.b1 ** step.float())) / (
+        torch.sqrt(v / (1 - ocfg.b2 ** step.float())) + ocfg.eps)
+    if p.ndim >= 2:
+        u = u + ocfg.weight_decay * p.float()
+    return torch.equal((p.float() - lr * u).to(p.dtype), p)
+
+
+def flash_backward_ms(torch, dev, time_ms) -> tuple:
+    """Device ms of the flash Function at the training phase's attention
+    shapes (B 4, H 32, Hkv 8, L 1,024, Dh 128, bf16, causal): the kernel
+    forward, and the backward (the plain recompute through ``ref.mha`` in
+    fp32 and its gradient) as forward + backward less the forward."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(3)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+        torch.bfloat16)
+    ins = (mk(TRAIN_BATCH, 32, TRAIN_SEQ, 128), mk(TRAIN_BATCH, 8, TRAIN_SEQ,
+                                                   128),
+           mk(TRAIN_BATCH, 8, TRAIN_SEQ, 128), mk(TRAIN_BATCH, 32, TRAIN_SEQ,
+                                                  128))
+
+    def fwd_bwd(q, k, v, go):
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ops.flash_attention(*qkv, True), qkv, go)
+
+    t_fwd = time_ms(lambda q, k, v, go: ops.flash_attention(q, k, v, True),
+                    ins, reps=10)
+    t_all = time_ms(fwd_bwd, ins, reps=5)
+    return t_fwd, t_all - t_fwd
+
+
+def train_lm(torch, dev, time_ms, card) -> dict:
+    """The LM training path: llama3-8b at full width, ``TRAIN_LAYERS`` of
+    its 32 layers, bf16, remat full, through ``launch.train.train`` (one
+    warm-up step, then ``TRAIN_STEPS`` timed, each ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens of ``TokenPipeline``); then one loss gradient at
+    the same width, 2 layers, fp32, with the kernel and with the plain
+    attention. Returns the timed steps' flash launches and the flash
+    Function's forward and backward times at the phase's shapes."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train, train_lib
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw
+
+    phase("train-lm")
+    t_phases = time.perf_counter()
+    t_fwd, t_bwd = flash_backward_ms(torch, dev, time_ms)
+    print(f"[train-lm] flash_attention at B {TRAIN_BATCH} H 32 Hkv 8 L "
+          f"{TRAIN_SEQ} Dh 128 bf16 causal: kernel forward {t_fwd:.3f} ms, "
+          f"backward (plain fp32 recompute and its gradient) {t_bwd:.3f} "
+          f"ms", flush=True)
+    full = configs.full_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, decay_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+
+    def on_step(i, rec):
+        if i > 0:
+            per_step.append(cuda.launches["flash_attention"])
+        cuda.reset_launches()     # the timed steps' counts start at step 1
+
+    res = train.train(cfg, ocfg, 1 + TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                      device="cuda", on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params, opt = res["params"], res["opt"]
+    ms = statistics.median(res["seconds"][1:]) * 1e3
+    want = 2 * cfg.n_layers
+    print(f"[train-lm] {cfg.name} full width, cut to {cfg.n_layers} of its "
+          f"{full.n_layers} layers (all {full.n_layers}: 96.4 GB of params, "
+          f"grads and AdamW moments, over the card): d_model {cfg.d_model}, "
+          f"{n_params(params) / 1e9:.3f} B params {cfg.dtype}, remat "
+          f"{cfg.remat} (init {res['init_s']:.1f} s, peak device memory "
+          f"{peak:.1f} GiB); {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, 1 "
+          f"warm-up + {TRAIN_STEPS} timed steps: median {ms:.1f} ms a step, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tok/s; flash_attention "
+          f"launches a step {per_step} (want {want}: forward + remat); card "
+          f"{card}", flush=True)
+    for i, (lo, lr, gn, t) in enumerate(zip(res["loss"], res["lr"],
+                                            res["grad_norm"],
+                                            res["seconds"])):
+        print(f"[train-lm] step {i}: loss {lo:.6f} grad_norm {gn:.6f} lr "
+              f"{lr:.3e} ({t * 1e3:.1f} ms)", flush=True)
+    if not all(map(math.isfinite, res["loss"] + res["grad_norm"])):
+        fail("a loss or grad norm is not finite")
+    if not res["loss"][-1] < res["loss"][0]:
+        fail(f"the loss did not fall: {res['loss'][0]} -> "
+             f"{res['loss'][-1]}")
+    if per_step != [want] * TRAIN_STEPS:
+        fail(f"flash_attention launches a step {per_step}, want {want}")
+    init = build(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0))
+    stayed, no_grad = [], []
+    for path, p0, p, m, v in zip(
+            leaf_paths(init), adamw.leaves(init),
+            adamw.leaves(params), adamw.leaves(opt["m"]),
+            adamw.leaves(opt["v"])):
+        if not bool((m != 0).any()):
+            no_grad.append(path)
+        elif torch.equal(p0, p):
+            stayed.append(path)
+            if not rounds_away(torch, ocfg, opt, p, m, v):
+                no_grad.append(path)
+    print(f"[train-lm] every leaf got a gradient; unchanged from init, "
+          f"their last update lost under half a {cfg.dtype} ulp (lr "
+          f"{res['lr'][-1]:.3e}): {stayed}", flush=True)
+    if no_grad:
+        fail(f"leaves without a gradient or an update: {no_grad}")
+    del init, params, opt, res
+    torch.cuda.empty_cache()
+
+    phase("train-lm-fp32")
+    cfg32 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    params = build(cfg32).init(cfg32,
+                               torch.Generator(device=dev).manual_seed(2))
+    raw = TokenPipeline(cfg32.vocab_size, batch=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ, seed=0).batch_at(0)
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in raw.items()}
+    loss_fn = train_lib.make_loss_fn(cfg32)
+
+    def grads():
+        flat = [w.detach().requires_grad_() for w in adamw.leaves(params)]
+        loss, _ = loss_fn(adamw.tree_like(params, flat), batch)
+        return float(loss.detach()), torch.autograd.grad(loss, flat)
+
+    cuda.reset_launches()
+    l_k, g_k = grads()
+    n_k = cuda.launches["flash_attention"]
+    with plain_attention():
+        l_p, g_p = grads()
+    e_loss = abs(l_k - l_p) / abs(l_p)
+    e_leaf = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(g_k, g_p))
+    nrm_k, nrm_p = (float(adamw.global_norm(g)) for g in (g_k, g_p))
+    e_norm = abs(nrm_k - nrm_p) / nrm_p
+    print(f"[train-lm-fp32] {cfg.name} width, 2 layers, fp32, remat "
+          f"{cfg32.remat}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss gradient "
+          f"with the kernel vs the plain attention: loss {l_k:.7f} vs "
+          f"{l_p:.7f} ({e_loss:.3e} <= 1e-5), worst leaf's max |diff| "
+          f"{e_leaf:.3e} of its max |g| (<= 1e-3), grad norm {nrm_k:.6f} vs "
+          f"{nrm_p:.6f} ({e_norm:.3e} <= 1e-4); flash_attention launches="
+          f"{n_k} (want {2 * cfg32.n_layers}); the two phases "
+          f"{time.perf_counter() - t_phases:.1f} s", flush=True)
+    if not (e_loss <= 1e-5 and e_leaf <= 1e-3 and e_norm <= 1e-4
+            and n_k == 2 * cfg32.n_layers):
+        fail(f"fp32 gates: loss {e_loss:.3e}, leaf {e_leaf:.3e}, norm "
+             f"{e_norm:.3e}, launches {n_k}")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"train_lm_launches": {
+        "per_step": want, "timed_steps": TRAIN_STEPS,
+        "launches": sum(per_step), "arch": cfg.name,
+        "layers": cfg.n_layers},
+        "train_fwd_ms": t_fwd, "train_bwd_ms": t_bwd}
+
+
+def leaf_paths(tree, prefix="") -> list:
+    """The ``/``-joined leaf paths of a nested dict in ``adamw.leaves``
+    order (keys sorted)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += (leaf_paths(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else [prefix + k])
+    return out
 
 
 # the kernel each phase of a main path must launch: (train, wss2, serve)
@@ -2543,6 +2740,7 @@ def main() -> None:
         lm_launches[arch] = serve_family(torch, dev, tag, arch, n_layers,
                                          card)
     kernels["flash_attention"]["lm_launches"] = lm_launches
+    kernels["flash_attention"].update(train_lm(torch, dev, time_ms, card))
     a9a, a9a_wss2, dense_launches, Xt_a9a = run_path(torch, np, dev,
                                                      time_ms, "a9a", "dense")
     launches.update(dense_launches)
@@ -2607,7 +2805,9 @@ def main() -> None:
                                        "hit_ms", "hit_bound_ms",
                                        "cache_launches", "dist_launches",
                                        "multi_launches", "chaos_launches",
-                                       "lm_launches", "serve_shape_ms",
+                                       "lm_launches", "train_lm_launches",
+                                       "train_fwd_ms", "train_bwd_ms",
+                                       "serve_shape_ms",
                                        "zamba_shape_ms", "shape")
                if key in k}, card=card))
     print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)

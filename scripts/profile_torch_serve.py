@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the port's LM serving time goes on one GPU.
+"""Where the port's LM serving (or training) time goes on one GPU.
 
     python3 scripts/profile_torch_serve.py [--arch ARCH]
+    python3 scripts/profile_torch_serve.py --train
 
 Builds the full config of ``--arch`` (default ``chip_smoke.py``'s serving
 arch ``LM_ARCH``, or one of its ``LM_FAMILIES`` archs at the depth the
@@ -15,6 +16,11 @@ wall time, the summed device time of the CUDA kernels (busy share = device
 time / wall time), the kernel launches, and the kernels with the most
 device time; the last line is a JSON summary. Needs a CUDA device; exits
 non-zero without one.
+
+``--train`` traces ``chip_smoke.py``'s ``[train-lm]`` configuration
+instead (llama3-8b, ``TRAIN_LAYERS`` layers, bf16, remat full, AdamW as
+there): after one warm-up step, one whole train step, then the loss and
+its gradients alone and the AdamW update alone.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from chip_smoke import (LM_ARCH, LM_BATCH, LM_FAMILIES,  # noqa: E402
-                        LM_PROMPT)
+                        LM_PROMPT, TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ)
 
 STEPS = 8                      # decode steps traced
 
@@ -64,10 +70,14 @@ def main() -> None:
     depth = {LM_ARCH: None, **{a: n for _, a, n in LM_FAMILIES}}
     ap = argparse.ArgumentParser(prog="profile_torch_serve.py")
     ap.add_argument("--arch", default=LM_ARCH, choices=list(depth))
+    ap.add_argument("--train", action="store_true",
+                    help="trace the smoke's [train-lm] step instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
+    if args.train:
+        return profile_train(torch, profile, ProfilerActivity)
     from repro_torch import device as devmod
     from repro_torch.launch import serve, train_lib
     from repro_torch.models.api import build
@@ -104,21 +114,68 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     for ph, r in out.items():
         per = "" if ph == "prefill" else (
-            f" = {r['wall_ms'] / STEPS:.2f} ms and "
+            f", {STEPS} steps: {r['wall_ms'] / STEPS:.2f} ms and "
             f"{r['launches'] / STEPS:.0f} launches per step")
-        print(f"[profile-serve] {name}: {cfg.name} ({cfg.n_layers} layers) "
-              f"{ph} (B={LM_BATCH}, "
-              f"prompt {LM_PROMPT}{'' if ph == 'prefill' else f', {STEPS} steps'}): "
-              f"wall {r['wall_ms']:.1f} ms{per}, device kernel time "
-              f"{r['device_ms']:.1f} ms = {100 * r['busy_share']:.1f}% busy, "
-              f"{r['launches']} launches (profiler on)")
-        for t in r["top"]:
-            print(f"[profile-serve]   {t['ms']:9.2f} ms  {t['count']:6d} x  "
-                  f"{t['name'][:90]}")
+        _print("profile-serve", name, f"{cfg.name} ({cfg.n_layers} layers) "
+               f"{ph} (B={LM_BATCH}, prompt {LM_PROMPT}{per})", r)
     print(json.dumps({"device": name, "arch": cfg.name,
                       "layers": cfg.n_layers,
                       "batch": LM_BATCH, "prompt_len": LM_PROMPT,
                       "steps": STEPS, **out}))
+
+
+def _print(tag, name, what, r) -> None:
+    print(f"[{tag}] {name}: {what}: wall {r['wall_ms']:.1f} ms, device "
+          f"kernel time {r['device_ms']:.1f} ms = "
+          f"{100 * r['busy_share']:.1f}% busy, {r['launches']} launches "
+          f"(profiler on)")
+    for t in r["top"]:
+        print(f"[{tag}]   {t['ms']:9.2f} ms  {t['count']:6d} x  "
+              f"{t['name'][:90]}")
+
+
+def profile_train(torch, profile, ProfilerActivity) -> None:
+    from repro_torch import configs
+    from repro_torch import device as devmod
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train_lib
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw
+
+    dev = devmod.resolve("cuda")
+    cfg = dataclasses.replace(configs.full_config(LM_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, decay_steps=100)
+    params = build(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adamw.init(params)
+    tp = TokenPipeline(cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       seed=0)
+    batch = lambda i: {k: torch.as_tensor(a, device=dev)
+                       for k, a in tp.batch_at(i).items()}
+    step = train_lib.make_train_step(cfg, ocfg)
+    loss_fn = train_lib.make_loss_fn(cfg)
+    step(params, opt, batch(0))                        # warm up
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    held = {}
+
+    def grads():
+        flat = [w.detach().requires_grad_() for w in adamw.leaves(params)]
+        loss, _ = loss_fn(adamw.tree_like(params, flat), batch(2))
+        held["g"] = torch.autograd.grad(loss, flat)
+
+    out = {"step": _phase(torch, profile, acts,
+                          lambda: step(params, opt, batch(1))),
+           "loss_and_grads": _phase(torch, profile, acts, grads),
+           "update": _phase(torch, profile, acts, lambda: adamw.update(
+               ocfg, held["g"], opt, params))}
+    name = torch.cuda.get_device_name(0)
+    for ph, r in out.items():
+        _print("profile-train", name, f"{cfg.name} ({cfg.n_layers} layers, "
+               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat {cfg.remat}) "
+               f"{ph}", r)
+    print(json.dumps({"device": name, "arch": cfg.name,
+                      "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ, **out}))
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 The functions take the reference's numpy arrays (and plain config values)
 and return the port's objects, so one SVM model, one mid-fit solver state
-or one LM's weights can be handed to both packages. Nothing here imports
-the reference.
+or one LM's weights and optimizer state can be handed to both packages.
+Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -156,3 +156,14 @@ def lm_params(tree: dict, device: str = "cuda") -> dict:
                 for k, v in t.items()}
 
     return walk(tree)
+
+
+def adamw_state(tree: dict, device: str = "cuda") -> dict:
+    """The port's AdamW state (``optim.adamw.init``'s layout) from the
+    reference's ``{'m', 'v', 'step'}`` given as numpy arrays: the fp32
+    moments through :func:`lm_params`, the step an int32 0-d tensor."""
+    dev = devmod.resolve(device)
+    return {"m": lm_params(tree["m"], device),
+            "v": lm_params(tree["v"], device),
+            "step": torch.tensor(np.asarray(tree["step"]), dtype=torch.int32,
+                                 device=dev)}

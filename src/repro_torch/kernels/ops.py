@@ -149,16 +149,39 @@ def ell_rbf_accumulate(vals: torch.Tensor, cols: torch.Tensor,
 
 # -- attention (twin of ``repro.kernels.ops.flash_attention``) -------------
 
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the kernel forward (its plain
+    version on a CPU tensor), and a backward that recomputes the plain
+    version on the saved q, k, v and differentiates it (``_fa_bwd``; there
+    is no backward kernel in either package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return ref.flash_attention(q, k, v, causal)
+        from repro_torch.kernels import flash_attention as fa
+        return fa.flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = ref.flash_attention(*ins, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(o, ins, g)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """(B, H, L, Dh) GQA attention, forward only: the CUDA kernel on the
-    card, ``ref.flash_attention`` on the CPU. Causal needs Lq == Lk on both
-    (the kernel's mask is row >= col). The reference's oracle-recompute
-    backward (``custom_vjp``) comes with the training slice."""
+    """(B, H, L, Dh) GQA attention: the CUDA kernel on the card,
+    ``ref.flash_attention`` on the CPU, differentiable on both through a
+    recompute of ``ref.flash_attention`` in the backward (the output of
+    the kernel alone would carry no autograd history). Causal needs
+    Lq == Lk on both (the kernel's mask is row >= col)."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError(f"causal attention needs Lq == Lk, got "
                          f"{q.shape[2]} and {k.shape[2]}")
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal)
-    from repro_torch.kernels import flash_attention as fa
-    return fa.flash_attention(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)

@@ -2,10 +2,13 @@
 registry (twin of ``repro.models.api``).
 
 ``ModelConfig`` is the reference's, field for field, so a reference config
-maps across unchanged (``convert.model_config``). Fields that steer only
-GSPMD or XLA there (``remat``, ``scan_layers``, ``seq_parallel``,
-``layout``, ``moe_impl``) are kept and have no effect here: the port runs
-eagerly on one device, with a Python loop over layers. ``use_flash`` and
+maps across unchanged (``convert.model_config``). ``remat="full"``
+checkpoints each layer (each mLSTM / Mamba2 block) when autograd records
+the forward (``common.remat``), as ``jax.checkpoint`` does there; serving
+and ``"none"`` run plain. Fields that steer only GSPMD or XLA there
+(``scan_layers``, ``seq_parallel``, ``layout``) are kept and have no
+effect here: the port runs eagerly on one device, with a Python loop over
+layers. ``moe_impl`` picks the MoE dispatch, as there. ``use_flash`` and
 ``attn_block_q``, which choose the attention path there, are kept and have
 no effect either: prefill attention always goes through
 ``ops.flash_attention`` (the kernel on the card, its plain version on the

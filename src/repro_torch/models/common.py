@@ -1,12 +1,11 @@
 """Shared building blocks of the port's LM substrate (twin of
-``repro.models.common``): norms, RoPE, attention (GQA), the gated MLP and
-parameter init helpers.
+``repro.models.common``): norms, RoPE, attention (GQA), the gated MLP,
+parameter init helpers, activation checkpointing and the loss.
 
 Functional like the reference: params are plain nested dicts of tensors.
 The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
 ``repeat_kv``) are identities on one device and are left out, and so is
-``scan_or_unroll`` (a Python loop over layers does its job);
-``cross_entropy`` comes with the training slice.
+``scan_or_unroll`` (a Python loop over layers does its job).
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import itertools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------- init utils
@@ -52,6 +52,26 @@ def stacked(lead: tuple, draw) -> dict:
 def at(tree: dict, *idx) -> dict:
     """One layer's weights (views) from a stacked dict."""
     return {k: w[idx] for k, w in tree.items()}
+
+
+def _records_grad(args) -> bool:
+    """Whether autograd records a call on ``args`` (tensors and dicts of
+    tensors): grad mode is on and some tensor requires grad."""
+    ts = [t for a in args for t in (a.values() if isinstance(a, dict)
+                                    else (a,))
+          if isinstance(t, torch.Tensor)]
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is
+    ``"full"`` and autograd records the call: the block keeps only its
+    inputs and runs again in the backward (the reference's
+    ``jax.checkpoint(..., nothing_saveable)``). Otherwise (``"none"``, or
+    serving, whose weights need no grad) a plain call."""
+    if cfg.remat == "full" and _records_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def scan_chunk(chunk: int, L: int) -> int:
@@ -149,3 +169,25 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+# ------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  z_loss: float = 1e-4) -> tuple:
+    """Stable CE in fp32; targets < 0 are masked. Returns (loss, {'ce'}).
+
+    The target logit is taken with ``gather``: the reference's iota ==
+    target masked sum (which keeps vocab-sharded logits sharded under
+    GSPMD) adds exact zeros, so it is the same number, and a (B, L, V)
+    mask would be GBs at a 128K vocab."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - tgt
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (targets >= 0).float()
+    n = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / n
+    ce = torch.where(mask > 0, lse - tgt, 0.0).sum() / n
+    return loss, {"ce": ce}

@@ -208,7 +208,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
             cache: "dict | None" = None) -> tuple:
     """batch: {'tokens': (B, L)} or {'embeds': (B, L, d)}. Returns
     (logits (B, L, V), aux_loss 0-d fp32 tensor: the MoE layers' aux terms
-    summed, 0 for dense layers). With
+    summed, 0 for dense layers). Each layer runs under ``common.remat``
+    (checkpointed when ``cfg.remat == "full"`` and autograd records). With
     ``cache`` (from ``init_cache``, position 0), each layer's K / V are
     also written to its first L rows and the cache's position becomes L."""
     h = _embed_in(params, cfg, batch)
@@ -222,7 +223,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
-        h, a = _layer(cfg, common.at(params["layers"], i), h, positions, kv)
+        h, a = common.remat(cfg, _layer, cfg, common.at(params["layers"], i),
+                            h, positions, kv)
         aux = aux + a
     if cache is not None:
         cache["pos"] = L

@@ -275,8 +275,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         raise ValueError(f"prefill needs an empty cache, got pos "
                          f"{cache['pos']}")
     for kind, lp, keys, idx in _schedule(cfg, params):
-        block = _slstm_block if kind == "s" else _mlstm_block
-        h, state = block(cfg, lp, h)
+        if kind == "s":
+            h, state = _slstm_block(cfg, lp, h)
+        else:                              # the reference remats mLSTM only
+            h, state = common.remat(cfg, _mlstm_block, cfg, lp, h)
         if cache is not None:
             for b, st in zip(_bufs(cache, keys), state):
                 b[idx].copy_(st)

@@ -228,7 +228,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
                                       positions, kv)
             continue
         lp, (kc, ks, idx) = item
-        h, conv, S = _mamba_block(cfg, lp, h)
+        h, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h)
         if cache is not None:
             if conv is not None:
                 cache[kc][idx].copy_(conv)

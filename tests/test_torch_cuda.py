@@ -332,6 +332,85 @@ def test_cuda_flash_attention_rejects_bad_tensors(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hkv,dh", [(torch.float32, 8, 128),
+                                          (torch.float32, 32, 64),
+                                          (torch.bfloat16, 8, 128),
+                                          (torch.bfloat16, 32, 64)])
+def test_cuda_flash_attention_backward(cuda_device, dtype, hkv, dh):
+    """The kernel's output carries the autograd Function, and its q / k /
+    v gradients are those of autograd through ``ref.flash_attention``
+    (the backward recomputes it); the backward launches no kernel.
+    Tolerances: 1e-5 fp32; bf16 the forward's (rtol 2e-2, atol 2e-3)."""
+    g = torch.Generator(device=cuda_device).manual_seed(dh + hkv)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(
+        dtype)
+    q, k, v = mk(2, 32, 256, dh), mk(2, hkv, 256, dh), mk(2, hkv, 256, dh)
+    go = mk(2, 32, 256, dh)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = cuda.launches["flash_attention"]
+    out = ops.flash_attention(*ins, True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, go)
+    assert cuda.launches["flash_attention"] == before + 1
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention(*ins, True), ins, go)
+    rtol, atol = (2e-2, 2e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """Two steps of llama3-8b's smoke config with remat on the card (the
+    flash kernel twice a layer a step: the forward and the remat
+    recompute) against the same steps on the CPU."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train_lib
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.smoke_config("llama3-8b"),
+                              remat="full")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = _tree_to(build(cfg).init(
+            cfg, torch.Generator().manual_seed(0)), dev)
+        opt = adamw.init(params)
+        step = train_lib.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+        tp = TokenPipeline(cfg.vocab_size, batch=4, seq_len=64, seed=0)
+        cuda.reset_launches()
+        losses = []
+        for i in range(2):
+            b = {k: torch.as_tensor(a, device=dev)
+                 for k, a in tp.batch_at(i).items()}
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+        out[str(dev)] = (losses, cuda.launches["flash_attention"], params)
+    (l_cpu, n_cpu, p_cpu), (l_gpu, n_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu == 0 and n_gpu == 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for a, b in zip(adamw.leaves(p_gpu), adamw.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_cli_trains_on_the_card(cuda_device):
+    """``launch.train``'s CLI on the card (its default device): the smoke
+    config with remat off launches the kernel once a layer a step."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    cuda.reset_launches()
+    res = train.main(["--arch", "llama3-8b", "--steps", "3", "--batch", "2",
+                      "--seq", "64"])
+    assert all(w.device.type == "cuda" for w in adamw.leaves(res["params"]))
+    assert cuda.launches["flash_attention"] == 3 * 2
+    assert all(np.isfinite(res["loss"]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "pixtral-12b"])
 def test_cuda_forward_flash_equals_plain(cuda_device, arch, monkeypatch):
     """A smoke-config forward on the card through the flash kernel equals
