@@ -35,6 +35,15 @@ entry points a user calls:
   attention), finite falling losses, every leaf updated
   (``[train-lm]``); at 2 layers in fp32 the loss gradient with the kernel
   against the plain attention's (``[train-lm-fp32]``);
+* sharded LM training (``launch.train_lib.MeshStep``) at the same width,
+  4 of 32 layers, on an NCCL group of one rank: (1, 1) meshes under the
+  tp and fsdp layouts, ``gather_params_once`` off and on, accumulation 1
+  and 2, and the (1, 1, 1) pod mesh with each gradient codec, every run
+  bitwise equal to the unsharded step (the codecs' residuals to
+  ``optim.compress``), collectives equal to the step's plan, and a
+  sharded save restored on another mesh (``[train-lm-mesh]``); and the
+  dry-run of every (arch x shape) cell on both production meshes on this
+  machine's CPU, beside the later phases (``[dryrun]``);
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
   convergence, a Single-policy wss2 fit at scale 0.05, and
   ``SVMModel.predict`` over the test rows;
@@ -1424,6 +1433,328 @@ def train_lm(torch, dev, time_ms, card) -> dict:
         "train_fwd_ms": t_fwd, "train_bwd_ms": t_bwd}
 
 
+MESH_LAYERS, MESH_STEPS = 4, 2
+# the sharded save / restore check: llama3-8b's layer at a quarter of its
+# width (head dim 128, GQA 4:1), 1 layer, an 8,192 vocab: at full width
+# one layer wrote ~3.4 GB of npz, sha256-summed twice, in 15.8-19.5 s
+SAVE_CUT = dict(n_layers=1, vocab_size=8192, d_model=1024, n_heads=8,
+                n_kv_heads=2, d_ff=3584)
+
+
+def fingerprint(torch, t) -> int:
+    """A 64-bit fingerprint of a tensor's bits: the sum, mod 2**64, of each
+    element's bits read as an integer times an odd weight of its position.
+    Equal bits give equal fingerprints, and one changed element always
+    changes it (an odd weight is a unit mod 2**64); the bitwise gates of
+    ``[train-lm-mesh]`` compare these, not a second copy of an 80 GB-class
+    state."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    x = t.detach().reshape(-1).view(ints[t.element_size()])
+    total, chunk = 0, 1 << 26
+    for s in range(0, x.numel(), chunk):
+        seg = x[s: s + chunk].to(torch.int64)
+        w = torch.arange(s, s + seg.numel(), dtype=torch.int64,
+                         device=x.device) * 2 + 1
+        total += int((seg * (w * 0x2545F4914F6CDD1D)).sum())
+    return total % (1 << 64)
+
+
+def train_lm_mesh(torch, dev, card) -> dict:
+    """``[train-lm-mesh]``: the sharded train step (``train_lib.MeshStep``)
+    at llama3-8b's full width, ``MESH_LAYERS`` of its 32 layers, bf16,
+    remat full, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens of ``TokenPipeline``
+    a step, on an NCCL group of one rank (this card):
+
+    * a (1, 1) ('data', 'model') mesh under the tp and fsdp layouts,
+      ``gather_params_once`` off and on, ``accum_steps`` 1 and 2,
+      ``MESH_STEPS`` steps each: losses, params and both moments bitwise
+      equal to the unsharded step's (64-bit fingerprints of every leaf
+      after every step);
+    * a (1, 1, 1) ('pod', 'data', 'model') mesh: ``grad_compress`` None, 2
+      steps bitwise equal to the unsharded step's; 'bf16' and 'int8', 2
+      steps with the residuals carried: the first step's loss (from the
+      same state, as the reference's test compares them) within 1e-2 /
+      5e-2 of None's, and the first residuals bitwise equal to
+      ``x - decode(encode(x))`` of the unsharded fp32 gradient, recomputed
+      by ``optim.compress``;
+    * every step's ``dist.calls`` by helper equal to ``MeshStep.plan``'s,
+      and ``2 x layers x accum`` flash launches a step;
+    * a sharded save at step 2 on the (1, 1) mesh restored onto the
+      (1, 1, 1) mesh, whose step 3 is bitwise the unsharded step 3
+      (``SAVE_CUT``).
+
+    Returns the mesh runs' flash launches for the kernels line."""
+    import dataclasses
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist, train_lib
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw, compress
+
+    phase("train-lm-mesh")
+    t_phase = time.perf_counter()
+    full = configs.full_config(LM_ARCH)
+    base = dataclasses.replace(full, n_layers=MESH_LAYERS)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, decay_steps=100)
+
+    def token_batches(cfg, n):
+        tp = TokenPipeline(cfg.vocab_size, batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, seed=0)
+        return [{k: torch.as_tensor(a, device=dev)
+                 for k, a in tp.batch_at(i).items()} for i in range(n)]
+
+    def fresh(cfg, mesh=None):
+        params = build(cfg).init(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+        if mesh is not None:
+            params = shd.shard_tree(
+                params, train_lib.shardings_for(cfg, mesh, {})[0], mesh)
+        return params, adamw.init(params)
+
+    def fps(params, opt):
+        return [fingerprint(torch, t) for t in adamw.leaves(params)
+                + adamw.leaves(opt["m"]) + adamw.leaves(opt["v"])] \
+            + [int(opt["step"])]
+
+    def run(step, params, opt, batches, lo, hi, res=None):
+        rec = dict(loss=[], ms=[], flash=[], calls=[], fps=[])
+        pod = getattr(step, "use_pod", False)
+        for i in range(lo, hi):
+            cuda.reset_launches()
+            dist.calls.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(params, opt, batches[i], res) if pod \
+                else step(params, opt, batches[i])
+            params, opt, m = out[:3]
+            res = out[3] if pod else None
+            rec["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["flash"].append(cuda.launches["flash_attention"])
+            rec["calls"].append(dict(dist.calls))
+            rec["fps"].append(fps(params, opt))
+        return params, opt, res, rec
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    batches = token_batches(base, MESH_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    twins = {}
+    for A in (1, 2):
+        p, o = fresh(base)
+        step = train_lib.make_train_step(base, ocfg, accum_steps=A)
+        *_, twins[A] = run(step, p, o, batches, 0, MESH_STEPS)
+        del p, o, _
+        free()
+        print(f"[train-lm-mesh] {base.name} full width, {base.n_layers} of "
+              f"{full.n_layers} layers, {base.dtype}, remat {base.remat}, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: unsharded step, accum "
+              f"{A}: losses {twins[A]['loss']}, ms a step "
+              f"{[round(x, 1) for x in twins[A]['ms']]}", flush=True)
+    dist.init(device="cuda", init_method=f"tcp://localhost:{free_port()}",
+              rank=0, world=1)
+    m11 = meshlib.make_mesh((1, 1), ("data", "model"))
+    pod = meshlib.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    bad, launches, n_steps = [], 0, 0
+
+    def held(tag, step, r, want, A, n=MESH_STEPS):
+        nonlocal launches, n_steps
+        plan = train_lib.plan_calls(step.plan(batches[0]))
+        same = r["loss"] == want["loss"][:n] and r["fps"] == want["fps"][:n]
+        calls = all(c == plan for c in r["calls"])
+        flash = all(f == 2 * base.n_layers * A for f in r["flash"])
+        launches += sum(r["flash"])
+        n_steps += len(r["flash"])
+        print(f"[train-lm-mesh] {tag}: losses {r['loss']}, params and "
+              f"moments bitwise equal to the unsharded step: {same}; ms a "
+              f"step {[round(x, 1) for x in r['ms']]}; flash_attention "
+              f"launches a step {r['flash']} (want {2 * base.n_layers * A});"
+              f" collectives a step {r['calls'][0]} == plan {plan}: "
+              f"{calls}", flush=True)
+        if not (same and calls and flash):
+            bad.append(tag)
+
+    for layout in ("tp", "fsdp"):
+        cfg = dataclasses.replace(base, layout=layout)
+        for A in (1, 2):
+            for once in (False, True):
+                p, o = fresh(cfg, m11)
+                step = train_lib.make_train_step(
+                    cfg, ocfg, m11, accum_steps=A, gather_params_once=once)
+                *_, r = run(step, p, o, batches, 0, MESH_STEPS)
+                del p, o, _
+                free()
+                held(f"(1, 1) {layout} accum {A} gather_params_once "
+                     f"{once}", step, r, twins[A], A)
+    p, o = fresh(base, pod)
+    step = train_lib.make_train_step(base, ocfg, pod)
+    *_, r = run(step, p, o, batches, 0, 2)
+    del p, o, _
+    free()
+    held("(1, 1, 1) pod grad_compress None", step, r, twins[1], 1, n=2)
+    base_loss = r["loss"]
+    for codec, tol in (("bf16", 1e-2), ("int8", 5e-2)):
+        p = build(base).init(base, torch.Generator(device=dev)
+                             .manual_seed(0))
+        flat = [w.detach().requires_grad_() for w in adamw.leaves(p)]
+        loss = train_lib.make_loss_fn(base)(adamw.tree_like(p, flat),
+                                            batches[0])[0]
+        want = []
+        for g in torch.autograd.grad(loss, flat):
+            x = g.float()
+            x = x + torch.zeros_like(x)
+            dec = compress.dequantize_int8(*compress.quantize_int8(x)) \
+                if codec == "int8" else x.to(torch.bfloat16).float()
+            want.append(fingerprint(torch, x - dec))
+            del x, dec
+        del p, flat, loss
+        free()
+        p, o = fresh(base, pod)
+        step = train_lib.make_train_step(base, ocfg, pod,
+                                         grad_compress=codec)
+        p, o, res, r1 = run(step, p, o, batches, 0, 1)
+        got = [fingerprint(torch, t) for t in adamw.leaves(res)]
+        p, o, res, r2 = run(step, p, o, batches, 1, 2, res)
+        del p, o, res
+        free()
+        r = {k: r1[k] + r2[k] for k in r1}
+        plan = train_lib.plan_calls(step.plan(batches[0]))
+        ok = (abs(r["loss"][0] - base_loss[0]) < tol and got == want
+              and all(c == plan for c in r["calls"])
+              and all(f == 2 * base.n_layers for f in r["flash"]))
+        launches += sum(r["flash"])
+        n_steps += len(r["flash"])
+        print(f"[train-lm-mesh] (1, 1, 1) pod grad_compress {codec}: losses "
+              f"{r['loss']} (None: {base_loss}; step 1 within {tol}); the "
+              f"first residuals bitwise x - decode(encode(x)) of the "
+              f"unsharded gradient: {got == want}; ms a step "
+              f"{[round(x, 1) for x in r['ms']]}; flash_attention launches "
+              f"a step {r['flash']}; collectives a step {r['calls'][0]} == "
+              f"plan {plan}", flush=True)
+        if not ok:
+            bad.append(f"pod {codec}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    small = dataclasses.replace(base, **SAVE_CUT)
+    sb = token_batches(small, 3)
+    p, o = fresh(small)
+    *_, twin = run(train_lib.make_train_step(small, ocfg), p, o, sb, 0, 3)
+    p, o = fresh(small, m11)
+    p, o, _, r = run(train_lib.make_train_step(small, ocfg, m11), p, o, sb,
+                     0, 2)
+    specs = train_lib.shardings_for(small, m11, {})
+    t_save = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = f"{tmp}/step_2"
+        ckpt.save_sharded(d, 2, {"params": p, "opt": o},
+                          {"params": specs[0], "opt": specs[1]}, m11)
+        t_save = time.perf_counter() - t_save
+        del p, o
+        pspecs, ospecs, _, (pshapes, oshapes) = train_lib.shardings_for(
+            small, pod, {})
+        t_restore = time.perf_counter()
+        p = ckpt.restore_sharded(d, "params", pshapes, pspecs, pod, dev)
+        o = ckpt.restore_sharded(d, "opt", oshapes, ospecs, pod, dev)
+        t_restore = time.perf_counter() - t_restore
+    *_, r3 = run(train_lib.make_train_step(small, ocfg, pod), p, o, sb, 2, 3)
+    del p, o
+    same = r3["loss"] == twin["loss"][2:] and r3["fps"] == twin["fps"][2:]
+    print(f"[train-lm-mesh] sharded save at step 2 on (1, 1) ({t_save:.1f} "
+          f"s), restored onto (1, 1, 1) ({t_restore:.1f} s), step 3 bitwise "
+          f"the unsharded step 3: {same} ({small.name}: d_model "
+          f"{small.d_model}, {small.n_layers} layer, vocab "
+          f"{small.vocab_size})", flush=True)
+    if not same:
+        bad.append("save/restore")
+    dist.destroy()
+    free()
+    print(f"[train-lm-mesh] {n_steps} mesh steps, {launches} flash_attention "
+          f"launches; peak device memory {peak:.1f} GiB; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    if bad:
+        fail(f"[train-lm-mesh] gates failed: {bad}")
+    return {"train_lm_mesh_launches": {
+        "mesh_steps": n_steps, "launches": launches, "arch": base.name,
+        "layers": base.n_layers}}
+
+
+def start_dryrun() -> dict:
+    """Start ``[dryrun]``: ``python -m repro_torch.launch.dryrun --all
+    --both-meshes`` on this machine's CPU (no card visible to it), three
+    cells at a time, beside the next phases; its record goes to a
+    temporary file. Killed at exit if still running."""
+    import atexit
+    import os
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "dryrun.json")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+    cmd = ["-m", "repro_torch.launch.dryrun", "--all", "--both-meshes",
+           "--jobs", "3", "--out", out]
+    proc = subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    atexit.register(stop)
+    return dict(proc=proc, out=out, tmp=tmp, stop=stop,
+                t0=time.perf_counter())
+
+
+def check_dryrun(run) -> None:
+    """Wait for :func:`start_dryrun` and hold it: exit 0, no error cell, the
+    reference's skips (long_500k of the 8 full-attention archs, on both
+    meshes); print the counts and llama3-8b x train_4k's row."""
+    phase("dryrun")
+    try:
+        out, err = run["proc"].communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the dry-run ran past 600 s")
+    finally:
+        run["stop"]()
+    wall = time.perf_counter() - run["t0"]
+    if run["proc"].returncode != 0:
+        fail(f"the dry-run exited {run['proc'].returncode}:\n"
+             f"{out[-2000:]}\n{err[-3000:]}")
+    with open(run["out"]) as f:
+        recs = json.load(f)
+    run["tmp"].cleanup()
+    n = {k: sum(r["status"] == k for r in recs)
+         for k in ("ok", "skip", "error")}
+    skips = sorted((r["arch"], r["shape"]) for r in recs
+                   if r["status"] == "skip")
+    row = next(r for r in recs if (r["arch"], r["shape"], r["mesh"])
+               == (LM_ARCH, "train_4k", "16x16"))
+    secs = sum(r.get("flops_seconds", 0.0) for r in recs)
+    print(f"[dryrun] --all --both-meshes on the CPU, 3 cells at a time "
+          f"beside the card's phases: {n['ok']} ok, {n['skip']} skip, "
+          f"{n['error']} error, collected {wall:.1f} s after its start "
+          f"({secs:.1f} s of meta FLOP passes)", flush=True)
+    print(f"[dryrun] {LM_ARCH} x train_4k x 16x16: "
+          + json.dumps({k: row[k] for k in (
+              "layout", "accum_steps", "memory", "model_flops",
+              "flops_global", "useful_ratio", "link_bytes_per_chip",
+              "collectives", "t_compute_s", "t_memory_s", "t_collective_s",
+              "dominant")}), flush=True)
+    want = sorted((a, "long_500k") for a in {r["arch"] for r in recs}
+                  if a not in ("xlstm-125m", "zamba2-1.2b")) * 2
+    if n["error"] or n["ok"] != 64 or skips != sorted(want):
+        fail(f"dry-run: {n}, skips {skips}")
+
+
 def leaf_paths(tree, prefix="") -> list:
     """The ``/``-joined leaf paths of a nested dict in ``adamw.leaves``
     order (keys sorted)."""
@@ -1913,12 +2244,13 @@ def wss2_cache(torch, np, dev, base) -> None:
     return {"rbf_rows2": {"wss2-cache a9a": n_rows2}}
 
 
-# the scale of [dist]'s a9a fits (n 1,302, full width; each still compacts
-# 3 times and reconstructs twice): cut from the issue's 0.1 because the
-# group's fit and its single-device twin took 84 s there, over the ~100 s
-# the three distributed phases may add to the smoke, and from 0.05 when the
-# LM family phases came in (a slow host ran the smoke in 1,080-1,183 s)
-DIST_SCALE = 0.04
+# the scale of [dist]'s a9a fits (n 976, full width; each still compacts
+# and reconstructs twice): cut from 0.1 because the group's
+# fit and its single-device twin took 84 s there, over the ~100 s the
+# three distributed phases may add to the smoke, from 0.05 when the LM
+# family phases came in (a slow host ran the smoke in 1,080-1,183 s), and
+# from 0.04 when the sharded LM phase came in (a slow host: 1,205.0 s)
+DIST_SCALE = 0.03
 
 
 def free_port() -> int:
@@ -2733,6 +3065,9 @@ def main() -> None:
     w7a_buffer = check_ell_rows(torch, np, dev, time_ms, kernels)
     phase("check-attn")
     check_attention(torch, dev, time_ms, kernels)
+    # the dry-run prices every cell on this machine's CPU beside the LM
+    # phases, which are mostly bound by the card
+    dry = start_dryrun()
 
     launches = serve_lm(torch, dev)
     lm_launches = {LM_ARCH: launches["flash_attention"]}
@@ -2741,6 +3076,7 @@ def main() -> None:
                                          card)
     kernels["flash_attention"]["lm_launches"] = lm_launches
     kernels["flash_attention"].update(train_lm(torch, dev, time_ms, card))
+    kernels["flash_attention"].update(train_lm_mesh(torch, dev, card))
     a9a, a9a_wss2, dense_launches, Xt_a9a = run_path(torch, np, dev,
                                                      time_ms, "a9a", "dense")
     launches.update(dense_launches)
@@ -2774,6 +3110,7 @@ def main() -> None:
         for name, by_fit in fits.items():
             cached[name].update(by_fit)
     check_clis(torch, np, clis, a9a_dist)
+    check_dryrun(dry)
     del a9a, a9a_wss2, a9a_dist
     phase("check-ell")
     check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
@@ -2806,6 +3143,7 @@ def main() -> None:
                                        "cache_launches", "dist_launches",
                                        "multi_launches", "chaos_launches",
                                        "lm_launches", "train_lm_launches",
+                                       "train_lm_mesh_launches",
                                        "train_fwd_ms", "train_bwd_ms",
                                        "serve_shape_ms",
                                        "zamba_shape_ms", "shape")

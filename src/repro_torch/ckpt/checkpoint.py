@@ -211,6 +211,41 @@ def restore(directory: str, name: str, like: Any, device=None,
     return _rebuild(like, iter(out))
 
 
+def save_sharded(directory: str, step: int, groups: dict, specs: dict,
+                 mesh, extra: Optional[dict] = None) -> None:
+    """A step saved from a mesh, in the same format (full arrays): every
+    rank gathers each leaf of each group from its blocks (``specs[name]``,
+    the ``launch.sharding`` spec tree of group ``name``), rank 0 writes
+    the step, and every rank returns once it is published. Collective:
+    call it on every rank of the mesh."""
+    from repro_torch.launch import dist
+    from repro_torch.launch import sharding as shd
+    host, dev = {}, None
+    for name, tree in groups.items():
+        flat = []
+        for b, spec in zip(shd.leaves(tree), shd.leaves(specs[name])):
+            dev = b.device
+            flat.append(shd.gather(b, spec, mesh).cpu())
+        host[name] = _rebuild(tree, iter(flat))
+    if mesh.rank == 0:
+        save(directory, step, host, extra)
+    dist.all_reduce(torch.zeros(1, device=dev), "sum")   # published
+
+
+def restore_sharded(directory: str, name: str, shapes: Any, specs: Any,
+                    mesh, device=None, verify: bool = True) -> Any:
+    """Group ``name`` of a step dir as this rank's blocks on a mesh:
+    ``shapes`` is the group's tree of whole shapes (meta tensors will do,
+    e.g. ``train_lib.shardings_for``'s), ``specs`` its spec tree. The
+    step may have been saved on any mesh, or on one device: the format
+    holds whole arrays, so a rescale is the same code path as a
+    restart."""
+    from repro_torch.launch import sharding as shd
+    got = restore(directory, name, shapes, device="cpu", verify=verify)
+    return shd.map_with_path(lambda _, x: x.to(device), shd.shard_tree(
+        got, specs, mesh))
+
+
 def step_complete(directory: str) -> bool:
     """True iff the step dir is a COMPLETE save: its manifest parses and
     every group file exists with its recorded sha256 (per-array checksums

@@ -1,11 +1,13 @@
 """Architecture registry of the port (twin of ``repro.configs``): the 10
 assigned archs, each with its published FULL config and the reduced SMOKE
 config the tests and the serving CLI use. ``--arch <id>`` resolves through
-here. The reference's ``configs/shapes.py`` (the dry-run's input specs) is
-not ported yet."""
+here, and the dry-run's input shapes (``shapes.py``) are re-exported."""
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, applicable,
+                                        input_specs)
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",

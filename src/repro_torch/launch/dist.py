@@ -9,7 +9,9 @@ between cards, gloo between CPU processes.
                     rank=r, world=4)  # explicit, e.g. gloo in tests
 
 Every collective of the port goes through one helper here —
-:func:`all_gather`, :func:`all_reduce` and :func:`ring_shift` — each of
+:func:`all_gather`, :func:`all_reduce`, :func:`reduce_scatter` and
+:func:`ring_shift` (and :func:`all_reduce_grad`, an :func:`all_reduce`
+with a backward) — each of
 which calls whichever name the installed torch provides without a
 deprecation warning, and counts its calls in :data:`calls` (by helper;
 the chip smoke reads collectives per SMO iteration from it). A group
@@ -127,6 +129,42 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     out = _wire(t).clone()
     tdist.all_reduce(out, op=red, group=group)
     return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def reduce_scatter(t: torch.Tensor, dim: int = 0,
+                   group=None) -> torch.Tensor:
+    """The sum of every rank's ``t``, split along ``dim`` into one block a
+    rank in rank order: this rank's block."""
+    p = world(group)
+    if t.shape[dim] % p:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {p} ranks")
+    calls["reduce_scatter"] += 1
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // p,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    scatter = getattr(tdist, "reduce_scatter_single", None) \
+        or tdist.reduce_scatter_tensor
+    scatter(out, src, op=tdist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+def all_reduce_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_reduce` (sum) that autograd differentiates: the gradient
+    of a rank's ``t`` is the sum of every rank's gradient of the result
+    (one more all-reduce in the backward)."""
+    return _AllReduceGrad.apply(t, group)
 
 
 def max_int(v: int, group=None, device=None) -> int:

@@ -61,13 +61,16 @@ class Roofline:
 
 def analyze(flops: float, bytes_: float, link_bytes: float, chips: int,
             model_flops: float, *, collectives: "dict | None" = None,
-            bytes_per_device: float = 0.0) -> Roofline:
-    """The roofline of work that does ``flops`` fp32 operations (the SVM
-    kernels' math, on the CUDA cores, whatever the storage type) and moves
-    ``bytes_`` bytes of device memory over all ``chips`` cards, with
-    ``link_bytes`` of collective traffic per card."""
+            bytes_per_device: float = 0.0,
+            peak_flops: float = H100_FP32_FLOPS) -> Roofline:
+    """The roofline of work that does ``flops`` operations at
+    ``peak_flops`` a card (by default fp32 on the CUDA cores, the SVM
+    kernels' math whatever the storage type; ``H100_BF16_FLOPS`` for the
+    LM's bf16 products on the tensor cores) and moves ``bytes_`` bytes of
+    device memory over all ``chips`` cards, with ``link_bytes`` of
+    collective traffic per card."""
     chips = max(1, int(chips))
-    t_c = flops / (chips * H100_FP32_FLOPS)
+    t_c = flops / (chips * peak_flops)
     t_m = bytes_ / (chips * H100_BYTES_PER_S)
     t_l = link_bytes / H100_LINK_BYTES_PER_S
     dom = max((("compute", t_c), ("memory", t_m), ("collective", t_l)),

@@ -1,16 +1,52 @@
-"""Step builders (twin of ``repro.launch.train_lib``): the loss and the
-train step with gradient accumulation, the prefill step and the greedy
-decode step. PyTorch runs eagerly, so each builder returns a plain
-function (the reference returns what it jit-compiles). ``shardings_for``
-and ``serve_shardings`` come with the mesh and sharding slice (ROADMAP
-item 14)."""
+"""Step builders (twin of ``repro.launch.train_lib``): the loss, the
+train step with gradient accumulation (on one device or on a mesh), the
+specs of a sharded state (``shardings_for``, ``serve_shardings``), the
+prefill step and the greedy decode step. PyTorch runs eagerly, so each
+builder returns a plain function (the reference returns what it
+jit-compiles).
+
+On a mesh (``launch.mesh.make_mesh``, one process a device) the step is
+explicit where the reference's is one GSPMD program:
+
+* each rank holds its block of every parameter and AdamW moment, as
+  ``sharding.param_specs`` assigns it under ``cfg.layout``;
+* it takes the global batch, like the reference's step, and reads only
+  its rows of each microbatch: a microbatch splits over the batch axes
+  (('pod','data'); with 'model' under the fsdp layout) when it divides
+  over them, else every rank takes all of it;
+* gather: it all-gathers the whole parameters, once a step with
+  ``gather_params_once``, else once a microbatch;
+* compute: loss and gradients of its rows with the whole parameters; the
+  loss divides by the batch's count of unmasked targets (all-reduced
+  first) and the MoE router's batch means are reduced inside the forward
+  (``common.sharded_batch``), so the ranks' losses add up to the batch's;
+* reduce: it sums the fp32 gradients over the batch axes and keeps its
+  block (a reduce-scatter over the axes that split both, a local slice
+  over axes that split the leaf only, an all-reduce over axes that split
+  the batch only);
+* update: AdamW on its blocks, with the global norm of the blocks (each
+  block counted by one of the ranks that hold it).
+
+The 'model' axis shards the stored state as the reference's specs say,
+but the step gathers it back: the model's products are not split over it
+(the reference's GSPMD inserts tensor-parallel collectives instead). The
+numbers are the same; compute and the step's transient memory are not
+(ROADMAP queue 2, R14). :meth:`MeshStep.plan` lists every collective the
+step makes, with its group and bytes; ``launch.dryrun`` prices the same
+plan.
+"""
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 
+from repro_torch.launch import dist
+from repro_torch.launch import sharding as shd
 from repro_torch.models import common
 from repro_torch.models.api import ModelConfig, build
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compress
 
 
 # ----------------------------------------------------------------- train
@@ -43,16 +79,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     never require grad. ``accum_steps`` > 1 splits the batch into that
     many equal microbatches and sums their gradients in fp32, then
     divides; the loss is the microbatches' mean, the other metrics the
-    last one's. ``grad_compress`` acts only over a 'pod' mesh axis in the
-    reference and ``gather_params_once`` only moves sharding, so on one
-    device neither has an effect. A ``mesh`` raises: meshes come with the
-    mesh and sharding slice (ROADMAP item 14)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): meshes and sharding come with the "
-            "mesh/sharding slice of ROADMAP item 14; pass mesh=None")
+    last one's. With a ``mesh`` it is a :class:`MeshStep` over this rank's
+    blocks (``grad_compress`` then acts over a 'pod' axis, as in the
+    reference); without one, ``grad_compress`` and ``gather_params_once``
+    have no effect."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if mesh is not None:
+        return MeshStep(cfg, opt_cfg, mesh, grad_compress, accum_steps,
+                        gather_params_once)
     loss_fn = make_loss_fn(cfg)
 
     def grads_of(params: dict, batch: dict) -> tuple:
@@ -64,11 +99,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     def train_step(params: dict, opt_state: dict, batch: dict) -> tuple:
         if accum_steps > 1:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum_steps:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"{accum_steps} equal microbatches")
-            per = n // accum_steps
+            per = _microbatch(batch, accum_steps)
             gsum = [torch.zeros(w.shape, dtype=torch.float32,
                                 device=w.device)
                     for w in adamw.leaves(params)]
@@ -90,6 +121,360 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step
+
+
+def _microbatch(batch: dict, accum_steps: int) -> int:
+    n = next(iter(batch.values())).shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch of {n} does not split into "
+                         f"{accum_steps} equal microbatches")
+    return n // accum_steps
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+_CODECS = (None, "bf16", "int8")
+
+
+class MeshStep:
+    """The train step on a live mesh (see the module docstring): called as
+    ``step(params, opt_state, batch)`` with this rank's blocks of params
+    and moments (``shardings_for``'s specs) and the global batch; it
+    returns ``(params, opt_state, metrics)``, plus the residuals of the
+    compressed pod exchange as a fourth value when ``grad_compress`` is
+    set and the mesh has a 'pod' axis (pass them back in as
+    ``residuals``).
+
+    The pod path keeps the reference's per-pod semantics (its step vmaps
+    over 'pod'): each pod's loss, aux term and gradient are its own
+    (global over its other batch axes); the codec acts on each pod's fp32
+    gradient plus its residual; the gradient is the mean over pods of the
+    decoded values, which travel compressed (an all-gather of int8 codes
+    and their scales, or of bf16 values); the loss is the mean of the
+    pods'. A rank's residual is its block of its pod's row. With
+    ``accum_steps`` > 1 each microbatch starts from a zero residual and
+    the residuals come back as passed in, as there."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
+                 grad_compress: "str | None" = None, accum_steps: int = 1,
+                 gather_params_once: bool = False):
+        if grad_compress not in _CODECS:
+            raise ValueError(f"grad_compress must be one of {_CODECS}, got "
+                             f"{grad_compress!r}")
+        self.cfg, self.opt_cfg, self.mesh = cfg, opt_cfg, mesh
+        self.accum, self.once = accum_steps, gather_params_once
+        self.use_pod = bool(grad_compress) and "pod" in mesh.axis_names
+        self.codec = grad_compress if self.use_pod else None
+        self.model = build(cfg)
+        self.tree = self.model.init(cfg, common.MetaDraw())
+        self.shapes = adamw.leaves(self.tree)
+        self.specs = shd.leaves(shd.param_specs(self.tree, mesh, cfg.layout))
+        self.in_pod = tuple(a for a in mesh.axis_names if a != "pod")
+
+    # -------------------------------------------------------- the layout
+    def layout(self, rows: int) -> tuple:
+        """(rows of a microbatch, the axes its rows split over, the axes its
+        gradients sum over) for a global batch of ``rows``. The pod path
+        splits over 'pod' first, and sums within a pod."""
+        sizes = self.mesh.sizes
+        per = rows // self.accum
+        if rows % self.accum:
+            raise ValueError(f"batch of {rows} does not split into "
+                             f"{self.accum} equal microbatches")
+        bax = shd.batch_axes_for(self.mesh, self.cfg.layout)
+        lead = ()
+        if self.use_pod:
+            if per % sizes["pod"]:
+                raise ValueError(f"a microbatch of {per} does not split "
+                                 f"over {sizes['pod']} pods")
+            lead, per_pod = ("pod",), per // sizes["pod"]
+            bax = tuple(a for a in bax if a != "pod")
+        else:
+            per_pod = per
+        red = bax if per_pod % math.prod(sizes[a] for a in bax) == 0 \
+            else ()
+        return per, lead + red, red
+
+    def _rows(self, i: int, per: int, split: tuple) -> slice:
+        sizes, coord = self.mesh.sizes, self.mesh.coord
+        n, idx = 1, 0
+        for a in split:
+            n, idx = n * sizes[a], idx * sizes[a] + coord[a]
+        size = per // n
+        return slice(i * per + idx * size, i * per + (idx + 1) * size)
+
+    # ------------------------------------------------------- the moves
+    def _gather(self, params: dict) -> list:
+        return [shd.gather(b, s, self.mesh)
+                for b, s in zip(adamw.leaves(params), self.specs)]
+
+    def _reduce(self, g: torch.Tensor, spec, red: tuple) -> torch.Tensor:
+        """This rank's block of the sum over ``red`` of every rank's whole
+        fp32 gradient ``g``."""
+        idx = shd.block(spec, g.shape, self.mesh, self.mesh.coord)
+        local = [i for i, axs in shd.sharded_dims(spec)
+                 if not set(axs) & set(red)]
+        if local:
+            g = g[tuple(idx[i] if i in local else slice(None)
+                        for i in range(g.ndim))].clone()
+        for i, axs in shd.sharded_dims(spec):
+            if set(axs) <= set(red):
+                g = dist.reduce_scatter(g, i, self.mesh.group(axs))
+            elif set(axs) & set(red):
+                raise ValueError(f"{spec}: axes {axs} split the batch only "
+                                 f"in part ({red})")
+        rest = tuple(a for a in red if a not in shd.spec_axes(spec))
+        if rest:
+            g = dist.all_reduce(g, "sum", self.mesh.group(rest))
+        return g
+
+    def _owns(self, spec) -> bool:
+        """Whether this rank is the first of the ranks that hold its block
+        (the one that counts it in the global norm)."""
+        named = shd.spec_axes(spec)
+        return all(c == 0 for a, c in self.mesh.coord.items()
+                   if a not in named)
+
+    def _grads(self, full: list, mb: dict, count: torch.Tensor, red: tuple):
+        """(loss, ce, aux, grads) of this rank's rows ``mb``: its share of
+        the microbatch's loss (the whole count divides it; the aux term
+        once over the ``red`` ranks), the aux term (the batch's), and the
+        gradients of the whole parameters."""
+        cfg, n_red = self.cfg, math.prod(self.mesh.sizes[a] for a in red)
+        flat = [w.detach().requires_grad_() for w in full]
+        ctx = common.sharded_batch(self.mesh.group(red), n_red) if red \
+            else contextlib.nullcontext()
+        with ctx:
+            logits, aux = self.model.forward(
+                adamw.tree_like(self.tree, flat), cfg, mb)
+            loss, metrics = common.cross_entropy(logits, mb["targets"],
+                                                 count=count)
+            if cfg.is_moe:
+                loss = loss + cfg.router_aux_weight * aux / n_red
+            grads = torch.autograd.grad(loss, flat)
+        return loss.detach(), metrics["ce"].detach(), aux.detach(), grads
+
+    def _pod_codec(self, blocks: list, residuals: "list | None") -> tuple:
+        """(mean over pods of the decoded ``blocks`` + residuals, the new
+        residuals): the reference's per-pod codec, exchanged compressed."""
+        pod = self.mesh.group(("pod",))
+        npod = self.mesh.sizes["pod"]
+        xs = [g + (torch.zeros_like(g) if residuals is None else e)
+              for g, e in zip(blocks, residuals or blocks)]
+        if self.codec == "int8":
+            amax = torch.stack([x.abs().max() for x in xs])
+            if self.in_pod:
+                amax = dist.all_reduce(amax, "max",
+                                       self.mesh.group(self.in_pod))
+            scale = torch.clamp(amax, min=1e-12) / 127.0
+            codes = [torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+                     for x, s in zip(xs, scale)]
+            deq = [compress.dequantize_int8(q, s)
+                   for q, s in zip(codes, scale)]
+            got = dist.all_gather(torch.cat([q.reshape(-1) for q in codes]),
+                                  pod)
+            scales = dist.all_gather(scale, pod)
+            decode = lambda p, q, j: compress.dequantize_int8(q, scales[p, j])
+        else:
+            deq = [x.to(torch.bfloat16).float() for x in xs]
+            got = dist.all_gather(torch.cat(
+                [x.to(torch.bfloat16).reshape(-1) for x in xs]), pod)
+            decode = lambda p, q, j: q.float()
+        out, off = [], 0
+        for j, x in enumerate(xs):
+            n = x.numel()
+            acc = decode(0, got[0, off: off + n], j)
+            for p in range(1, npod):
+                acc = acc + decode(p, got[p, off: off + n], j)
+            out.append((acc / npod).reshape(x.shape))
+            off += n
+        return out, [x - d for x, d in zip(xs, deq)]
+
+    # ----------------------------------------------------------- the step
+    def __call__(self, params: dict, opt_state: dict, batch: dict,
+                 residuals: "dict | None" = None) -> tuple:
+        mesh, cfg, A = self.mesh, self.cfg, self.accum
+        per, split, red = self.layout(next(iter(batch.values())).shape[0])
+        micro = [{k: x[self._rows(i, per, split)] for k, x in batch.items()}
+                 for i in range(A)]
+        counts = torch.stack([(mb["targets"] >= 0).float().sum()
+                              for mb in micro])
+        if red:
+            counts = dist.all_reduce(counts, "sum", self.mesh.group(red))
+        res_in = None if residuals is None or A > 1 \
+            else adamw.leaves(residuals)
+        full = self._gather(params) if self.once else None
+        acc, vec, new_res = None, [], None
+        for i, mb in enumerate(micro):
+            loss, ce, aux, grads = self._grads(
+                full if self.once else self._gather(params), mb, counts[i],
+                red)
+            n_red = math.prod(mesh.sizes[a] for a in red)
+            vec.append(torch.stack([loss, ce, aux.float() / n_red]))
+            grads = [g.float() for g in grads]
+            if self.use_pod or not self.once:
+                grads = [self._reduce(g, s, red)
+                         for g, s in zip(grads, self.specs)]
+            if self.use_pod:
+                grads, new_res = self._pod_codec(grads, res_in)
+            if A == 1:
+                acc = grads
+                continue
+            if acc is None:
+                acc = [torch.zeros_like(g) for g in grads]
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            del grads
+        del full
+        if A > 1:
+            acc = [g.div_(A) for g in acc]
+        if self.once and not self.use_pod:
+            acc = [self._reduce(g, s, red) for g, s in zip(acc, self.specs)]
+        vec = torch.stack(vec)
+        if split:
+            vec = dist.all_reduce(vec, "sum", self.mesh.group(split))
+        if self.use_pod:
+            vec = vec / mesh.sizes["pod"]
+        sq = torch.stack([torch.sum(torch.square(g)) if self._owns(s)
+                          else torch.zeros((), device=g.device)
+                          for g, s in zip(acc, self.specs)])
+        sq = dist.all_reduce(sq, "sum", self.mesh.group(mesh.axis_names))
+        total = 0.0
+        for t in sq:
+            total = total + t
+        params, opt_state, om = adamw.update(
+            self.opt_cfg, acc, opt_state, params, gnorm=torch.sqrt(total))
+        if A > 1:
+            lsum = 0.0
+            for v in vec:
+                lsum = lsum + v[0]
+            loss = lsum / A
+        else:
+            loss = vec[0, 0]
+        metrics = {"ce": vec[-1, 1]}
+        if cfg.is_moe:
+            metrics["router_aux"] = vec[-1, 2]
+        out = (params, opt_state, dict(metrics, loss=loss, **om))
+        if not self.use_pod:
+            return out
+        if A == 1:
+            residuals = adamw.tree_like(params, new_res)
+        return out + (residuals,)
+
+    # ----------------------------------------------------------- the plan
+    def plan(self, batch_shapes: dict) -> list:
+        """Every collective one call of the step makes on this mesh, given
+        the global batch's shapes: dicts of ``op`` (the ``launch.dist``
+        helper), ``axes``, ``group`` (ranks), ``bytes`` (the tensor the
+        helper is handed), ``calls`` and ``what``. Needs no process group
+        (an axis view will do)."""
+        mesh, cfg, A = self.mesh, self.cfg, self.accum
+        sizes = mesh.sizes
+        per, split, red = self.layout(
+            tuple(next(iter(batch_shapes.values())).shape)[0])
+        out = []
+
+        def add(op, axes, nbytes, calls, what):
+            if calls:
+                out.append(dict(op=op, axes=tuple(axes),
+                                group=math.prod(sizes[a] for a in axes),
+                                bytes=int(nbytes), calls=int(calls),
+                                what=what))
+
+        if red:
+            add("all_reduce", red, 4 * A, 1, "target counts")
+        out += self.gather_plan(1 if self.once else A)
+        if red and cfg.is_moe:
+            per_layer = 3 if cfg.remat == "full" else 2
+            add("all_reduce", red, 4 * 2 * cfg.n_experts,
+                A * cfg.n_layers * per_layer, "router batch means")
+        n_reduce = A if (self.use_pod or not self.once) else 1
+        for shape, spec in zip(self.shapes, self.specs):
+            cur = list(shape.shape)
+            for i, axs in shd.sharded_dims(spec):
+                if not set(axs) & set(red):
+                    cur[i] //= math.prod(sizes[a] for a in axs)
+            for i, axs in shd.sharded_dims(spec):
+                if set(axs) <= set(red):
+                    add("reduce_scatter", axs, _nbytes(cur, torch.float32),
+                        n_reduce, "grads")
+                    cur[i] //= math.prod(sizes[a] for a in axs)
+            rest = tuple(a for a in red if a not in shd.spec_axes(spec))
+            if rest:
+                add("all_reduce", rest, _nbytes(cur, torch.float32),
+                    n_reduce, "grads")
+        if self.use_pod:
+            numel = sum(math.prod(shd.block_shape(s, x.shape, mesh))
+                        for x, s in zip(self.shapes, self.specs))
+            L = len(self.specs)
+            if self.codec == "int8":
+                if self.in_pod:
+                    add("all_reduce", self.in_pod, 4 * L, A, "int8 scales")
+                add("all_gather", ("pod",), numel, A, "int8 codes")
+                add("all_gather", ("pod",), 4 * L, A, "int8 scales")
+            else:
+                add("all_gather", ("pod",), 2 * numel, A, "bf16 grads")
+        if split:
+            add("all_reduce", split, 4 * 3 * A, 1, "metrics")
+        add("all_reduce", mesh.axis_names, 4 * len(self.specs), 1,
+            "grad norm")
+        return out
+
+
+    def gather_plan(self, calls: int = 1) -> list:
+        """The plan's all-gathers of the whole parameters, ``calls`` times:
+        one a split dim of each leaf, of the block gathered so far."""
+        sizes, out = self.mesh.sizes, []
+        for x, spec in zip(self.shapes, self.specs):
+            cur = list(shd.block_shape(spec, x.shape, self.mesh))
+            for i, axs in shd.sharded_dims(spec):
+                out.append(dict(op="all_gather", axes=axs,
+                                group=math.prod(sizes[a] for a in axs),
+                                bytes=_nbytes(cur, x.dtype), calls=calls,
+                                what="params"))
+                cur[i] *= math.prod(sizes[a] for a in axs)
+        return out
+
+
+def plan_calls(plan: list) -> dict:
+    """{helper: calls} of a plan (what ``dist.calls`` counts)."""
+    out = {}
+    for e in plan:
+        out[e["op"]] = out.get(e["op"], 0) + e["calls"]
+    return out
+
+
+def link_bytes(plan: list) -> float:
+    """Bytes a rank sends over its links for a plan, by the ring model of
+    each collective (the reference's ``parse_collectives`` rule):
+    all-gather in_bytes * (g - 1), reduce-scatter in_bytes * (g - 1) / g,
+    all-reduce 2 * bytes * (g - 1) / g."""
+    total = 0.0
+    for e in plan:
+        g, b = e["group"], e["bytes"]
+        one = {"all_gather": b * (g - 1),
+               "reduce_scatter": b * (g - 1) / g,
+               "all_reduce": 2.0 * b * (g - 1) / g}[e["op"]]
+        total += one * e["calls"]
+    return total
+
+
+def shardings_for(cfg: ModelConfig, mesh, batch_shapes: dict,
+                  gathered_params: bool = False) -> tuple:
+    """(param specs, opt specs, batch specs, (param shapes, opt shapes)):
+    spec trees from meta shapes, no allocation. ``gathered_params`` strips
+    the FSDP axes (gather-params-once's layout)."""
+    model = build(cfg)
+    p_shapes = model.init(cfg, common.MetaDraw())
+    o_shapes = adamw.init(p_shapes)
+    p_specs = shd.param_specs(p_shapes, mesh, cfg.layout)
+    if gathered_params:
+        p_specs = shd.strip_fsdp(p_specs)
+    o_specs = {"m": p_specs, "v": p_specs, "step": shd.Spec()}
+    b_specs = shd.batch_specs(batch_shapes, mesh, cfg.layout)
+    return p_specs, o_specs, b_specs, (p_shapes, o_shapes)
 
 
 # ----------------------------------------------------------------- serve
@@ -118,3 +503,12 @@ def make_serve_step(cfg: ModelConfig):
         return torch.argmax(logits[:, -1, :], dim=-1), cache
 
     return serve_step
+
+
+def serve_shardings(cfg: ModelConfig, mesh, batch: int,
+                    max_len: int) -> tuple:
+    """(cache specs, cache meta shapes); ``pos`` as the reference's 0-d
+    int32."""
+    c_shapes = build(cfg).init_cache(cfg, batch, max_len, device="meta")
+    c_shapes["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return shd.cache_specs(c_shapes, mesh), c_shapes

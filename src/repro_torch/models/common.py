@@ -4,11 +4,14 @@ parameter init helpers, activation checkpointing and the loss.
 
 Functional like the reference: params are plain nested dicts of tensors.
 The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
-``repeat_kv``) are identities on one device and are left out, and so is
-``scan_or_unroll`` (a Python loop over layers does its job).
+``repeat_kv``) only place activations under GSPMD and are left out; the
+one batch statistic that crosses ranks (the MoE router's) goes through
+:func:`batch_means` instead. ``scan_or_unroll`` is left out too (a Python
+loop over layers does its job).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 
 import torch
@@ -17,10 +20,20 @@ from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------- init utils
+class MetaDraw:
+    """Stands in for a generator on the ``meta`` device, which torch lacks:
+    ``model.init(cfg, MetaDraw())`` gives the parameter tree's shapes and
+    dtypes with no allocation and no draw (the reference's
+    ``jax.eval_shape(model.init)``)."""
+    device = torch.device("meta")
+
+
 def _normal(generator: torch.Generator, shape, dtype: torch.dtype,
             scale: float) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in fp32 on the generator's device, then
-    cast to ``dtype``."""
+    cast to ``dtype``; an empty meta tensor for a :class:`MetaDraw`."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (x * scale).to(dtype)
@@ -72,6 +85,37 @@ def remat(cfg, fn, *args):
     if cfg.remat == "full" and _records_grad(args):
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+# --------------------------------------------------------- sharded batch
+_BATCH_GROUP = None      # (process group, ranks) inside sharded_batch
+
+
+@contextlib.contextmanager
+def sharded_batch(group, n: int):
+    """Within: the model sees one rank's block of a batch split evenly over
+    the ``n`` ranks of ``group``, so :func:`batch_means` reduces over them,
+    as the reference's GSPMD computes a batch mean over the global batch
+    (the role of its ``exclude_batch_axes`` / ``constrain_*`` context).
+    The backward (and a remat recompute) must run inside too."""
+    global _BATCH_GROUP
+    old = _BATCH_GROUP
+    _BATCH_GROUP = (group, n)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = old
+
+
+def batch_means(t: torch.Tensor) -> torch.Tensor:
+    """``t``, means over this rank's rows, as means over the whole batch
+    (differentiably: one all-reduce forward, one backward); unchanged
+    outside :func:`sharded_batch`."""
+    if _BATCH_GROUP is None:
+        return t
+    from repro_torch.launch import dist
+    group, n = _BATCH_GROUP
+    return dist.all_reduce_grad(t, group) / n
 
 
 def scan_chunk(chunk: int, L: int) -> int:
@@ -173,8 +217,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 # ------------------------------------------------------------------- loss
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  z_loss: float = 1e-4) -> tuple:
-    """Stable CE in fp32; targets < 0 are masked. Returns (loss, {'ce'}).
+                  z_loss: float = 1e-4,
+                  count: "torch.Tensor | None" = None) -> tuple:
+    """Stable CE in fp32; targets < 0 are masked. Returns (loss, {'ce'}):
+    sums over the unmasked positions divided by their number, or by
+    ``count`` (a sharded step passes the whole batch's, so that its
+    ranks' losses add up to the batch's mean).
 
     The target logit is taken with ``gather``: the reference's iota ==
     target masked sum (which keeps vocab-sharded logits sharded under
@@ -187,7 +235,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if z_loss:
         nll = nll + z_loss * lse ** 2
     mask = (targets >= 0).float()
-    n = torch.clamp(mask.sum(), min=1.0)
+    n = torch.clamp(mask.sum() if count is None else count, min=1.0)
     loss = (nll * mask).sum() / n
     ce = torch.where(mask > 0, lse - tgt, 0.0).sum() / n
     return loss, {"ce": ce}

@@ -104,7 +104,8 @@ def _route(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
     in the flattened (L·k) order (slots in descending gate order, as
     ``lax.top_k`` gives them), and the pair is kept when it is below
     ``cap``. Returns (gi, gv, pos, keep, onehot, cap, aux): the Switch
-    load-balance term over the first choice."""
+    load-balance term over the first choice, its two batch means taken
+    over the whole batch on a sharded step (``common.batch_means``)."""
     B, L, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(cfg.capacity_factor * L * k / E))
@@ -117,8 +118,8 @@ def _route(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
     pos = torch.cumsum(flat, dim=1) - flat                  # (B, L*k, E)
     pos = (pos * flat).sum(-1).reshape(B, L, k).to(torch.int32)
     keep = pos < cap
-    frac = onehot[..., 0, :].mean(dim=(0, 1))
-    mean_p = probs.mean(dim=(0, 1))
+    frac, mean_p = common.batch_means(torch.stack(
+        [onehot[..., 0, :].mean(dim=(0, 1)), probs.mean(dim=(0, 1))]))
     aux = E * (frac * mean_p).sum()
     return gi, gv, pos, keep, onehot, cap, aux
 

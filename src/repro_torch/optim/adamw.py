@@ -84,13 +84,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: dict, params: dict) -> tuple:
+def update(cfg: AdamWConfig, grads, state: dict, params: dict,
+           gnorm: "torch.Tensor | None" = None) -> tuple:
     """One AdamW step; ``grads`` is a tree like ``params`` or a list in
     :func:`leaves` order. Writes ``params`` and ``state``'s moments in
     place and returns (params, state, {'grad_norm', 'lr'}) with the
-    advanced step."""
+    advanced step. ``gnorm`` is the gradients' global norm when they are
+    one rank's blocks (the sharded step computes it over the mesh); by
+    default :func:`global_norm` of ``grads``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0
     lr = schedule(cfg, step)

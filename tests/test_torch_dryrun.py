@@ -1,0 +1,231 @@
+"""The port's dry-run (``launch.dryrun``) against the JAX reference's parts
+(its own dry-run reports every cell it does not skip as an error: it calls
+``mesh_lib.set_mesh`` and never imports ``mesh_lib``; ROADMAP queue 3):
+
+* the four per-cell policies on all 40 (arch x shape) cells;
+* the skips, on both production meshes;
+* per-device argument bytes, against a count made from the reference's
+  specs and ``eval_shape`` shapes;
+* ``model_flops``;
+* the meta pass and the collective plan on llama3-8b x train_4k (fsdp,
+  accum 1), yi-34b x train_4k (tp, accum 16), phi3.5-moe x prefill_32k
+  (einsum dispatch), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
+  extrapolation from 1 and 2 repeat units against a direct full-depth
+  pass; the CLI on one cell.
+"""
+import dataclasses
+import json
+import math
+import os
+
+import jax
+import numpy as np
+import pytest
+
+from repro import configs as jconfigs
+from repro.launch import sharding as jshd
+from repro.models.api import build as jbuild
+
+from repro_torch import configs
+from repro_torch.launch import dryrun, train_lib
+from repro_torch.launch.mesh import production_axes
+
+MESHES = {False: ((16, 16), ("data", "model")),
+          True: ((2, 16, 16), ("pod", "data", "model"))}
+CELLS = [(a, s) for a in configs.ARCH_IDS for s in configs.SHAPES]
+
+
+@pytest.fixture(scope="module")
+def jdry():
+    """The reference's dry-run module, imported for its policies: its
+    first line sets ``XLA_FLAGS`` to 512 host devices, which is put back
+    at once (this process's JAX is already up, and the tests' other
+    subprocesses must not inherit it)."""
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as mod
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return mod
+
+
+def _fake(shape, names):
+    class M:
+        axis_names = names
+
+        class devices:
+            pass
+    M.devices.shape = shape
+    return M
+
+
+def test_policies_and_skips_match_reference(jdry):
+    assert len(CELLS) == 40
+    for arch, sname in CELLS:
+        cfg, jcfg = configs.full_config(arch), jconfigs.full_config(arch)
+        shape, jshape = configs.SHAPES[sname], jconfigs.SHAPES[sname]
+        assert dryrun._layout_for(cfg, shape) == jdry._layout_for(jcfg,
+                                                                  jshape)
+        assert dryrun._moe_impl_for(cfg, shape) == jdry._moe_impl_for(
+            jcfg, jshape)
+        assert dryrun._accum_for(cfg, shape) == jdry._accum_for(jcfg, jshape)
+        assert dryrun._unit_layers(cfg) == jdry._unit_layers(jcfg)
+        ok = jconfigs.applicable(jcfg, jshape)[0]
+        for mp in (False, True):
+            rec = dryrun.run_cell(arch, sname, mp, verbose=False,
+                                  cost_tier=False)
+            assert rec["status"] == ("ok" if ok else "skip"), (arch, sname)
+            if ok:
+                assert rec["accum_steps"] == jdry._accum_for(jcfg, jshape)
+                assert rec["layout"] == jdry._layout_for(jcfg, jshape)
+
+
+def _ref_bytes(shapes, specs, sizes) -> int:
+    """Per-device bytes of a tree from the reference's specs."""
+    total = 0
+    leaves = jax.tree_util.tree_leaves(shapes)
+    spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))
+    for leaf, spec in zip(leaves, spec_leaves):
+        shape = list(leaf.shape)
+        for i, e in enumerate(spec):
+            axs = e if isinstance(e, tuple) else (() if e is None else (e,))
+            n = math.prod(sizes[a] for a in axs)
+            assert shape[i] % n == 0
+            shape[i] //= n
+        total += math.prod(shape) * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_argument_bytes_match_a_count_from_reference_specs(jdry, arch):
+    jcfg = jconfigs.full_config(arch)
+    p = jax.eval_shape(lambda k: jbuild(jcfg).init(jcfg, k),
+                       jax.random.PRNGKey(0))
+    for sname in configs.SHAPES:
+        jshape = jconfigs.SHAPES[sname]
+        if not jconfigs.applicable(jcfg, jshape)[0]:
+            continue
+        cell = dataclasses.replace(jcfg, layout=jdry._layout_for(jcfg,
+                                                                  jshape))
+        for mp, (shape, names) in MESHES.items():
+            fake, sizes = _fake(shape, names), dict(zip(names, shape))
+            ps = jshd.param_specs(p, fake, cell.layout)
+            want = {"params": _ref_bytes(p, ps, sizes)}
+            b = jconfigs.input_specs(cell, jshape)
+            want["batch"] = _ref_bytes(b, jshd.batch_specs(b, fake,
+                                                           cell.layout),
+                                       sizes)
+            if jshape.kind == "train":   # fp32 m and v, an int32 step
+                f32 = jax.tree.map(lambda x: jax.ShapeDtypeStruct(
+                    x.shape, np.float32), p)
+                want["opt"] = 2 * _ref_bytes(f32, ps, sizes) + 4
+            if jshape.kind == "decode":
+                c = jax.eval_shape(lambda: jbuild(cell).init_cache(
+                    cell, jshape.global_batch, jshape.seq_len))
+                want["cache"] = _ref_bytes(c, jshd.cache_specs(c, fake),
+                                           sizes)
+            rec = dryrun.run_cell(arch, sname, mp, verbose=False,
+                                  cost_tier=False)
+            assert rec["argument_bytes"] == want, (sname, mp)
+            assert rec["memory"]["argument_size_in_bytes"] == sum(
+                want.values())
+
+
+def test_model_flops_match_reference():
+    for arch, sname in CELLS:
+        jcfg, jshape = jconfigs.full_config(arch), jconfigs.SHAPES[sname]
+        tokens = jshape.global_batch * (jshape.seq_len
+                                        if jshape.kind != "decode" else 1)
+        want = (6.0 if jshape.kind == "train" else 2.0) \
+            * jcfg.active_params() * tokens
+        assert dryrun.model_flops(configs.full_config(arch),
+                                  configs.SHAPES[sname]) == want
+
+
+def _leaf_bytes(arch, dtype_bytes):
+    cfg = configs.full_config(arch)
+    return cfg, sum(math.prod(x.shape) * dtype_bytes
+                    for x in train_lib.MeshStep(
+                        cfg, dryrun.adamw.AdamWConfig(),
+                        production_axes()).shapes)
+
+
+def test_train_cell_llama3_fsdp_prices_its_plan():
+    rec = dryrun.run_cell("llama3-8b", "train_4k", False, verbose=False)
+    assert rec["status"] == "ok" and rec["layout"] == "fsdp"
+    assert rec["accum_steps"] == 1 and rec["local_rows"] == 1
+    cfg, whole = _leaf_bytes("llama3-8b", 4)
+    # every leaf splits one dim over all 256 ranks: one all-gather of its
+    # bf16 block and one reduce-scatter of its whole fp32 gradient a step,
+    # then the target counts, the metrics and the norm
+    n = len(train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
+                               production_axes()).shapes)
+    assert rec["collectives"]["counts"] == {
+        "all_gather": n, "reduce_scatter": n, "all_reduce": 3}
+    assert rec["collectives"]["bytes"]["reduce_scatter"] == whole
+    assert rec["collectives"]["bytes"]["all_gather"] == \
+        rec["argument_bytes"]["params"]
+    assert rec["link_bytes_per_chip"] > whole * 255 / 256
+    assert rec["flops_global"] > rec["model_flops"] > 0
+    assert rec["dominant"] in ("compute", "memory", "collective")
+    for k in ("t_compute_s", "t_memory_s", "t_collective_s"):
+        assert rec[k] > 0
+    assert rec["hbm_bytes_global"] is None and rec["source"] == "shapes"
+
+
+def test_train_cell_yi34b_tp_accumulates_16():
+    rec = dryrun.run_cell("yi-34b", "train_4k", False, verbose=False)
+    assert (rec["layout"], rec["accum_steps"]) == ("tp", 16)
+    assert rec["local_rows"] == 1
+    # the 'model' axis does not split the products: 16 model ranks compute
+    # the same rows, so ~16x the model's FLOPs (and remat's recompute)
+    assert 16 < rec["flops_global"] / rec["model_flops"] < 32
+    # params are gathered once a microbatch, the grads reduced once a
+    # microbatch (gather_params_once off)
+    counts = rec["collectives"]["counts"]
+    assert counts["all_gather"] % 16 == 0 and counts["reduce_scatter"] % 16 \
+        == 0
+
+
+def test_prefill_cell_moe_runs_einsum_dispatch():
+    cfg, _ = dryrun.cell_config("phi3.5-moe-42b-a6.6b", "prefill_32k")
+    assert cfg.moe_impl == "einsum"
+    rec = dryrun.run_cell("phi3.5-moe-42b-a6.6b", "prefill_32k", False,
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["flops_global"] > rec["model_flops"]
+    assert set(rec["collectives"]["counts"]) == {"all_gather"}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_long_500k_runs_subquadratic_archs_only(arch):
+    rec = dryrun.run_cell(arch, "long_500k", False, verbose=False)
+    assert rec["status"] == "ok" and rec["local_rows"] == 1
+    assert rec["argument_bytes"]["cache"] > 0
+    skip = dryrun.run_cell("llama3-8b", "long_500k", False, verbose=False)
+    assert skip["status"] == "skip" and "quadratic" in skip["reason"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b"])
+def test_extrapolated_flops_equal_a_full_depth_pass(arch):
+    """The 1- and 2-unit extrapolation (with zamba2's 2-layer tail) is
+    exact: one decode step of the full-depth model on meta counts the
+    same."""
+    mesh = production_axes()
+    cfg, shape = dryrun.cell_config(arch, "decode_32k")
+    rows = dryrun.local_rows(cfg, shape, mesh, 1)
+    got = dryrun.flops_extrapolated(arch, "decode_32k", mesh, 1, rows)
+    assert got == dryrun.meta_flops(cfg, shape, rows) * mesh.size
+
+
+def test_cli_writes_the_records(tmp_path):
+    out = tmp_path / "r.json"
+    assert dryrun.main(["--arch", "xlstm-125m", "--shape", "decode_32k",
+                        "--both-meshes", "--out", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    assert [(r["mesh"], r["status"]) for r in recs] == [
+        ("16x16", "ok"), ("2x16x16", "ok")]
+    assert "t_compute_s" in recs[0] and "t_compute_s" not in recs[1]

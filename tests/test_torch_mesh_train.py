@@ -1,0 +1,532 @@
+"""The port's sharded LM training (``launch.train_lib.MeshStep`` on a
+``launch.mesh`` of gloo CPU ranks) against the JAX reference's GSPMD step
+on a 4-device host mesh, and against the port's own unsharded step.
+
+One module fixture runs, from the same numpy inputs (the port's seeded
+init and token batches, some targets masked unevenly across the ranks):
+
+* the reference subprocess (``--xla_force_host_platform_device_count=4``):
+  its train step on a (2, 2) ('data', 'model') mesh under ``tp`` (with
+  ``gather_params_once`` and ``accum_steps`` 2) and ``fsdp`` (``accum_steps``
+  2), the MoE arch under ``tp``, and the (2, 2, 1) ('pod', 'data', 'model')
+  mesh with ``grad_compress`` None, 'bf16' and 'int8' (two steps, the
+  second from the first's residuals: ``tests/test_distributed.py``);
+* then 4 port ranks, each reference step taken again from the
+  reference's state before it (the method of ``test_torch_train.py``);
+* beside the reference, 4 more port ranks: elastic restore (2 steps on
+  (2, 2), a sharded save, a restore on (4, 1) and on (1, 4), one more
+  step each, against 3 straight steps: ``tests/test_distributed.py``) and
+  ``launch.train --mesh 2,2`` with a save and a resume;
+* and a group of 1 rank: every mesh, layout and option bitwise equal to
+  the unsharded step.
+
+Every port step's ``dist.calls`` is held to its ``MeshStep.plan``.
+"""
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs, convert
+from repro_torch.data import TokenPipeline
+from repro_torch.launch import train, train_lib
+from repro_torch.models.api import build
+from repro_torch.optim import adamw
+
+from test_torch_train import OCFG, _assert_steps, _flat, _tree_np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 400                     # seconds, for every subprocess
+B, L, STEPS = 8, 32, 2
+ARCHS = {"dense": "llama3-8b", "moe": "phi3.5-moe-42b-a6.6b"}
+MESH22 = ((2, 2), ("data", "model"))
+POD = ((2, 2, 1), ("pod", "data", "model"))
+# name: (arch, mesh, layout, accum_steps, gather_params_once, codec)
+CASES = {
+    "tp": ("dense", MESH22, "tp", 2, True, None),
+    "fsdp": ("dense", MESH22, "fsdp", 2, False, None),
+    "moe": ("moe", MESH22, "tp", 1, False, None),
+    "pod-None": ("dense", POD, "tp", 1, False, None),
+    "pod-bf16": ("dense", POD, "tp", 1, False, "bf16"),
+    "pod-int8": ("dense", POD, "tp", 1, False, "int8"),
+}
+
+
+def _inputs(path) -> dict:
+    """The port's seeded init of each arch's smoke config and STEPS token
+    batches, with targets masked unevenly: every (data, model) rank of a
+    (2, 2) mesh sees a different share (rows 0-1 of the first microbatch
+    entirely, row 5 in part)."""
+    out = {}
+    for key, arch in ARCHS.items():
+        cfg = configs.smoke_config(arch)
+        init = build(cfg).init(cfg, torch.Generator().manual_seed(0))
+        tp = TokenPipeline(cfg.vocab_size, batch=B, seq_len=L, seed=0)
+        batches = []
+        for i in range(STEPS + 1):
+            b = tp.batch_at(i)
+            b["targets"][0:2] = -1
+            b["targets"][5, 3:20] = -1
+            batches.append(b)
+        out[key] = dict(init=_tree_np(init), batches=batches)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return out
+
+
+_REFERENCE = """
+import dataclasses, pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro import configs
+from repro.launch import train_lib
+from repro.launch import mesh as meshlib
+from repro.optim import adamw
+
+D = pickle.load(open(sys.argv[1], 'rb'))
+CASES, STEPS, OCFG, ARCHS = %(cases)r, %(steps)r, %(ocfg)r, %(archs)r
+out = {}
+for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
+    cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]),
+                              layout=layout)
+    mesh = meshlib.make_mesh(shape, axes,
+                             devices=jax.devices()[:int(np.prod(shape))])
+    b0 = jax.tree.map(jnp.asarray, D[key]['batches'][0])
+    psh, osh, bsh, _ = train_lib.shardings_for(cfg, mesh, b0)
+    step = train_lib.make_train_step(
+        cfg, adamw.AdamWConfig(**OCFG), mesh, grad_compress=codec,
+        accum_steps=accum, gather_params_once=once)
+    hist = []
+    with meshlib.set_mesh(mesh):
+        params = jax.device_put(jax.tree.map(jnp.asarray, D[key]['init']),
+                                psh)
+        opt = jax.jit(adamw.init, out_shardings=osh)(params)
+        run = step if codec else jax.jit(
+            step, in_shardings=(psh, osh, bsh),
+            out_shardings=(psh, osh, None))
+        res = None
+        for s in range(STEPS):
+            b = jax.device_put(jax.tree.map(jnp.asarray,
+                                            D[key]['batches'][s]), bsh)
+            o = run(params, opt, b, res) if codec else run(params, opt, b)
+            params, opt, m = o[:3]
+            res = o[3] if codec else None
+            hist.append(dict(
+                loss=float(m['loss']), grad_norm=float(m['grad_norm']),
+                params=jax.tree.map(np.asarray, params),
+                opt=jax.tree.map(np.asarray, opt),
+                res=None if res is None else jax.tree.map(np.asarray, res)))
+    out[name] = hist
+pickle.dump(out, open(sys.argv[2], 'wb'))
+""" % dict(cases=CASES, steps=STEPS, ocfg=OCFG, archs=ARCHS)
+
+
+# the common head of every port process: a gloo group, and helpers that
+# turn whole numpy trees into this rank's blocks and back
+_HEAD = """
+import dataclasses, pickle, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch import configs, convert
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.launch import dist, train, train_lib
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharding as shd
+from repro_torch.optim import adamw
+
+rank, world, init, inputs, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+dist.init(device='cpu', init_method=init, rank=rank, world=world)
+D = pickle.load(open(inputs, 'rb'))
+CASES, OCFG, ARCHS = %(cases)r, %(ocfg)r, %(archs)r
+res = {}
+
+def setup(key, shape, axes, layout):
+    cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]),
+                              layout=layout)
+    mesh = meshlib.make_mesh(shape, axes)
+    ps, os_, _, _ = train_lib.shardings_for(cfg, mesh, {})
+    return cfg, mesh, ps, os_
+
+def blocks(params, opt, ps, os_, mesh):
+    p = convert.lm_params(params, 'cpu')
+    o = adamw.init(p) if opt is None else convert.adamw_state(opt, 'cpu')
+    return shd.shard_tree(p, ps, mesh), shd.shard_tree(o, os_, mesh)
+
+def whole(tree, specs, mesh):
+    return {k: v.numpy()
+            for k, v in _np(shd.gather_tree(tree, specs, mesh)).items()}
+
+def _np(tree, prefix=''):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_np(v, prefix + k + '/'))
+        else:
+            out[prefix + k] = v.detach().float()
+    return out
+
+def batch(key, s):
+    return {k: torch.tensor(v) for k, v in D[key]['batches'][s].items()}
+
+def run_step(step, pb, ob, b, r=None):
+    dist.calls.clear()
+    o = step(pb, ob, b, r) if step.use_pod else step(pb, ob, b)
+    calls = dict(dist.calls)
+    plan = train_lib.plan_calls(step.plan(b))
+    return o, dict(calls=calls, plan=plan)
+""" % dict(cases=CASES, ocfg=OCFG, archs=ARCHS)
+
+_TAIL = """
+if rank == 0:
+    pickle.dump(res, open(out, 'wb'))
+dist.destroy()
+"""
+
+# 4 ranks: each reference step again from the reference's state before it
+_HELD = _HEAD + """
+R = pickle.load(open(sys.argv[6], 'rb'))
+for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
+    cfg, mesh, ps, os_ = setup(key, shape, axes, layout)
+    step = train_lib.make_train_step(
+        cfg, adamw.AdamWConfig(**OCFG), mesh, grad_compress=codec,
+        accum_steps=accum, gather_params_once=once)
+    hist = R[name]
+    got = []
+    for s in range(len(hist)):
+        prev = None if s == 0 else hist[s - 1]
+        pb, ob = blocks(D[key]['init'] if prev is None else prev['params'],
+                        None if prev is None else prev['opt'], ps, os_,
+                        mesh)
+        r = None
+        if codec and prev is not None:
+            # this rank's block of its pod's row of the reference's
+            r = shd.shard_tree(shd.map_with_path(
+                lambda _, x: torch.tensor(x[mesh.coord['pod']]),
+                prev['res']), ps, mesh)
+        o, calls = run_step(step, pb, ob, batch(key, s), r)
+        rec = dict(loss=float(o[2]['loss']),
+                   grad_norm=float(o[2]['grad_norm']),
+                   lr=float(o[2]['lr']), params=whole(o[0], ps, mesh),
+                   m=whole(o[1]['m'], ps, mesh), **calls)
+        if codec:
+            pod = mesh.group(('pod',))
+            rows = shd.gather_tree(o[3], ps, mesh)
+            rec['res'] = {k: dist.all_gather(v, pod).numpy()
+                          for k, v in _np(rows).items()}
+        got.append(rec)
+    res[name] = got
+""" + _TAIL
+
+# 4 ranks, no reference needed: elastic restore and the CLI on a mesh
+_FREE = _HEAD + """
+import os
+cfg, m22, ps, os_ = setup('dense', (2, 2), ('data', 'model'), 'tp')
+ocfg = adamw.AdamWConfig(**OCFG)
+d = os.path.join(os.path.dirname(out), 'elastic')
+
+def steps_on(mesh, ps, os_, pb, ob, lo, hi):
+    step = train_lib.make_train_step(cfg, ocfg, mesh)
+    hist = []
+    for s in range(lo, hi):
+        o, calls = run_step(step, pb, ob, batch('dense', s))
+        pb, ob = o[0], o[1]
+        hist.append(dict(loss=float(o[2]['loss']),
+                         grad_norm=float(o[2]['grad_norm']),
+                         lr=float(o[2]['lr']), **calls))
+    return pb, ob, hist
+
+pb, ob = blocks(D['dense']['init'], None, ps, os_, m22)
+pb, ob, h2 = steps_on(m22, ps, os_, pb, ob, 0, 2)
+m_before = whole(ob['m'], ps, m22)
+ckpt.save_sharded(os.path.join(d, 'step_2'), 2, {'params': pb, 'opt': ob},
+                  {'params': ps, 'opt': os_}, m22)
+p3, o3, h3 = steps_on(m22, ps, os_, pb, ob, 2, 3)
+el = dict(straight=dict(hist=h2 + h3, params=whole(p3, ps, m22),
+                        m=[m_before, whole(o3['m'], ps, m22)]))
+saved = ckpt.restore(os.path.join(d, 'step_2'), 'params',
+                     convert.lm_params(D['dense']['init'], 'cpu'))
+el['saved'] = {k: v.numpy() for k, v in _np(saved).items()}
+for shape in ((4, 1), (1, 4)):
+    _, mesh, ps2, os2 = setup('dense', shape, ('data', 'model'), 'tp')
+    p_sh, o_sh = train_lib.shardings_for(cfg, mesh, {})[3]
+    pb2 = ckpt.restore_sharded(os.path.join(d, 'step_2'), 'params', p_sh,
+                               ps2, mesh)
+    ob2 = ckpt.restore_sharded(os.path.join(d, 'step_2'), 'opt', o_sh,
+                               os2, mesh)
+    p4, _, h4 = steps_on(mesh, ps2, os2, pb2, ob2, 2, 3)
+    el[str(shape)] = dict(hist=h4, params=whole(p4, ps2, mesh))
+res['elastic'] = el
+
+cli = ['--arch', 'llama3-8b', '--device', 'cpu', '--mesh', '2,2',
+       '--batch', '8', '--seq', '32']
+ck = os.path.join(os.path.dirname(out), 'cli')
+uncut = train.main(cli + ['--steps', '6'])
+cut = train.main(cli + ['--steps', '3', '--ckpt-dir', ck,
+                        '--ckpt-every', '3'])
+resumed = train.main(cli + ['--steps', '3', '--ckpt-dir', ck, '--resume'])
+_, mcli, psc, _ = setup('dense', (2, 2), ('data', 'model'), 'tp')
+res['cli'] = dict(
+    uncut=uncut['loss'], cut=cut['loss'], resumed=resumed['loss'],
+    start=resumed['start'], steps=resumed['step'],
+    uncut_params=whole(uncut['params'], psc, mcli),
+    resumed_params=whole(resumed['params'], psc, mcli))
+""" + _TAIL
+
+# 1 rank: every mesh, layout and option bitwise equal to the unsharded step
+_WORLD1 = _HEAD + """
+from repro_torch.optim import compress
+def same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(adamw.leaves(a),
+                                                  adamw.leaves(b)))
+
+out1 = {}
+for key in ('dense', 'moe'):
+    for layout in ('tp', 'fsdp'):
+        for accum in (1, 2):
+            for once in (False, True):
+                for shape, axes, codec in (((1, 1), ('data', 'model'), None),
+                                           ((1, 1, 1), ('pod', 'data',
+                                                        'model'), None)):
+                    if key == 'moe' and (shape != (1, 1) or once):
+                        continue
+                    cfg, mesh, ps, os_ = setup(key, shape, axes, layout)
+                    one = train_lib.make_train_step(
+                        cfg, adamw.AdamWConfig(**OCFG), accum_steps=accum)
+                    step = train_lib.make_train_step(
+                        cfg, adamw.AdamWConfig(**OCFG), mesh,
+                        accum_steps=accum, gather_params_once=once)
+                    p = convert.lm_params(D[key]['init'], 'cpu')
+                    o = adamw.init(p)
+                    pb, ob = blocks(D[key]['init'], None, ps, os_, mesh)
+                    ok, cl = True, True
+                    for s in range(2):
+                        p, o, m1 = one(p, o, batch(key, s))
+                        (pb, ob, m2), calls = run_step(step, pb, ob,
+                                                       batch(key, s))
+                        ok &= {k: float(v) for k, v in m1.items()} == \\
+                            {k: float(v) for k, v in m2.items()}
+                        cl &= calls['calls'] == calls['plan']
+                    ok &= same(p, pb) and same(o['m'], ob['m']) and \\
+                        same(o['v'], ob['v'])
+                    out1[f'{key}-{layout}-{accum}-{once}-{len(shape)}'] = \\
+                        dict(bitwise=bool(ok), calls=bool(cl))
+# the int8 pod path: the residual is x - dequantize(quantize(x)) of the
+# unsharded step's fp32 gradient, bitwise
+cfg, mesh, ps, os_ = setup('dense', (1, 1, 1), ('pod', 'data', 'model'), 'tp')
+step = train_lib.make_train_step(cfg, adamw.AdamWConfig(**OCFG), mesh,
+                                 grad_compress='int8')
+pb, ob = blocks(D['dense']['init'], None, ps, os_, mesh)
+p = convert.lm_params(D['dense']['init'], 'cpu')
+flat = [w.detach().requires_grad_() for w in adamw.leaves(p)]
+loss, _ = train_lib.make_loss_fn(cfg)(adamw.tree_like(p, flat),
+                                      batch('dense', 0))
+grads = torch.autograd.grad(loss, flat)
+o, _ = run_step(step, pb, ob, batch('dense', 0))
+want = []
+for g in grads:
+    x = g.float() + torch.zeros_like(g.float())
+    want.append(x - compress.dequantize_int8(*compress.quantize_int8(x)))
+out1['int8-residual'] = dict(bitwise=all(
+    torch.equal(a, b) for a, b in zip(adamw.leaves(o[3]), want)), calls=True)
+res['world1'] = out1
+""" + _TAIL
+
+
+def _env(**kw):
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                OMP_NUM_THREADS="1", **kw)
+
+
+def _spawn(code, world, tmp, name, inputs, *extra):
+    init = "file://" + str(tmp / f"pg-{name}")
+    out = str(tmp / f"{name}.pkl")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world), init, str(inputs),
+         out, *map(str, extra)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_env(), cwd=ROOT)
+        for r in range(world)]
+    return procs, out
+
+
+def _wait(procs, out, deadline):
+    """The pickled results of a group, or the exception of its failure
+    (raised by the tests that read it)."""
+    try:
+        for proc in procs:
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            assert proc.returncode == 0, err[-4000:]
+        with open(out, "rb") as f:
+            return pickle.load(f)
+    except Exception as exc:          # noqa: BLE001 — held for the tests
+        return exc
+
+
+def _get(runs, group, key):
+    got = runs[group]
+    if isinstance(got, Exception):
+        raise got
+    return got[key]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh_train")
+    inputs = tmp / "inputs.pkl"
+    D = _inputs(inputs)
+    deadline = time.monotonic() + TIMEOUT
+    ref_out = tmp / "ref.pkl"
+    ref = subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE, str(inputs), str(ref_out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                 JAX_PLATFORMS="cpu"), cwd=ROOT)
+    free = _spawn(_FREE, 4, tmp, "free", inputs)
+    world1 = _spawn(_WORLD1, 1, tmp, "world1", inputs)
+    got = dict(D=D)
+    got["ref"] = _wait([ref], str(ref_out), deadline)
+    if isinstance(got["ref"], Exception):
+        got["held"] = got["ref"]
+    else:
+        held = _spawn(_HELD, 4, tmp, "held", inputs, ref_out)
+        got["held"] = _wait(*held, deadline)
+    got["free"] = _wait(*free, deadline)
+    got["world1"] = _wait(*world1, deadline)
+    return got
+
+
+# ------------------------------------------------- held from the reference
+def _port_cfg(key, layout):
+    import dataclasses
+    return dataclasses.replace(configs.smoke_config(ARCHS[key]),
+                               layout=layout)
+
+
+def _unsharded_step(key, layout, accum, state, opt, batch):
+    """The port's unsharded step from a numpy state: (params, m, (loss,
+    grad norm, lr))."""
+    cfg = _port_cfg(key, layout)
+    p = convert.lm_params(state, "cpu")
+    o = adamw.init(p) if opt is None else convert.adamw_state(opt, "cpu")
+    step = train_lib.make_train_step(cfg, adamw.AdamWConfig(**OCFG),
+                                     accum_steps=accum)
+    p, o, m = step(p, o, {k: torch.tensor(v) for k, v in batch.items()})
+    return p, o["m"], (float(m["loss"]), float(m["grad_norm"]),
+                       float(m["lr"]))
+
+
+def _zeros_like(tree):
+    return {k: _zeros_like(v) if isinstance(v, dict) else np.zeros_like(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("case", ["tp", "fsdp", "moe", "pod-None"])
+def test_sharded_step_matches_reference_and_unsharded(runs, case):
+    key, _, layout, accum, _, _ = CASES[case]
+    ref = _get(runs, "ref", case)
+    got = _get(runs, "held", case)
+    D = runs["D"][key]
+    for s, (want, mine) in enumerate(zip(ref, got)):
+        prev_m = _zeros_like(ref[0]["opt"]["m"]) if s == 0 \
+            else ref[s - 1]["opt"]["m"]
+        hist = [(mine["loss"], mine["grad_norm"], mine["lr"])]
+        # against the reference's step from the same state
+        _assert_steps(hist, [want], mine["params"], want["params"],
+                      [prev_m, want["opt"]["m"]])
+        # against the port's unsharded step from the same state
+        prev = D["init"] if s == 0 else ref[s - 1]["params"]
+        p1, m1, h1 = _unsharded_step(key, layout, accum, prev,
+                                     None if s == 0 else ref[s - 1]["opt"],
+                                     D["batches"][s])
+        _assert_steps(hist, [dict(loss=h1[0], grad_norm=h1[1])],
+                      mine["params"], _flat(p1), [prev_m, m1])
+        assert mine["calls"] == mine["plan"], (mine["calls"], mine["plan"])
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+def test_compressed_pod_step_matches_reference(runs, codec):
+    """Two steps on the (2, 2, 1) pod mesh, the second from the first's
+    residuals: loss and grad norm per step as the reference's; the params
+    and the stacked residuals as the reference's, except where the codec
+    rounds the other way. The two packages' gradients agree to rounding,
+    so an element that sits on a rounding boundary of the codec may decode
+    one step apart: its residual then has the other sign (r and r - step,
+    with r half a step). Such elements must be rare."""
+    case = f"pod-{codec}"
+    ref, got = _get(runs, "ref", case), _get(runs, "held", case)
+    base = _get(runs, "ref", "pod-None")
+    lr_sum = 0.0
+    for want, mine in zip(ref, got):
+        np.testing.assert_allclose(mine["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(mine["grad_norm"], want["grad_norm"],
+                                   rtol=1e-4)
+        assert mine["calls"] == mine["plan"], (mine["calls"], mine["plan"])
+        lr_sum += mine["lr"]
+        a, b = mine["params"], _flat(want["params"])
+        off = sum(int((np.abs(a[k] - b[k]) > 1e-5).sum()) for k in b)
+        assert off <= 1e-3 * sum(v.size for v in b.values()), off
+        assert max(float(np.abs(a[k] - b[k]).max()) for k in b) \
+            <= 2 * lr_sum
+        for k, x in _flat(want["res"]).items():
+            tol = 1e-3 * np.abs(x).max()
+            same = np.abs(mine["res"][k] - x) <= tol
+            flipped = np.abs(mine["res"][k] + x) <= tol
+            assert (same | flipped).all(), k
+            assert (~same).mean() <= 1e-3, k
+    # the reference's own gates against the uncompressed step, from the
+    # same state (there both calls start from the init; here the first
+    # step does, the second starts from each codec's own first step)
+    tol = {"bf16": 1e-2, "int8": 5e-2}[codec]
+    assert abs(got[0]["loss"] - base[0]["loss"]) < tol
+
+
+# ------------------------------------------------------------ inside the port
+def test_elastic_restore_across_meshes(runs):
+    """A save at step 2 on (2, 2) restored on (4, 1) and on (1, 4): one
+    more step agrees with 3 straight steps on (2, 2); the saved step is
+    the whole arrays, which the unsharded restore reads."""
+    el = _get(runs, "free", "elastic")
+    st = el["straight"]
+    assert all(h["calls"] == h["plan"] for h in st["hist"])
+    for shape in ("(4, 1)", "(1, 4)"):
+        h = el[shape]["hist"]
+        assert h[0]["calls"] == h[0]["plan"]
+        _assert_steps([(h[0]["loss"], h[0]["grad_norm"], h[0]["lr"])],
+                      [st["hist"][2]], el[shape]["params"], st["params"],
+                      st["m"])
+    assert el["saved"].keys() == st["params"].keys()
+
+
+def test_train_cli_on_a_mesh_saves_and_resumes(runs):
+    cli = _get(runs, "free", "cli")
+    assert cli["start"] == 3 and cli["steps"] == [3, 4, 5]
+    assert cli["cut"] == cli["uncut"][:3]
+    assert cli["resumed"] == cli["uncut"][3:]
+    for k, v in cli["uncut_params"].items():
+        assert np.array_equal(v, cli["resumed_params"][k]), k
+    # the same run without a mesh, within the cross-rank rounding
+    one = train.main(["--arch", "llama3-8b", "--device", "cpu", "--batch",
+                      "8", "--seq", "32", "--steps", "6"])
+    np.testing.assert_allclose(cli["uncut"], one["loss"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("what", ["dense-tp", "dense-fsdp", "moe",
+                                  "int8-residual"])
+def test_one_rank_mesh_is_bitwise_the_unsharded_step(runs, what):
+    w1 = _get(runs, "world1", "world1")
+    keys = [k for k in w1 if k.startswith(what)]
+    assert keys
+    for k in keys:
+        assert w1[k] == dict(bitwise=True, calls=True), k

@@ -27,7 +27,9 @@ from repro_torch import convert
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.data import TokenPipeline
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import chaos, train, train_lib
+from repro_torch.launch import chaos, dist, train, train_lib
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharding as shd
 from repro_torch.models import common
 from repro_torch.models.api import build
 from repro_torch.optim import adamw
@@ -315,7 +317,15 @@ def test_train_step_accumulation_matches_reference(ref_runs):
     _held_each_step(ref_runs("llama3-8b", accum_steps=2), accum_steps=2)
 
 
-def test_train_step_metrics_and_refusals(ref_runs):
+def _one_rank_group(tmp_path):
+    dist.init(device="cpu", init_method="file://" + str(tmp_path / "pg"),
+              rank=0, world=1)
+
+
+def test_train_step_metrics_and_refusals(ref_runs, tmp_path):
+    """The step's metrics; on a mesh of the one-rank group, the same
+    metrics and the same bits (``test_torch_mesh_train.py`` holds the
+    meshes of 4 ranks); the refusals that stay."""
     run = ref_runs("phi3.5-moe-42b-a6.6b")
     cfg = _port_cfg(run.cfg)
     params = convert.lm_params(run.init, "cpu")
@@ -324,8 +334,27 @@ def test_train_step_metrics_and_refusals(ref_runs):
     assert set(m) == {"ce", "router_aux", "loss", "grad_norm", "lr"}
     assert int(opt["step"]) == 1
     assert not any(w.requires_grad for w in adamw.leaves(params))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_lib.make_train_step(cfg, adamw.AdamWConfig(), mesh=object())
+    _one_rank_group(tmp_path)
+    try:
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"))
+        specs = train_lib.shardings_for(cfg, mesh, {})[0]
+        blocks = shd.shard_tree(convert.lm_params(run.init, "cpu"), specs,
+                                mesh)
+        _, opt2, m2 = train_lib.make_train_step(
+            cfg, adamw.AdamWConfig(**OCFG), mesh)(
+            blocks, adamw.init(blocks), _port_batch(run.batches[0]))
+        assert {k: float(v) for k, v in m2.items()} == \
+            {k: float(v) for k, v in m.items()}
+        assert all(torch.equal(a, b) for a, b in zip(
+            adamw.leaves(blocks) + adamw.leaves(opt2),
+            adamw.leaves(params) + adamw.leaves(opt)))
+        with pytest.raises(ValueError, match="world of 1"):
+            meshlib.make_mesh((2, 2), ("data", "model"))
+        with pytest.raises(ValueError, match="grad_compress"):
+            train_lib.make_train_step(cfg, adamw.AdamWConfig(), mesh,
+                                      grad_compress="fp8")
+    finally:
+        dist.destroy()
     with pytest.raises(ValueError, match="equal microbatches"):
         train_lib.make_train_step(cfg, adamw.AdamWConfig(), accum_steps=3)(
             params, adamw.init(params), _port_batch(run.batches[0]))
@@ -472,6 +501,27 @@ def test_train_killed_and_resumed_matches_uncut(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_train_cli_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_train_cli_refuses_a_mesh(monkeypatch):
+    """``--mesh`` outside torchrun, or larger than the group, is refused;
+    under torchrun's variables (one rank) ``--mesh 1,1`` trains, bit for
+    bit as without a mesh (4 ranks: ``test_torch_mesh_train.py``)."""
+    small = ["--batch", "4", "--seq", "32", "--steps", "3"]
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         train.main(_CLI + ["--mesh", "4,2"])
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="world of 1"):
+        train.main(_CLI + small + ["--mesh", "4,2"])
+    assert not dist.initialized()
+    got = train.main(_CLI + small + ["--mesh", "1,1"])
+    assert not dist.initialized()
+    want = train.main(_CLI + small)
+    assert got["loss"] == want["loss"]
+    assert got["grad_norm"] == want["grad_norm"]
