@@ -10,8 +10,10 @@ between cards, gloo between CPU processes.
 
 Every collective of the port goes through one helper here —
 :func:`all_gather`, :func:`all_reduce`, :func:`reduce_scatter` and
-:func:`ring_shift` (and :func:`all_reduce_grad`, an :func:`all_reduce`
-with a backward) — each of
+:func:`ring_shift`, and the ones autograd differentiates, built on them:
+:func:`all_reduce_grad`, and the pairs of a product split over a group
+(:func:`copy_to_group`, :func:`reduce_from_group`,
+:func:`all_gather_grad`) — each of
 which calls whichever name the installed torch provides without a
 deprecation warning, and counts its calls in :data:`calls` (by helper;
 the chip smoke reads collectives per SMO iteration from it). A group
@@ -39,12 +41,16 @@ calls: collections.Counter = collections.Counter()
 
 def init(device: str = "cuda", init_method: "str | None" = None,
          rank: "int | None" = None, world: "int | None" = None,
-         timeout: datetime.timedelta = TIMEOUT) -> torch.device:
+         timeout: datetime.timedelta = TIMEOUT,
+         backend: "str | None" = None) -> torch.device:
     """Join the default process group and return this rank's device:
     ``cuda:{LOCAL_RANK}`` (set as the current card) with NCCL, or the CPU
     with gloo. ``rank`` / ``world`` default to torchrun's ``RANK`` /
-    ``WORLD_SIZE``, ``init_method`` to ``env://``. A CUDA request without
-    a card raises, as ``device.resolve`` does."""
+    ``WORLD_SIZE``, ``init_method`` to ``env://``. ``backend`` names
+    another backend for the device (gloo between processes that share one
+    card, which NCCL refuses); its collectives then take the device's
+    tensors or raise. A CUDA request without a card raises, as
+    ``device.resolve`` does."""
     global _device
     dev = devmod.resolve(device)
     rank = int(os.environ["RANK"]) if rank is None else int(rank)
@@ -56,8 +62,11 @@ def init(device: str = "cuda", init_method: "str | None" = None,
                                        rank % torch.cuda.device_count()))
             dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
-        kw["device_id"] = dev
-    tdist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+        if backend in (None, "nccl"):
+            kw["device_id"] = dev
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    tdist.init_process_group(backend,
                              init_method=init_method or "env://",
                              rank=rank, world_size=world, timeout=timeout,
                              **kw)
@@ -165,6 +174,60 @@ def all_reduce_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     of a rank's ``t`` is the sum of every rank's gradient of the result
     (one more all-reduce in the backward)."""
     return _AllReduceGrad.apply(t, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself, into a product split over ``group``: each rank's
+    gradient of it is the part its own block reaches, so the backward sums
+    them (one :func:`all_reduce`)."""
+    return _CopyToGroup.apply(t, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's partial ``t`` (one
+    :func:`all_reduce`), out of a product split over it: the result is
+    replicated, so each rank's gradient of its ``t`` is the result's."""
+    return _ReduceFromGroup.apply(t, group)
+
+
+class _AllGatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_rows(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def all_gather_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather_rows` along ``dim`` that autograd differentiates,
+    for a gathered tensor that each rank uses only in part: the gradient of
+    a rank's block is its block of the sum of every rank's gradient of the
+    whole (one :func:`reduce_scatter`)."""
+    return _AllGatherGrad.apply(t, dim % t.dim(), group)
 
 
 def max_int(v: int, group=None, device=None) -> int:

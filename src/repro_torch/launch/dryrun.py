@@ -29,9 +29,13 @@ no compiled program, so each cell is priced from what the port would do:
   a train cell a backward, through remat as configured) at the cell's
   full width, full sequence and one rank's microbatch, on ``meta``
   tensors under ``torch.utils.flop_counter.FlopCounterMode``, so it also
-  proves that every cell's shapes flow through the step. The count is of
-  matrix products (what ``FlopCounterMode`` counts); on meta the
-  attention takes its plain path.
+  proves that every cell's shapes flow through the step. A train cell
+  under tp runs with this rank's 'model' blocks (``MeshStep.local_shapes``)
+  inside ``common.model_parallel`` with no process group, so it counts a
+  rank's own split products and its collectives only give shapes (the
+  plan prices them). The count is of matrix products (what
+  ``FlopCounterMode`` counts); on meta the attention takes its plain
+  path.
 
 The three terms use the H100 peaks of ``launch.roofline`` (bf16 tensor
 cores, HBM3, NVLink). The memory term is a lower bound: the arguments read
@@ -43,6 +47,7 @@ accessed) the record's key is ``null``, under ``"source": "shapes"``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -167,7 +172,8 @@ def collective_plan(cfg, shape, mesh, accum: int) -> list:
         step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh,
                                   accum_steps=accum)
         return step.plan(configs.input_specs(cfg, shape))
-    return train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh).gather_plan()
+    return train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh).gather_plan(
+        whole=True)
 
 
 def local_rows(cfg, shape, mesh, accum: int) -> int:
@@ -184,15 +190,24 @@ def local_rows(cfg, shape, mesh, accum: int) -> int:
         else shape.global_batch
 
 
-def meta_flops(cfg, shape, rows: int) -> float:
+def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
     """FLOPs of one rank's pass over ``rows`` rows on meta tensors: the
     loss's forward and backward (train), the prefill step, or one decode
-    step against a cache filled to ``seq_len - 1``."""
+    step against a cache filled to ``seq_len - 1``. Given the ``mesh``, a
+    train cell's pass takes the sharded step's 'model' blocks."""
     model = build(cfg)
     params = model.init(cfg, common.MetaDraw())
     sub = dataclasses.replace(shape, global_batch=rows)
     batch = configs.input_specs(cfg, sub)
-    with FlopCounterMode(display=False) as fc:
+    ctx = contextlib.nullcontext()
+    if shape.kind == "train" and mesh is not None:
+        step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh)
+        if step.tp:
+            params = adamw.tree_like(params, [
+                torch.empty(s, dtype=x.dtype, device="meta")
+                for s, x in zip(step.local_shapes(), adamw.leaves(params))])
+            ctx = common.model_parallel(None, step.n_model, 0, step.roles)
+    with ctx, FlopCounterMode(display=False) as fc:
         if shape.kind == "train":
             flat = [w.requires_grad_() for w in adamw.leaves(params)]
             loss, _ = train_lib.make_loss_fn(cfg)(
@@ -229,7 +244,8 @@ def flops_extrapolated(arch: str, shape_name: str, mesh, accum: int,
 
     def measure(n_layers):
         cfg, sh = cell_config(arch, shape_name, {"n_layers": n_layers})
-        return meta_flops(cfg, dataclasses.replace(sh, seq_len=seq), rows)
+        return meta_flops(cfg, dataclasses.replace(sh, seq_len=seq), rows,
+                          mesh)
 
     a, b = measure(unit), measure(2 * unit)
     tot = a + (n_units - 1) * (b - a)

@@ -132,9 +132,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     Axis roles (DESIGN.md §6):
       pod    inter-pod data parallelism (the compressed gradient exchange)
       data   intra-pod data parallelism + FSDP/ZeRO param-and-moment sharding
-      model  tensor / expert parallelism in the reference; in the port it
-             shards the stored state and the step gathers it back (ROADMAP
-             queue 2, R14)
+      model  tensor / expert parallelism (the transformer archs' heads,
+             FFN width, experts and vocabulary under the tp layout;
+             ``launch.train_lib.MeshStep``)
     """
     return make_mesh(*_PRODUCTION[multi_pod])
 

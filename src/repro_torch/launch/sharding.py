@@ -10,8 +10,10 @@ trailing dims, and the first whose named axes divide those dims wins
 shards head_dim = 128 instead).
 
 Conventions, as there:
-  'model'  tensor/expert parallel axis of the reference; the port shards
-           the stored state over it and gathers it back for the products
+  'model'  tensor/expert parallel axis: attention heads (head_dim where
+           the heads do not divide), the FFN width, the experts and the
+           vocabulary (:func:`model_role`); the zamba2 and xLSTM leaves
+           it splits are stored split and gathered whole for the products
   'data'   FSDP axis for parameters & optimizer moments (intra-pod);
            multi-pod keeps params replicated across 'pod'
   batch    activations shard over ('pod','data') combined
@@ -44,23 +46,34 @@ class Spec(tuple):
         return "Spec" + tuple.__repr__(self)
 
 
-# (regex on the dot-joined tree path, [candidate trailing-dim specs])
-_PARAM_RULES: list[tuple[str, list[tuple]]] = [
-    (r"\bembed$",        [("model", "data"), (None, "data"), (None, None)]),
-    (r"\bunembed$",      [("data", "model"), (None, "model"), (None, None)]),
+# (regex on the dot-joined tree path, [candidate trailing-dim specs]
+#  [, the role of each trailing dim where 'model' splits it: what the
+#  sharded step's tensor-parallel product splits, model_role])
+_PARAM_RULES: list[tuple] = [
+    (r"\bembed$",        [("model", "data"), (None, "data"), (None, None)],
+     ("vocab", None)),
+    (r"\bunembed$",      [("data", "model"), (None, "model"), (None, None)],
+     (None, "vocab")),
     (r"\bw[qkv]$",       [("data", "model", None), ("data", None, "model"),
                           (None, "model", None), (None, None, "model"),
-                          (None, None, None)]),
+                          (None, None, None)],
+     (None, "heads", "head_dim")),
     (r"\bwo$",           [("model", None, "data"), (None, "model", "data"),
-                          (None, None, "data"), (None, None, None)]),
-    (r"\bw_(gate|up)$",  [("data", "model"), (None, "model"), (None, None)]),
-    (r"\bw_down$",       [("model", "data"), ("model", None), (None, None)]),
+                          (None, None, "data"), (None, None, None)],
+     ("heads", "head_dim", None)),
+    (r"\bw_(gate|up)$",  [("data", "model"), (None, "model"), (None, None)],
+     (None, "ffn")),
+    (r"\bw_down$",       [("model", "data"), ("model", None), (None, None)],
+     ("ffn", None)),
     (r"\bwe_(gate|up)$", [("model", "data", None), (None, "data", None),
-                          (None, None, None)]),
+                          (None, None, None)],
+     ("experts", None, None)),
     (r"\bwe_down$",      [("model", None, "data"), (None, None, "data"),
-                          (None, None, None)]),
+                          (None, None, None)],
+     ("experts", None, None)),
     (r"\brouter$",       [(None, None)]),
-    (r"\bb[qkv]$",       [("model", None), (None, "model"), (None, None)]),
+    (r"\bb[qkv]$",       [("model", None), (None, "model"), (None, None)],
+     ("heads", "head_dim")),
     # xLSTM
     (r"\bw_gates$",      [(None, None, None)]),
     (r"\br$",            [(None, "model", None, None),
@@ -127,6 +140,13 @@ def leaves(tree: Any) -> list:
     return out
 
 
+def leaf_paths(tree: Any) -> list:
+    """The dot-joined paths of the leaves, in :func:`leaves`' order."""
+    out = []
+    map_with_path(lambda p, _: out.append(p), tree)
+    return out
+
+
 def _shape(leaf) -> tuple:
     return tuple(getattr(leaf, "shape", ()))
 
@@ -147,7 +167,7 @@ def _spec_for(path_s: str, shape: tuple, mesh, rules, batch_ax) -> Spec:
     def resolve(name):
         return batch_ax if name == "batch" else name
 
-    for pat, candidates in rules:
+    for pat, candidates, *_ in rules:
         if re.search(pat, path_s):
             for cand in candidates:
                 if len(cand) > len(shape):
@@ -206,6 +226,25 @@ def strip_fsdp(spec_tree: Any):
         return None if a in ("data", "pod") else a
 
     return map_with_path(lambda _, s: Spec(*map(keep, s)), spec_tree)
+
+
+def model_role(path_s: str, spec: Spec) -> "tuple | None":
+    """(dim, role) of the dim of a leaf that the 'model' axis splits under
+    the tp layout, the role (from the rule table) one of 'heads',
+    'head_dim' (the table's fallback where the heads do not divide),
+    'ffn', 'experts' and 'vocab'; None where 'model' splits no dim of the
+    leaf, or one whose products the port does not split (the xLSTM and
+    mamba leaves: those are gathered whole). Norms and the router are
+    replicated over 'model', as the table has them."""
+    for pat, _, *roles in _PARAM_RULES:
+        if re.search(pat, path_s):
+            roles = roles[0] if roles else ()
+            for i, axs in sharded_dims(spec):
+                j = len(roles) - (len(spec) - i)
+                if "model" in axs and j >= 0 and roles[j]:
+                    return i, roles[j]
+            return None
+    return None
 
 
 def cache_specs(shape_tree: Any, mesh):
@@ -293,10 +332,16 @@ def shard(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return t[block(spec, t.shape, mesh, mesh.coord)].clone()
 
 
-def gather(b: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather(b: torch.Tensor, spec: Spec, mesh,
+           keep: tuple = ()) -> torch.Tensor:
     """The whole tensor from every rank's block ``b``: one all-gather a
-    split dim, over the group of its axes. A bit copy."""
+    split dim, over the group of its axes. A bit copy. A dim split over an
+    axis of ``keep`` stays this rank's block (``keep=('model',)``: the
+    block a tensor-parallel product takes, :func:`strip_fsdp`'s layout
+    reached by gathering)."""
     for i, axs in sharded_dims(spec):
+        if set(axs) & set(keep):
+            continue
         if mesh.ordered(axs) != axs:
             raise ValueError(f"{spec}: axes {axs} are not in the mesh's "
                              f"order {mesh.axis_names}")

@@ -14,26 +14,37 @@ explicit where the reference's is one GSPMD program:
   its rows of each microbatch: a microbatch splits over the batch axes
   (('pod','data'); with 'model' under the fsdp layout) when it divides
   over them, else every rank takes all of it;
-* gather: it all-gathers the whole parameters, once a step with
-  ``gather_params_once``, else once a microbatch;
-* compute: loss and gradients of its rows with the whole parameters; the
-  loss divides by the batch's count of unmasked targets (all-reduced
-  first) and the MoE router's batch means are reduced inside the forward
+* gather: it all-gathers the parameters over their batch axes ('pod',
+  'data'), once a step with ``gather_params_once``, else once a
+  microbatch; under the tp layout a transformer's leaves that 'model'
+  splits stay this rank's 'model' block (below), the rest come whole;
+* compute: loss and gradients of its rows; the loss divides by the
+  batch's count of unmasked targets (all-reduced first) and the MoE
+  router's batch means are reduced inside the forward
   (``common.sharded_batch``), so the ranks' losses add up to the batch's;
 * reduce: it sums the fp32 gradients over the batch axes and keeps its
   block (a reduce-scatter over the axes that split both, a local slice
   over axes that split the leaf only, an all-reduce over axes that split
-  the batch only);
+  the batch only); a 'model' block's gradient is already its block;
 * update: AdamW on its blocks, with the global norm of the blocks (each
   block counted by one of the ranks that hold it).
 
-The 'model' axis shards the stored state as the reference's specs say,
-but the step gathers it back: the model's products are not split over it
-(the reference's GSPMD inserts tensor-parallel collectives instead). The
-numbers are the same; compute and the step's transient memory are not
-(ROADMAP queue 2, R14). :meth:`MeshStep.plan` lists every collective the
-step makes, with its group and bytes; ``launch.dryrun`` prices the same
-plan.
+Under the tp layout the 'model' axis is the tensor and expert parallel
+axis, as the reference's GSPMD makes it (``launch.sharding.model_role``):
+for the transformer families (dense, moe, audio, vlm) each rank holds
+and computes its 'model' block of the attention heads (or of head_dim,
+where the heads do not divide: q, k and v are then gathered and the
+attention runs whole), of the FFN width, of the experts and of the
+vocabulary, inside ``common.model_parallel`` (given ``MeshStep.roles``);
+a split block ends in one all-reduce over 'model', and its input's
+gradient is all-reduced in the backward. Norms and the router stay
+replicated. No rank makes such a leaf's whole weight or its whole fp32
+gradient. A leaf group whose split the model cannot compute (the table's
+candidates differ between ``wq`` and ``wo``, say) and the zamba2 and
+xLSTM leaves are gathered whole over 'model', as is everything at a 'model' of size 1 and under the fsdp
+layout (where 'model' joins the batch axes). :meth:`MeshStep.plan` lists
+every collective the step makes, with its group and bytes;
+``launch.dryrun`` prices the same plan.
 """
 from __future__ import annotations
 
@@ -136,6 +147,8 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
 
 
 _CODECS = (None, "bf16", "int8")
+_TP_FAMILIES = ("dense", "moe", "audio", "vlm")
+_QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
 
 
 class MeshStep:
@@ -172,6 +185,55 @@ class MeshStep:
         self.shapes = adamw.leaves(self.tree)
         self.specs = shd.leaves(shd.param_specs(self.tree, mesh, cfg.layout))
         self.in_pod = tuple(a for a in mesh.axis_names if a != "pod")
+        paths = shd.leaf_paths(self.tree)
+        self.n_model = mesh.sizes.get("model", 1)
+        # leaf name -> the role of the dim whose 'model' block the forward
+        # takes (common.model_parallel reads it); empty: all gathered whole
+        self.roles = {}
+        if (cfg.layout == "tp" and self.n_model > 1
+                and cfg.family in _TP_FAMILIES):
+            self.roles = self._split_roles(paths)
+        self.split = [p.rsplit(".", 1)[-1] in self.roles for p in paths]
+        self.tp = bool(self.roles)
+
+    def _split_roles(self, paths: list) -> dict:
+        """The leaves (by name, with the role of their split dim) whose
+        'model' block the forward takes: a group of leaves is split where
+        the model can compute each of its products from the blocks the
+        table gives (attention all by heads, k and v by heads or head_dim,
+        with whole GQA groups a rank, or all by head_dim; the FFN by its
+        width; the experts; each vocabulary table)."""
+        cfg = self.cfg
+        role = {p.rsplit(".", 1)[-1]: (shd.model_role(p, s) or (0, None))[1]
+                for p, s in zip(paths, self.specs)}
+        qkv = [n for n in _QKV if n in role]
+        h_loc, g = cfg.n_heads // self.n_model, cfg.n_heads // cfg.n_kv_heads
+        by_heads = (
+            role["wo"] == role["wq"] == role.get("bq", "heads") == "heads"
+            and all(role[w] in ("heads", "head_dim")
+                    and role.get("b" + w[1], role[w]) == role[w]
+                    for w in ("wk", "wv"))
+            and (h_loc % g == 0 or g % h_loc == 0))
+        by_dim = all(role[n] == "head_dim" for n in qkv + ["wo"])
+        kept = qkv + ["wo"] if by_heads or by_dim else []
+        for group, want in ((("w_gate", "w_up", "w_down"), "ffn"),
+                            (("we_gate", "we_up", "we_down"), "experts"),
+                            (("embed",), "vocab"), (("unembed",), "vocab")):
+            if all(role.get(n) == want for n in group):
+                kept += group
+        return {n: role[n] for n in kept}
+
+    def local_shapes(self) -> list:
+        """The shape of each leaf as the forward gets it: whole, or this
+        rank's 'model' block of a split leaf."""
+        out = []
+        for x, spec, split in zip(self.shapes, self.specs, self.split):
+            shape = list(x.shape)
+            for i, axs in shd.sharded_dims(spec):
+                if split and "model" in axs:
+                    shape[i] //= self.n_model
+            out.append(tuple(shape))
+        return out
 
     # -------------------------------------------------------- the layout
     def layout(self, rows: int) -> tuple:
@@ -207,15 +269,19 @@ class MeshStep:
 
     # ------------------------------------------------------- the moves
     def _gather(self, params: dict) -> list:
-        return [shd.gather(b, s, self.mesh)
-                for b, s in zip(adamw.leaves(params), self.specs)]
+        return [shd.gather(b, s, self.mesh, ("model",) if split else ())
+                for b, s, split in zip(adamw.leaves(params), self.specs,
+                                       self.split)]
 
-    def _reduce(self, g: torch.Tensor, spec, red: tuple) -> torch.Tensor:
-        """This rank's block of the sum over ``red`` of every rank's whole
-        fp32 gradient ``g``."""
-        idx = shd.block(spec, g.shape, self.mesh, self.mesh.coord)
+    def _reduce(self, g: torch.Tensor, leaf, spec, red: tuple,
+                split: bool = False) -> torch.Tensor:
+        """This rank's block of the sum over ``red`` of every rank's fp32
+        gradient ``g``: of the whole ``leaf`` (a meta tensor of its
+        shape), or of its 'model' block where the leaf is ``split``."""
+        idx = shd.block(spec, leaf.shape, self.mesh, self.mesh.coord)
         local = [i for i, axs in shd.sharded_dims(spec)
-                 if not set(axs) & set(red)]
+                 if not set(axs) & set(red)
+                 and not (split and "model" in axs)]
         if local:
             g = g[tuple(idx[i] if i in local else slice(None)
                         for i in range(g.ndim))].clone()
@@ -241,12 +307,17 @@ class MeshStep:
         """(loss, ce, aux, grads) of this rank's rows ``mb``: its share of
         the microbatch's loss (the whole count divides it; the aux term
         once over the ``red`` ranks), the aux term (the batch's), and the
-        gradients of the whole parameters."""
+        gradients of the parameters ``full`` (whole, or 'model' blocks)."""
         cfg, n_red = self.cfg, math.prod(self.mesh.sizes[a] for a in red)
         flat = [w.detach().requires_grad_() for w in full]
-        ctx = common.sharded_batch(self.mesh.group(red), n_red) if red \
-            else contextlib.nullcontext()
-        with ctx:
+        with contextlib.ExitStack() as ctx:
+            if red:
+                ctx.enter_context(common.sharded_batch(self.mesh.group(red),
+                                                       n_red))
+            if self.tp:
+                ctx.enter_context(common.model_parallel(
+                    self.mesh.group(("model",)), self.n_model,
+                    self.mesh.coord["model"], self.roles))
             logits, aux = self.model.forward(
                 adamw.tree_like(self.tree, flat), cfg, mb)
             loss, metrics = common.cross_entropy(logits, mb["targets"],
@@ -315,8 +386,8 @@ class MeshStep:
             vec.append(torch.stack([loss, ce, aux.float() / n_red]))
             grads = [g.float() for g in grads]
             if self.use_pod or not self.once:
-                grads = [self._reduce(g, s, red)
-                         for g, s in zip(grads, self.specs)]
+                grads = [self._reduce(g, x, s, red, k) for g, x, s, k in
+                         zip(grads, self.shapes, self.specs, self.split)]
             if self.use_pod:
                 grads, new_res = self._pod_codec(grads, res_in)
             if A == 1:
@@ -331,7 +402,8 @@ class MeshStep:
         if A > 1:
             acc = [g.div_(A) for g in acc]
         if self.once and not self.use_pod:
-            acc = [self._reduce(g, s, red) for g, s in zip(acc, self.specs)]
+            acc = [self._reduce(g, x, s, red, k) for g, x, s, k in
+                   zip(acc, self.shapes, self.specs, self.split)]
         vec = torch.stack(vec)
         if split:
             vec = dist.all_reduce(vec, "sum", self.mesh.group(split))
@@ -386,6 +458,11 @@ class MeshStep:
         if red:
             add("all_reduce", red, 4 * A, 1, "target counts")
         out += self.gather_plan(1 if self.once else A)
+        if self.tp:
+            seq = tuple(next(iter(batch_shapes.values())).shape)[1]
+            rows = per // math.prod(sizes[a] for a in split)
+            for op, nbytes, calls, what in self._tp_plan(rows, seq):
+                add(op, ("model",), nbytes, A * calls, what)
         if red and cfg.is_moe:
             per_layer = 3 if cfg.remat == "full" else 2
             add("all_reduce", red, 4 * 2 * cfg.n_experts,
@@ -423,13 +500,53 @@ class MeshStep:
         return out
 
 
-    def gather_plan(self, calls: int = 1) -> list:
-        """The plan's all-gathers of the whole parameters, ``calls`` times:
-        one a split dim of each leaf, of the block gathered so far."""
+    def _tp_plan(self, rows: int, seq: int) -> list:
+        """(helper, bytes, calls, what) of the 'model' collectives of one
+        microbatch of ``rows`` x ``seq`` on this rank, in the forward, the
+        backward and the remat recompute (which repeats a layer's forward
+        ones, but not its FFN reduce, which comes after the block)."""
+        from repro_torch.models.transformer import dtype_of
+        cfg, m, roles = self.cfg, self.n_model, self.roles
+        e = dtype_of(cfg).itemsize
+        act, L = rows * seq * cfg.d_model * e, cfg.n_layers
+        twice = 2 if cfg.remat == "full" else 1
+        out = []
+        if "embed" in roles:
+            out.append(("all_reduce", act, 1, "tp embedding"))
+        if "wo" in roles:
+            out.append(("all_reduce", act, L, "tp attention input grads"))
+            for w, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                             ("wv", cfg.n_kv_heads)):
+                if roles[w] == "head_dim":
+                    whole = rows * seq * heads * cfg.hd * e
+                    out.append(("all_gather", whole // m, L * twice,
+                                f"tp {w[1]} head_dim"))
+                    out.append(("reduce_scatter", whole, L,
+                                f"tp {w[1]} head_dim grads"))
+            out.append(("all_reduce", act, L * twice, "tp attention"))
+        if "w_gate" in roles or "we_gate" in roles:
+            out.append(("all_reduce", act, L, "tp ffn input grads"))
+            out.append(("all_reduce", act, L, "tp ffn"))
+        if "we_gate" in roles:
+            out.append(("all_reduce", rows * seq * cfg.top_k * 4, L,
+                        "tp gate grads"))
+        if "unembed" in roles:
+            out.append(("all_reduce", act, 1, "tp logits input grads"))
+            out.append(("all_reduce", rows * seq * 4, 1, "tp ce max"))
+            out.append(("all_reduce", 2 * rows * seq * 4, 1, "tp ce sums"))
+        return out
+
+    def gather_plan(self, calls: int = 1, whole: bool = False) -> list:
+        """The plan's all-gathers of the parameters, ``calls`` times: one a
+        split dim of each leaf, of the block gathered so far; a split
+        leaf's 'model' dim stays its block unless ``whole`` (the serving
+        cells' gathers)."""
         sizes, out = self.mesh.sizes, []
-        for x, spec in zip(self.shapes, self.specs):
+        for x, spec, split in zip(self.shapes, self.specs, self.split):
             cur = list(shd.block_shape(spec, x.shape, self.mesh))
             for i, axs in shd.sharded_dims(spec):
+                if split and not whole and "model" in axs:
+                    continue
                 out.append(dict(op="all_gather", axes=axs,
                                 group=math.prod(sizes[a] for a in axs),
                                 bytes=_nbytes(cur, x.dtype), calls=calls,

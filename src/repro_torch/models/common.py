@@ -6,8 +6,10 @@ Functional like the reference: params are plain nested dicts of tensors.
 The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
 ``repeat_kv``) only place activations under GSPMD and are left out; the
 one batch statistic that crosses ranks (the MoE router's) goes through
-:func:`batch_means` instead. ``scan_or_unroll`` is left out too (a Python
-loop over layers does its job).
+:func:`batch_means` instead, and the products split over the 'model' axis
+(the reference's ``constrain_heads`` / ``constrain_logits``) through
+:func:`model_parallel` and its collectives. ``scan_or_unroll`` is left
+out too (a Python loop over layers does its job).
 """
 from __future__ import annotations
 
@@ -116,6 +118,94 @@ def batch_means(t: torch.Tensor) -> torch.Tensor:
     from repro_torch.launch import dist
     group, n = _BATCH_GROUP
     return dist.all_reduce_grad(t, group) / n
+
+
+# ------------------------------------------------------- the 'model' axis
+_MODEL_AXIS = None       # (process group or None, size, rank, roles)
+                         # inside model_parallel
+
+
+@contextlib.contextmanager
+def model_parallel(group, size: int, rank: int, roles: dict):
+    """Within: the model gets this rank's 'model' block of each leaf named
+    in ``roles`` (leaf name -> the role of the dim split over the ``size``
+    ranks of ``group``, this one ``rank`` among them: 'heads',
+    'head_dim', 'ffn', 'experts' or 'vocab'), computes its block of each
+    such product and joins them with the collectives below. With
+    ``group`` None the collectives only give their results' shapes and
+    communicate nothing (the dry-run's meta pass). The backward (and a
+    remat recompute) must run inside too."""
+    global _MODEL_AXIS
+    old = _MODEL_AXIS
+    _MODEL_AXIS = (group, size, rank, dict(roles))
+    try:
+        yield
+    finally:
+        _MODEL_AXIS = old
+
+
+def split_role(name: str) -> "str | None":
+    """The role of the dim of leaf ``name`` that this rank holds a 'model'
+    block of; None where the leaf is whole (always, outside
+    :func:`model_parallel`)."""
+    return None if _MODEL_AXIS is None else _MODEL_AXIS[3].get(name)
+
+
+def model_rank() -> int:
+    """This rank's place on the 'model' axis (0 outside
+    :func:`model_parallel`)."""
+    return 0 if _MODEL_AXIS is None else _MODEL_AXIS[2]
+
+
+def to_model(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``, replicated, into the product of leaf ``name``: where that is
+    split, the gradient of ``x`` is summed over the 'model' ranks in the
+    backward; else ``x`` itself."""
+    from repro_torch.launch import dist
+    if split_role(name) is None or _MODEL_AXIS[0] is None:
+        return x
+    return dist.copy_to_group(x, _MODEL_AXIS[0])
+
+
+def from_model(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Out of the product of leaf ``name``: where that is split, the sum
+    of every 'model' rank's partial ``x``, replicated; else ``x``."""
+    from repro_torch.launch import dist
+    if split_role(name) is None or _MODEL_AXIS[0] is None:
+        return x
+    return dist.reduce_from_group(x, _MODEL_AXIS[0])
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every 'model' rank's block of ``x`` joined along ``dim``, for a rank
+    that uses the whole only in part (the backward reduce-scatters)."""
+    from repro_torch.launch import dist
+    group, size = _MODEL_AXIS[:2]
+    if group is None:
+        return torch.cat([x] * size, dim)
+    return dist.all_gather_grad(x, dim, group)
+
+
+def _max_model(x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.launch import dist
+    group = _MODEL_AXIS[0]
+    return x if group is None else dist.all_reduce(x, "max", group)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; where ``table`` is this rank's block of the
+    vocabulary rows over 'model', each rank looks up the ids in its rows,
+    writes zero for the others, and the blocks are summed (exact: one term
+    of each sum is not zero)."""
+    if split_role("embed") is None:
+        return table[ids]
+    n = table.shape[0]
+    loc = ids - model_rank() * n
+    inside = (loc >= 0) & (loc < n)
+    rows = table[loc.clamp(0, n - 1)]
+    return from_model(torch.where(inside[..., None], rows,
+                                  torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device)), "embed")
 
 
 def scan_chunk(chunk: int, L: int) -> int:
@@ -227,10 +317,20 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     The target logit is taken with ``gather``: the reference's iota ==
     target masked sum (which keeps vocab-sharded logits sharded under
     GSPMD) adds exact zeros, so it is the same number, and a (B, L, V)
-    mask would be GBs at a 128K vocab."""
+    mask would be GBs at a 128K vocab.
+
+    Where ``unembed`` is split over 'model' (:func:`model_parallel`),
+    ``logits`` are this rank's block of the vocabulary, as the reference
+    keeps them (``constrain_logits``): the max and the sum of exponentials
+    are all-reduced over 'model', and the target's logit comes from the
+    rank that holds it (zero from the others, summed)."""
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    tgt = torch.gather(lg, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    if split_role("unembed") is not None:
+        lse, tgt = _split_lse_target(lg, targets)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        tgt = torch.gather(lg, -1,
+                           targets.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - tgt
     if z_loss:
         nll = nll + z_loss * lse ** 2
@@ -239,3 +339,19 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     loss = (nll * mask).sum() / n
     ce = torch.where(mask > 0, lse - tgt, 0.0).sum() / n
     return loss, {"ce": ce}
+
+
+def _split_lse_target(lg: torch.Tensor, targets: torch.Tensor) -> tuple:
+    """(logsumexp, target logit) over the whole vocabulary from this rank's
+    block ``lg`` of it: one max all-reduce (no gradient: it only shifts
+    the exponentials) and one sum all-reduce of the stacked partial sum of
+    exponentials and target logit."""
+    n = lg.shape[-1]
+    mx = _max_model(lg.detach().amax(dim=-1))
+    loc = targets.long() - model_rank() * n
+    inside = (loc >= 0) & (loc < n)
+    tgt = torch.gather(lg, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = torch.where(inside, tgt, 0.0)
+    sums = from_model(torch.stack(
+        [torch.exp(lg - mx[..., None]).sum(-1), tgt]), "unembed")
+    return mx + torch.log(sums[0]), sums[1]

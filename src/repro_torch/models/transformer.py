@@ -7,8 +7,19 @@ of a token lookup).
 
 The parameter tree is the reference's: per-layer weights stacked on a
 leading ``n_layers`` axis under ``layers``, plus ``ln_f``, ``unembed`` and
-(tokens frontend) ``embed``. Layers run in a Python loop. Two differences
-from the reference, neither changing the function:
+(tokens frontend) ``embed``. Layers run in a Python loop.
+
+Inside ``common.model_parallel`` (the sharded step's 'model' axis under
+the tp layout) a layer gets this rank's block of the leaves that the
+context names (``common.split_role``): attention by heads (``wq`` / ``wo``
+over H; K and V over Hkv, or over head_dim and then gathered) or by
+head_dim (q, k and v gathered, the attention whole, ``wo`` by rows of its
+head_dim), the FFN by its width, the experts, and the embedding and
+unembedding by vocabulary. Each split block ends in one reduce over
+'model'; with nothing split, each collective is the identity and the ops
+are those of the unsharded model. The FFN's reduce comes after the remat
+block, so a recompute does not repeat it. Two differences from the
+reference, neither changing the function:
 
 * K and V are projected to the Hkv kv heads and the attention's GQA index
   shares them among query heads; the reference repeats ``wk`` / ``wv`` to
@@ -86,14 +97,37 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 # ------------------------------------------------------------------ layer
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
-    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    kk = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
-    if cfg.qkv_bias:
-        q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
+    """q, k and v of x, RoPE on q and k. Inside ``common.model_parallel``
+    with attention split: this rank's query heads and the kv heads they
+    read; a leaf split by head_dim gives its head_dim slice, gathered over
+    'model' before RoPE (which pairs the two halves of head_dim)."""
+    x = common.to_model(x, "wq")
+    out = []
+    for n in "qkv":
+        t = torch.einsum("bld,dhk->blhk", x, p["w" + n])
+        if cfg.qkv_bias:
+            t = t + p["b" + n]
+        if common.split_role("w" + n) == "head_dim":
+            t = common.gather_model(t, -1)
+        out.append(t)
+    q, kk, v = out
+    if common.split_role("wq") == "heads" and \
+            common.split_role("wk") == "head_dim":
+        kk, v = _kv_heads(cfg, kk, q.shape[2]), _kv_heads(cfg, v, q.shape[2])
     q = common.apply_rope(q, positions, cfg.rope_theta)
     kk = common.apply_rope(kk, positions, cfg.rope_theta)
     return q, kk, v
+
+
+def _kv_heads(cfg: ModelConfig, t: torch.Tensor, h_loc: int) -> torch.Tensor:
+    """The kv heads that this rank's ``h_loc`` query heads read, out of
+    all Hkv of ``t`` (B, L, Hkv, hd): heads split contiguously, so they
+    are the GQA groups of the rank's heads."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    r = common.model_rank()
+    lo = r * h_loc // g
+    hi = ((r + 1) * h_loc - 1) // g + 1
+    return t[:, :, lo:hi]
 
 
 # ------------------------------------------------------------------- MoE
@@ -137,13 +171,25 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
     'einsum' (GShard one-hot dispatch and combine products) or 'scatter'
     (tokens added into (B, E·cap + 1, d) slots, the last a sentinel that
     takes the dropped pairs and is sliced away, then gathered back). The
-    combine runs in x's type, gates rounded to it first. Returns (y, aux)."""
+    combine runs in x's type, gates rounded to it first. Returns (y, aux).
+
+    With the experts split over 'model' (``p['we_*']`` hold E / n of
+    them) the routing is the same on every rank, each rank runs its
+    experts on all the tokens, and ``y`` is this rank's partial, which
+    :func:`_ffn_reduce` sums; the gates and the dispatched tokens take
+    their gradients from every rank."""
     B, L, d = x.shape
-    E = cfg.n_experts
     gi, gv, pos, keep, onehot, cap, aux = _route(x, p, cfg)
+    E = p["we_gate"].shape[0]
+    split = common.split_role("we_gate") is not None
+    if split:
+        gv, x = common.to_model(gv, "we_gate"), common.to_model(x, "we_gate")
+        e0 = common.model_rank() * E
 
     if cfg.moe_impl == "einsum":
         kept = onehot * keep.float()[..., None]
+        if split:
+            kept = kept[..., e0: e0 + E]
         # one_hot of a position >= cap is all zeros, as jax.nn.one_hot's
         disp_pos = (pos[..., None].long() == torch.arange(
             cap, device=x.device)).float()                  # (B, L, k, cap)
@@ -155,6 +201,9 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
         return torch.einsum("blec,ebcd->bld", comb, out_e), aux
 
     k = cfg.top_k
+    if split:                               # another rank's experts: dropped
+        keep = keep & (gi >= e0) & (gi < e0 + E)
+        gi = gi - e0
     slot = torch.where(keep, gi * cap + pos, E * cap)       # (B, L, k)
     bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, L, k)
     buf = torch.zeros((B, E * cap + 1, d), dtype=x.dtype, device=x.device)
@@ -170,19 +219,13 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
 
 
 # ------------------------------------------------------------------ layer
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
-    """The layer's second half: h + FFN(norm(h)), and the MoE aux term (a
-    0-d fp32 zero for a dense layer)."""
-    x = common.rms_norm(h, p["ln2"])
-    if cfg.is_moe:
-        y, aux = _moe_ffn(x, p, cfg)
-        return h + y, aux
-    y = common.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
-
-
-def _layer(cfg: ModelConfig, p: dict, h: torch.Tensor,
+def _block(cfg: ModelConfig, p: dict, h: torch.Tensor,
            positions: torch.Tensor, kv_out=None) -> tuple:
+    """A layer as :func:`forward` runs it under remat: (h + attention(
+    norm(h)), FFN(norm(that)) before its 'model' reduce
+    (:func:`_ffn_reduce`), the MoE aux term: a 0-d fp32 zero for a dense
+    layer). Attention split by head_dim attends with all heads and keeps
+    this rank's head_dim slice for its rows of ``wo``."""
     x = common.rms_norm(h, p["ln1"])
     q, kk, v = _qkv(cfg, p, x, positions)
     if kv_out is not None:                       # prefill fills the cache
@@ -190,19 +233,43 @@ def _layer(cfg: ModelConfig, p: dict, h: torch.Tensor,
         kc[:, : kk.shape[1]] = kk
         vc[:, : v.shape[1]] = v
     attn = common.attention(q, kk, v, causal=True)
-    h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
-    return _ffn(cfg, p, h)
+    if common.split_role("wo") == "head_dim":
+        n, r = p["wo"].shape[1], common.model_rank()
+        attn = attn[..., r * n: (r + 1) * n]
+    h = h + common.from_model(torch.einsum("blhk,hkd->bld", attn, p["wo"]),
+                              "wo")
+    return (h,) + _ffn_out(cfg, p, h)
+
+
+def _ffn_out(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
+    """(FFN(norm(h)), aux); an FFN split over 'model' (its width, or the
+    experts) gives this rank's partial, which :func:`_ffn_reduce` sums."""
+    x = common.rms_norm(h, p["ln2"])
+    if cfg.is_moe:
+        return _moe_ffn(x, p, cfg)
+    y = common.swiglu(common.to_model(x, "w_gate"), p["w_gate"], p["w_up"],
+                      p["w_down"])
+    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _ffn_reduce(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """The FFN's output out of 'model': outside the remat block, so that a
+    recompute does not repeat it."""
+    return common.from_model(y, "we_gate" if cfg.is_moe else "w_gate")
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.frontend == "tokens":
-        return params["embed"][batch["tokens"].long()]
+        return common.embed_lookup(params["embed"], batch["tokens"].long())
     return batch["embeds"].to(dtype_of(cfg))
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits; this rank's block of the vocabulary where ``unembed`` is
+    split over 'model' (``common.cross_entropy`` takes them so)."""
     h = common.rms_norm(h, params["ln_f"])
-    return torch.einsum("bld,dv->blv", h, params["unembed"])
+    return torch.einsum("bld,dv->blv", common.to_model(h, "unembed"),
+                        params["unembed"])
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
@@ -224,8 +291,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
-        h, a = common.remat(cfg, _layer, cfg, common.at(params["layers"], i),
-                            h, positions, kv)
+        lp = common.at(params["layers"], i)
+        h, y, a = common.remat(cfg, _block, cfg, lp, h, positions, kv)
+        h = h + _ffn_reduce(cfg, y)
         aux = aux + a
     if cache is not None:
         cache["pos"] = L
@@ -272,7 +340,7 @@ def _decode_layer(cfg: ModelConfig, p: dict, kc: torch.Tensor,
     vc[:, pos] = v[:, 0]
     attn = _decode_attention(q, kc, vc, pos)
     h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
-    return _ffn(cfg, p, h)[0]
+    return h + _ffn_out(cfg, p, h)[0]
 
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):

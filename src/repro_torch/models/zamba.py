@@ -224,8 +224,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         if isinstance(item, int):                    # the shared block
             kv = None if cache is None else (cache["ak"][item],
                                              cache["av"][item])
-            h, _ = transformer._layer(cfg, params["shared_attn"], h,
-                                      positions, kv)
+            h, y, _ = transformer._block(cfg, params["shared_attn"], h,
+                                         positions, kv)
+            h = h + transformer._ffn_reduce(cfg, y)
             continue
         lp, (kc, ks, idx) = item
         h, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h)

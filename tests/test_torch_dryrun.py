@@ -8,7 +8,9 @@
   specs and ``eval_shape`` shapes;
 * ``model_flops``;
 * the meta pass and the collective plan on llama3-8b x train_4k (fsdp,
-  accum 1), yi-34b x train_4k (tp, accum 16), phi3.5-moe x prefill_32k
+  accum 1), yi-34b x train_4k (tp, accum 16: the 'model' axis splits its
+  products, the plan's tensor-parallel collectives, a split rank's
+  FLOPs), phi3.5-moe x prefill_32k
   (einsum dispatch), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
   extrapolation from 1 and 2 repeat units against a direct full-depth
   pass; the CLI on one cell.
@@ -181,14 +183,67 @@ def test_train_cell_yi34b_tp_accumulates_16():
     rec = dryrun.run_cell("yi-34b", "train_4k", False, verbose=False)
     assert (rec["layout"], rec["accum_steps"]) == ("tp", 16)
     assert rec["local_rows"] == 1
-    # the 'model' axis does not split the products: 16 model ranks compute
-    # the same rows, so ~16x the model's FLOPs (and remat's recompute)
-    assert 16 < rec["flops_global"] / rec["model_flops"] < 32
+    # the 'model' axis splits the products; what stays above the model's
+    # FLOPs is remat's recompute and the attention, which runs whole on
+    # every rank (56 heads do not split 16 ways: q, k and v are split by
+    # head_dim and gathered), masked half included on meta
+    assert 1 < rec["flops_global"] / rec["model_flops"] < 5
     # params are gathered once a microbatch, the grads reduced once a
     # microbatch (gather_params_once off)
     counts = rec["collectives"]["counts"]
     assert counts["all_gather"] % 16 == 0 and counts["reduce_scatter"] % 16 \
         == 0
+
+
+def test_yi34b_plan_lists_the_model_axis_collectives():
+    """The tp step's 'model' collectives a step of yi-34b x train_4k on
+    16x16 (accum 16, 1 row a rank, remat full): per layer and microbatch
+    the attention input's gradient, q / k / v gathered over head_dim
+    (forward and recompute) and reduce-scattered back, the attention's and
+    the FFN's reduce (the attention's again in the recompute) and the
+    FFN input's gradient; the embedding, the logits' input gradient and
+    the cross-entropy's max and sums once a microbatch."""
+    cfg, shape = dryrun.cell_config("yi-34b", "train_4k")
+    step = train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
+                              production_axes(), accum_steps=16)
+    plan = step.plan(configs.input_specs(cfg, shape))
+    tp = {e["what"]: e for e in plan if e["axes"] == ("model",)}
+    L, A, S, d = cfg.n_layers, 16, shape.seq_len, cfg.d_model
+    act = S * d * 2
+    want = {"tp embedding": ("all_reduce", act, A),
+            "tp attention input grads": ("all_reduce", act, A * L),
+            "tp attention": ("all_reduce", act, A * L * 2),
+            "tp ffn input grads": ("all_reduce", act, A * L),
+            "tp ffn": ("all_reduce", act, A * L),
+            "tp logits input grads": ("all_reduce", act, A),
+            "tp ce max": ("all_reduce", S * 4, A),
+            "tp ce sums": ("all_reduce", 2 * S * 4, A)}
+    for n, heads in (("q", 56), ("k", 8), ("v", 8)):
+        whole = S * heads * cfg.hd * 2
+        want[f"tp {n} head_dim"] = ("all_gather", whole // 16, A * L * 2)
+        want[f"tp {n} head_dim grads"] = ("reduce_scatter", whole, A * L)
+    assert {k: (e["op"], e["bytes"], e["calls"]) for k, e in tp.items()} \
+        == want
+    assert all(e["group"] == 16 for e in tp.values())
+    # no parameter all-gather over 'model' but the norms' (replicated)
+    gathered = {e["axes"] for e in plan if e["what"] == "params"}
+    assert gathered == {("data",)}
+
+
+@pytest.mark.parametrize("arch,layout,most", [
+    ("llama3-8b", "tp", 1 / 16), ("phi3.5-moe-42b-a6.6b", "tp", 0.07),
+    ("yi-34b", "tp", 0.15)])
+def test_meta_pass_counts_a_split_ranks_flops(arch, layout, most):
+    """A train cell's meta pass with the mesh counts one rank's split
+    products: a sixteenth of the unsharded pass where every product
+    splits (llama3-8b forced to tp), a little over with the replicated
+    router (phi3.5-moe), and over that where the attention runs whole
+    (yi-34b)."""
+    cfg, shape = dryrun.cell_config(arch, "train_4k",
+                                    {"n_layers": 1, "layout": layout})
+    split = dryrun.meta_flops(cfg, shape, 1, production_axes())
+    whole = dryrun.meta_flops(cfg, shape, 1)
+    assert whole / 16 <= split <= most * whole, split / whole
 
 
 def test_prefill_cell_moe_runs_einsum_dispatch():

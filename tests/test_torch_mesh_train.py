@@ -8,15 +8,22 @@ init and token batches, some targets masked unevenly across the ranks):
 * the reference subprocess (``--xla_force_host_platform_device_count=4``):
   its train step on a (2, 2) ('data', 'model') mesh under ``tp`` (with
   ``gather_params_once`` and ``accum_steps`` 2) and ``fsdp`` (``accum_steps``
-  2), the MoE arch under ``tp``, and the (2, 2, 1) ('pod', 'data', 'model')
-  mesh with ``grad_compress`` None, 'bf16' and 'int8' (two steps, the
-  second from the first's residuals: ``tests/test_distributed.py``);
+  2), the MoE arch under ``tp`` with each dispatch ('scatter' and
+  'einsum'), llama3-8b on (1, 4) under ``tp`` (its kv heads split by
+  head_dim), yi-34b on (2, 2) under ``tp`` (7 heads, 1 kv head: all
+  attention split by head_dim), qwen2.5-32b on (1, 4) under ``tp`` (QKV
+  bias: ``bq`` split by heads, ``bk`` / ``bv`` by head_dim), musicgen on
+  (2, 2) under ``tp`` (the embeds frontend), and the (2, 2, 1) ('pod',
+  'data', 'model') mesh with ``grad_compress`` None, 'bf16' and 'int8'
+  (two steps, the second from the first's residuals:
+  ``tests/test_distributed.py``);
 * then 4 port ranks, each reference step taken again from the
   reference's state before it (the method of ``test_torch_train.py``);
 * beside the reference, 4 more port ranks: elastic restore (2 steps on
   (2, 2), a sharded save, a restore on (4, 1) and on (1, 4), one more
-  step each, against 3 straight steps: ``tests/test_distributed.py``) and
-  ``launch.train --mesh 2,2`` with a save and a resume;
+  step each, against 3 straight steps: ``tests/test_distributed.py``),
+  ``launch.train --mesh 2,2`` with a save and a resume, and a step on
+  (1, 4) whose forward's leaves and matrix-product FLOPs are recorded;
 * and a group of 1 rank: every mesh, layout and option bitwise equal to
   the unsharded step.
 
@@ -43,14 +50,23 @@ from test_torch_train import OCFG, _assert_steps, _flat, _tree_np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 400                     # seconds, for every subprocess
 B, L, STEPS = 8, 32, 2
-ARCHS = {"dense": "llama3-8b", "moe": "phi3.5-moe-42b-a6.6b"}
+ARCHS = {"dense": "llama3-8b", "moe": "phi3.5-moe-42b-a6.6b",
+         "moe-einsum": "phi3.5-moe-42b-a6.6b", "yi": "yi-34b",
+         "qwen": "qwen2.5-32b", "audio": "musicgen-large"}
+OVERRIDES = {"moe-einsum": {"moe_impl": "einsum"}}
 MESH22 = ((2, 2), ("data", "model"))
+MESH14 = ((1, 4), ("data", "model"))
 POD = ((2, 2, 1), ("pod", "data", "model"))
 # name: (arch, mesh, layout, accum_steps, gather_params_once, codec)
 CASES = {
     "tp": ("dense", MESH22, "tp", 2, True, None),
     "fsdp": ("dense", MESH22, "fsdp", 2, False, None),
     "moe": ("moe", MESH22, "tp", 1, False, None),
+    "moe-einsum": ("moe-einsum", MESH22, "tp", 1, False, None),
+    "tp-1x4": ("dense", MESH14, "tp", 1, False, None),
+    "yi": ("yi", MESH22, "tp", 1, False, None),
+    "qwen": ("qwen", MESH14, "tp", 1, False, None),
+    "audio": ("audio", MESH22, "tp", 1, False, None),
     "pod-None": ("dense", POD, "tp", 1, False, None),
     "pod-bf16": ("dense", POD, "tp", 1, False, "bf16"),
     "pod-int8": ("dense", POD, "tp", 1, False, "int8"),
@@ -59,17 +75,22 @@ CASES = {
 
 def _inputs(path) -> dict:
     """The port's seeded init of each arch's smoke config and STEPS token
-    batches, with targets masked unevenly: every (data, model) rank of a
-    (2, 2) mesh sees a different share (rows 0-1 of the first microbatch
-    entirely, row 5 in part)."""
+    batches (through a seeded embeds stub for an embeds frontend), with
+    targets masked unevenly: every (data, model) rank of a (2, 2) mesh
+    sees a different share (rows 0-1 of the first microbatch entirely,
+    row 5 in part)."""
     out = {}
     for key, arch in ARCHS.items():
         cfg = configs.smoke_config(arch)
         init = build(cfg).init(cfg, torch.Generator().manual_seed(0))
         tp = TokenPipeline(cfg.vocab_size, batch=B, seq_len=L, seed=0)
+        emb = np.random.default_rng(0).normal(
+            scale=0.02, size=(cfg.vocab_size, cfg.d_model)).astype(np.float32)
         batches = []
         for i in range(STEPS + 1):
             b = tp.batch_at(i)
+            if cfg.frontend == "embeds":
+                b = {"embeds": emb[b["tokens"]], "targets": b["targets"]}
             b["targets"][0:2] = -1
             b["targets"][5, 3:20] = -1
             batches.append(b)
@@ -88,11 +109,12 @@ from repro.launch import mesh as meshlib
 from repro.optim import adamw
 
 D = pickle.load(open(sys.argv[1], 'rb'))
-CASES, STEPS, OCFG, ARCHS = %(cases)r, %(steps)r, %(ocfg)r, %(archs)r
+CASES, STEPS, OCFG = %(cases)r, %(steps)r, %(ocfg)r
+ARCHS, OVERRIDES = %(archs)r, %(over)r
 out = {}
 for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
     cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]),
-                              layout=layout)
+                              layout=layout, **OVERRIDES.get(key, {}))
     mesh = meshlib.make_mesh(shape, axes,
                              devices=jax.devices()[:int(np.prod(shape))])
     b0 = jax.tree.map(jnp.asarray, D[key]['batches'][0])
@@ -122,7 +144,8 @@ for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
                 res=None if res is None else jax.tree.map(np.asarray, res)))
     out[name] = hist
 pickle.dump(out, open(sys.argv[2], 'wb'))
-""" % dict(cases=CASES, steps=STEPS, ocfg=OCFG, archs=ARCHS)
+""" % dict(cases=CASES, steps=STEPS, ocfg=OCFG, archs=ARCHS,
+           over=OVERRIDES)
 
 
 # the common head of every port process: a gloo group, and helpers that
@@ -143,12 +166,12 @@ rank, world, init, inputs, out = sys.argv[1:6]
 rank, world = int(rank), int(world)
 dist.init(device='cpu', init_method=init, rank=rank, world=world)
 D = pickle.load(open(inputs, 'rb'))
-CASES, OCFG, ARCHS = %(cases)r, %(ocfg)r, %(archs)r
+CASES, OCFG, ARCHS, OVERRIDES = %(cases)r, %(ocfg)r, %(archs)r, %(over)r
 res = {}
 
 def setup(key, shape, axes, layout):
     cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]),
-                              layout=layout)
+                              layout=layout, **OVERRIDES.get(key, {}))
     mesh = meshlib.make_mesh(shape, axes)
     ps, os_, _, _ = train_lib.shardings_for(cfg, mesh, {})
     return cfg, mesh, ps, os_
@@ -181,7 +204,7 @@ def run_step(step, pb, ob, b, r=None):
     calls = dict(dist.calls)
     plan = train_lib.plan_calls(step.plan(b))
     return o, dict(calls=calls, plan=plan)
-""" % dict(cases=CASES, ocfg=OCFG, archs=ARCHS)
+""" % dict(cases=CASES, ocfg=OCFG, archs=ARCHS, over=OVERRIDES)
 
 _TAIL = """
 if rank == 0:
@@ -277,6 +300,32 @@ res['cli'] = dict(
     start=resumed['start'], steps=resumed['step'],
     uncut_params=whole(uncut['params'], psc, mcli),
     resumed_params=whole(resumed['params'], psc, mcli))
+
+# a (1, 4) tp step: the shapes of the leaves its forward gets, and its
+# matrix-product FLOPs beside the unsharded step's, on every rank
+from torch.utils.flop_counter import FlopCounterMode
+_, m14, ps14, os14 = setup('dense', (1, 4), ('data', 'model'), 'tp')
+step = train_lib.make_train_step(cfg, ocfg, m14)
+seen, fwd = [], step.model.forward
+step.model.forward = lambda p, *a, **k: seen.append(
+    [tuple(x.shape) for x in adamw.leaves(p)]) or fwd(p, *a, **k)
+try:
+    pb, ob = blocks(D['dense']['init'], None, ps14, os14, m14)
+    with FlopCounterMode(display=False) as fc:
+        _, calls = run_step(step, pb, ob, batch('dense', 0))
+finally:
+    step.model.forward = fwd
+p = convert.lm_params(D['dense']['init'], 'cpu')
+with FlopCounterMode(display=False) as fc1:
+    train_lib.make_train_step(cfg, ocfg)(p, adamw.init(p), batch('dense', 0))
+split = ['model' in shd.spec_axes(s) for s in step.specs]
+whole_got = sum(got == tuple(x.shape)
+                for leaves in seen
+                for got, x, sp in zip(leaves, step.shapes, split) if sp)
+mine = torch.tensor([float(len(seen)), float(sum(split)), float(whole_got),
+                     fc.get_total_flops() / fc1.get_total_flops()],
+                    dtype=torch.float64)
+res['split'] = dict(ranks=dist.all_gather(mine).tolist(), **calls)
 """ + _TAIL
 
 # 1 rank: every mesh, layout and option bitwise equal to the unsharded step
@@ -411,7 +460,7 @@ def runs(tmp_path_factory):
 def _port_cfg(key, layout):
     import dataclasses
     return dataclasses.replace(configs.smoke_config(ARCHS[key]),
-                               layout=layout)
+                               layout=layout, **OVERRIDES.get(key, {}))
 
 
 def _unsharded_step(key, layout, accum, state, opt, batch):
@@ -432,7 +481,9 @@ def _zeros_like(tree):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("case", ["tp", "fsdp", "moe", "pod-None"])
+@pytest.mark.parametrize("case", ["tp", "fsdp", "moe", "pod-None",
+                                  "tp-1x4", "yi", "moe-einsum", "qwen",
+                                  "audio"])
 def test_sharded_step_matches_reference_and_unsharded(runs, case):
     key, _, layout, accum, _, _ = CASES[case]
     ref = _get(runs, "ref", case)
@@ -520,6 +571,19 @@ def test_train_cli_on_a_mesh_saves_and_resumes(runs):
     one = train.main(["--arch", "llama3-8b", "--device", "cpu", "--batch",
                       "8", "--seq", "32", "--steps", "6"])
     np.testing.assert_allclose(cli["uncut"], one["loss"], rtol=1e-4)
+
+
+def test_model_axis_splits_the_forward_and_its_flops(runs):
+    """On (1, 4) under tp no rank's forward gets a whole leaf that the
+    table splits over 'model' (embed, unembed, wq / wk / wv / wo, the
+    FFN's three), and a rank's matrix-product FLOPs are at most 0.3 of
+    the unsharded step's (a quarter, less the replicated norms)."""
+    got = _get(runs, "free", "split")
+    assert got["calls"] == got["plan"], (got["calls"], got["plan"])
+    for n_fwd, n_split, n_whole, ratio in got["ranks"]:
+        assert n_fwd == 1 and n_split == 9, (n_fwd, n_split)
+        assert n_whole == 0
+        assert 0 < ratio <= 0.3, ratio
 
 
 @pytest.mark.parametrize("what", ["dense-tp", "dense-fsdp", "moe",

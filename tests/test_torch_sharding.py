@@ -188,6 +188,43 @@ def test_param_rules_divisibility_fallbacks():
                            m8)["t"] == shd.Spec(None, None)
 
 
+@pytest.mark.parametrize("arch,want", [
+    ("llama3-8b", dict(wq="heads", wk="head_dim", wv="head_dim", wo="heads",
+                       w_gate="ffn", w_up="ffn", w_down="ffn",
+                       embed="vocab", unembed="vocab")),
+    ("yi-34b", dict(wq="head_dim", wk="head_dim", wv="head_dim",
+                    wo="head_dim", w_gate="ffn", w_up="ffn", w_down="ffn",
+                    embed="vocab", unembed="vocab")),
+    ("phi3.5-moe-42b-a6.6b", dict(wq="heads", wk="head_dim", wv="head_dim",
+                                  wo="heads", we_gate="experts",
+                                  we_up="experts", we_down="experts",
+                                  embed="vocab", unembed="vocab")),
+    ("musicgen-large", dict(wq="heads", wk="heads", wv="heads", wo="heads",
+                            w_gate="ffn", w_up="ffn", w_down="ffn",
+                            unembed="vocab"))])
+def test_model_roles_on_16x16(arch, want):
+    """The role of the dim that 'model' splits, on the reference's tp
+    specs at full width: the heads where 16 divides them (llama3-8b's 32,
+    not its 8 kv heads), head_dim otherwise (yi-34b's 56 / 8); the norms
+    and the router have none (replicated), and every split leaf is one the
+    sharded step takes its 'model' block of."""
+    cfg = configs.full_config(arch)
+    tree = build(cfg).init(cfg, common.MetaDraw())
+    mesh = meshlib.axes(*MESHES["16x16"])
+    specs = shd.leaves(shd.param_specs(tree, mesh, "tp"))
+    got = {}
+    for path, spec in zip(shd.leaf_paths(tree), specs):
+        r = shd.model_role(path, spec)
+        if r is not None:
+            got[path.rsplit(".", 1)[-1]] = r[1]
+            assert spec[r[0]] == "model"
+        else:
+            assert "model" not in shd.spec_axes(spec), path
+    assert got == want
+    step = train_lib.MeshStep(cfg, train_lib.adamw.AdamWConfig(), mesh)
+    assert step.roles == want
+
+
 def test_meta_init_keeps_the_seeded_init():
     """The meta path draws nothing: a seeded init after it has the bits of
     one without it."""

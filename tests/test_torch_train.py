@@ -381,8 +381,8 @@ def test_remat_runs_each_layer_again_in_the_backward(ref_runs,
     from repro_torch.models import transformer
     run = ref_runs("llama3-8b")
     calls = []
-    layer = transformer._layer
-    monkeypatch.setattr(transformer, "_layer",
+    layer = transformer._block
+    monkeypatch.setattr(transformer, "_block",
                         lambda *a: calls.append(1) or layer(*a))
     for remat, want in (("none", 2), ("full", 4)):
         calls.clear()
