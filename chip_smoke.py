@@ -46,7 +46,11 @@ entry points a user calls:
   vocabulary) at 2 layers on a (1, 2) tp mesh of two processes sharing
   the card in a gloo group, fp32 against the unsharded step at the
   train-step tolerance, bf16 ms a step and peak memory a rank beside the
-  unsharded step's, collectives equal to the plan (``[train-lm-tp]``); and the
+  unsharded step's, collectives equal to the plan, and on the same two
+  ranks the fsdp layout (a 2-way FSDP) at 4 layers, one step with the
+  per-layer gather and one with ``gather_params_once`` from the same
+  state, bitwise equal, the per-layer peak a rank at least 3 GiB lower
+  (``[train-lm-tp]``); and the
   dry-run of every (arch x shape) cell on both production meshes on this
   machine's CPU, beside the later phases (``[dryrun]``);
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
@@ -106,6 +110,16 @@ entry points a user calls:
   --svm`` with a bf16 compact model and ``--roofline --json-out``
   (``[cli-serve]``).
 
+The SVM fits launch their kernels from the host and leave the card mostly
+idle, so after the LM phases the SVM phases run in two processes on the
+card: the side lane (``side_lane``: ``[multi-ovr]``, ``[multi-loop]``,
+then on its own NCCL group ``[dist-multi]``, ``[chaos-multi]``,
+``[dist]``, ``[dist-ell]`` and ``[chaos]``, then ``[cache]`` and
+``[train-cache]``) beside the main lane's full-size fits, wss2 fits,
+serving, ``[dist-serve]`` and ``[wss2-cache]``, with the command lines;
+``[serve-bf16]`` and the last kernel check run after the side lane is
+joined. ``[done]`` prints the seconds of each phase.
+
 Every fit must pass Eq. 9 over all samples on gamma recomputed in fp64.
 Kernel launch counts are reset just before each phase of a path and read
 just after, so the run shows that serving and training went through the
@@ -138,12 +152,25 @@ H100_BYTES_PER_S = H100_FP32_FLOPS = H100_BF16_FLOPS = None
 
 
 PHASE = "start"
+# seconds spent in each phase so far, and when the current one began
+PHASE_SECONDS: dict = {}
+PHASE_T0 = [time.perf_counter()]
 
 
 def phase(name: str) -> None:
-    """Name the phase that runs now (printed if it fails)."""
+    """Name the phase that runs now (printed if it fails) and add the
+    seconds of the one that ends to ``PHASE_SECONDS``."""
     global PHASE
+    now = time.perf_counter()
+    PHASE_SECONDS[PHASE] = PHASE_SECONDS.get(PHASE, 0.0) + now - PHASE_T0[0]
+    PHASE_T0[0] = now
     PHASE = name
+
+
+def phase_seconds() -> str:
+    """``PHASE_SECONDS`` up to now, rounded to 0.1 s, as JSON."""
+    phase(PHASE)
+    return json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
 
 
 def fail(msg: str) -> None:
@@ -1693,14 +1720,18 @@ def train_lm_mesh(torch, dev, card) -> dict:
 
 TP_LAYERS, TP_STEPS = 2, 3        # after 1 warm-up step
 TP_NOISE = 1e-3                   # the train-step tests' NOISE
+# [train-lm-tp]'s fsdp runs: layers, and the least the per-layer gather
+# must save of the whole-gather peak a rank (by shapes at 4 layers: ~3.85
+# GB of gathered bf16 weights, their bf16 and ~7.7 GB of fp32 gradient)
+FSDP_LAYERS, FSDP_SAVES_GIB = 4, 3.0
 
 
 def tp_rank(rank: int, port: int, out: str) -> None:
     """One of the two ranks of ``[train-lm-tp]`` (a process of its own, on
     the one card, in a gloo group): it imports, waits for ``go`` on its
     standard input (the card is the earlier phase's until then), then runs
-    the fp32 gate and the bf16 timing; its record goes to ``out`` as JSON,
-    with the seconds of each part."""
+    the fp32 gate, the bf16 timing and the fsdp pair; its record goes to
+    ``out`` as JSON, with the seconds of each part."""
     t0 = time.perf_counter()
     import dataclasses
     import torch
@@ -1845,6 +1876,36 @@ def tp_rank(rank: int, port: int, out: str) -> None:
         free()
     tdist.barrier()
     secs["bf16 unsharded"] = time.perf_counter() - t0
+
+    # fsdp on the same mesh ('model' folds into the batch axes: a 2-way
+    # FSDP), bf16, remat full: one step from the seeded init with the
+    # per-layer gather, then one from the same init with gather_params_once;
+    # ms, the peak a rank from the state up, collectives against the plan,
+    # and 64-bit fingerprints of the loss's bits and every block of the
+    # params and both moments
+    cfg = dataclasses.replace(full, n_layers=FSDP_LAYERS, layout="fsdp")
+    specs = train_lib.shardings_for(cfg, mesh, {})[0]
+    rec["fsdp"] = {}
+    for once in (False, True):
+        t0 = time.perf_counter()
+        step = train_lib.make_train_step(cfg, ocfg, mesh,
+                                         gather_params_once=once)
+        pb = shd.shard_tree(fresh(cfg), specs, mesh)
+        ob = adamw.init(pb)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        pb, ob, m, r = timed(step, pb, ob, batches[0])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec["fsdp"]["once" if once else "per_layer"] = dict(
+            r, peak_gib=peak, plan=train_lib.plan_calls(step.plan(batches[0])),
+            loss_bits=fingerprint(torch, m["loss"].reshape(1)),
+            fps=[fingerprint(torch, t) for t in adamw.leaves(pb)
+                 + adamw.leaves(ob["m"]) + adamw.leaves(ob["v"])])
+        del pb, ob, m
+        free()
+        tdist.barrier()
+        secs["fsdp " + ("once" if once else "per layer")] = \
+            time.perf_counter() - t0
     rec["seconds"] = secs
     dist.destroy()
     with open(out, "w") as f:
@@ -1895,6 +1956,13 @@ def train_lm_tp(run, card) -> dict:
     * bf16, remat full: 1 warm-up + ``TP_STEPS`` steps, ms a step and the
       peak device memory a rank, beside the unsharded step's (run by rank
       0 alone), and 2 x layers flash launches a rank a step;
+    * fsdp (the same mesh, 'model' folded into the batch axes: a 2-way
+      FSDP), ``FSDP_LAYERS`` layers, bf16, remat full, one step with the
+      per-layer gather and one with ``gather_params_once`` from the same
+      init: the loss, every block of the params and both moments bitwise
+      equal (fingerprints; each gradient element is a sum of two fp32
+      addends on both paths), the per-layer peak a rank at least
+      ``FSDP_SAVES_GIB`` below the whole gather's, ms and peak printed;
     * every step's ``dist.calls`` equal to ``MeshStep.plan``.
 
     Both ranks share the card and gloo stages every collective through
@@ -1950,6 +2018,30 @@ def train_lm_tp(run, card) -> dict:
         if not (calls and all(f == want_flash for f in flash)
                 and all(math.isfinite(x) for x in losses)):
             bad.append(f"rank {r} bf16")
+        fs = rec["fsdp"]
+        per, once = fs["per_layer"], fs["once"]
+        same = per["loss_bits"] == once["loss_bits"] and \
+            per["fps"] == once["fps"]
+        saved = once["peak_gib"] - per["peak_gib"]
+        secs = rec["seconds"]
+        for tag, x in (("per-layer gather", per),
+                       ("gather_params_once", once)):
+            print(f"[train-lm-tp] rank {r} fsdp (1, 2), {LM_ARCH} full "
+                  f"width, {FSDP_LAYERS} layers, bf16, remat full, one "
+                  f"step, {tag}: loss {x['loss']}; {x['ms']:.1f} ms; peak "
+                  f"{x['peak_gib']:.2f} GiB; flash launches {x['flash']} "
+                  f"(want {2 * FSDP_LAYERS}); collectives {x['calls']} == "
+                  f"plan: {x['calls'] == x['plan']}", flush=True)
+        print(f"[train-lm-tp] rank {r} fsdp: loss, params and both moments "
+              f"bitwise equal between the two: {same}; the per-layer peak "
+              f"{saved:.2f} GiB below the whole gather's (want >= "
+              f"{FSDP_SAVES_GIB}); seconds {secs['fsdp per layer']:.1f} / "
+              f"{secs['fsdp once']:.1f}", flush=True)
+        if not (same and saved >= FSDP_SAVES_GIB
+                and all(x["calls"] == x["plan"]
+                        and x["flash"] == 2 * FSDP_LAYERS
+                        and math.isfinite(x["loss"]) for x in (per, once))):
+            bad.append(f"rank {r} fsdp")
     one = recs[0]["unsharded"]
     print(f"[train-lm-tp] unsharded bf16 step (rank 0 alone): losses "
           f"{[x['loss'] for x in one['runs']]}; ms a step "
@@ -1962,7 +2054,10 @@ def train_lm_tp(run, card) -> dict:
                    for x in rec["bf16"]["runs"] + [rec["fp32"]])
     return {"train_lm_tp_launches": {
         "ranks": 2, "steps_a_rank": 2 + TP_STEPS, "launches": launches,
-        "arch": LM_ARCH, "layers": TP_LAYERS}}
+        "arch": LM_ARCH, "layers": TP_LAYERS,
+        "fsdp_steps_a_rank": 2, "fsdp_layers": FSDP_LAYERS,
+        "fsdp_launches": sum(x["flash"] for rec in recs
+                             for x in rec["fsdp"].values())}}
 
 
 def start_dryrun() -> dict:
@@ -2289,12 +2384,12 @@ def start_clis() -> dict:
                 t0=time.perf_counter())
 
 
-def check_clis(torch, np, clis, base) -> None:
+def check_clis(clis, base) -> None:
     """Wait for the command lines of :func:`start_clis` and hold them.
     ``[cli-train]``: ``python -m repro_torch.launch.svm_train --dataset a9a
     --scale DIST_SCALE`` (C 32, σ² 64, multi5pc, wss1: its a9a defaults)
-    prints the iterations and SVs of ``[dist]``'s ``SMOSolver`` fit
-    ``base`` of the same config. ``[cli-serve]``: ``python -m
+    prints the iterations and SVs (``base``: ``{"iterations", "n_sv"}``)
+    of ``[dist]``'s ``SMOSolver`` fit of the same config. ``[cli-serve]``: ``python -m
     repro_torch.launch.serve --svm`` of the same model, compacted to bf16,
     with ``--roofline --json-out``: a positive p50, a bf16 engine and the
     roofline row's keys. A non-zero exit or a difference fails."""
@@ -2318,13 +2413,12 @@ def check_clis(torch, np, clis, base) -> None:
     line = next((ln for ln in res["cli-train"][0].splitlines()
                  if ln.startswith("a9a/multi5pc: ")), "")
     got = dict(kv.split("=", 1) for kv in line.split()[1:] if "=" in kv)
-    st = base.stats
     print(f"[cli-train] python {' '.join(cmds['cli-train'])}: {line!r}; "
-          f"[dist]'s SMOSolver fit: iters={st.iterations} nsv={st.n_sv}; "
-          f"both command lines done {wall:.1f} s after their start",
-          flush=True)
+          f"[dist]'s SMOSolver fit: iters={base['iterations']} "
+          f"nsv={base['n_sv']}; both command lines collected {wall:.1f} s "
+          f"after their start", flush=True)
     if (got.get("iters"), got.get("nsv"), got.get("conv")) != (
-            str(st.iterations), str(st.n_sv), "True"):
+            str(base["iterations"]), str(base["n_sv"]), "True"):
         fail("the training CLI's fit differs from [dist]'s SMOSolver fit")
     phase("cli-serve")
     with open(clis["report"]) as f:
@@ -2489,7 +2583,7 @@ def train_cache(torch, np, dev, base) -> dict:
     return {"rbf_rows2": {"train-cache a9a": n_rows2}}
 
 
-def wss2_cache(torch, np, dev, base) -> None:
+def wss2_cache(torch, np, dev, base) -> dict:
     """``[wss2-cache]``: the ``[wss2]`` fit (a9a at ``WSS2_SCALE``, single5pc)
     with the row cache on, bitwise equal to it (alpha and iterations)
     through shrink and un-shrink, its rows from ``rbf_rows2``. Returns that
@@ -2553,39 +2647,30 @@ def dist_fit_line(st, us_single, calls) -> str:
                 f"{k} {v:.3f}" for k, v in per.items()))
 
 
-def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
-    """The distributed solver (``core.parallel.ParallelSMOSolver``) and
-    sharded serving on an NCCL process group of one rank — this card:
+def dist_fits(torch, np, dev) -> tuple:
+    """The distributed solver (``core.parallel.ParallelSMOSolver``) on the
+    NCCL process group of one rank — this card — that the caller set up:
 
     * ``[dist]``: a9a at ``DIST_SCALE`` (C 32, sigma2 64, multi5pc, wss1),
       ``SMOSolver`` and the group's solver, bitwise equal in alpha,
       iterations, compactions and reconstructions (at least one of each),
       converged with the fp64 Eq. 9 gap <= 2e-3, ``gamma_update``
       launched;
-    * ``[dist-ell]``: w7a at ``WSS2_SCALE`` fed as CSR, single5pc wss2 on
-      the group, bitwise equal to ``[wss2-ell]``'s model, its rows from
-      ``ell_kernel_rows2``;
-    * ``[dist-serve]``: ``ServeEngine(shards=None)`` — the group's size,
-      through the sharded path's fp64 all-reduce — bitwise equal to
-      ``[serve]``'s scores, ``rbf_accumulate`` launched;
-    * ``[dist-multi]``: ``MultiProblemDriver(parallel=True)`` on the group,
-      the covtype one-vs-rest problems of ``[multi-loop]``, bitwise equal
-      per problem to its batched cache-off fit (``multi``).
+    * ``[dist-ell]``: w7a at ``WSS2_SCALE`` fed as CSR, single5pc wss2
+      (``[wss2-ell]``'s fit), ``SMOSolver`` and the group's solver bitwise
+      equal, the rows from ``ell_kernel_rows2``.
 
     With two or more cards it also runs ``[dist]`` at world size
     min(4, cards), one process a card, against the single fit's outcome.
     Returns each phase's launches of its kernel, by kernel and then by
-    fit, those of ``[dist-multi]`` apart, and ``[dist]``'s single-device
-    fit. The group stays up for ``[chaos]``; the caller destroys it."""
-    from repro_torch.core import SVMConfig, SMOSolver, ServeEngine
+    fit, and the two ``SMOSolver`` fits (the twins of ``[chaos]``)."""
+    from repro_torch.core import SVMConfig, SMOSolver
     from repro_torch.core.parallel import ParallelSMOSolver
     from repro_torch.data import make, to_csr
     from repro_torch.kernels import cuda
     from repro_torch.launch import dist
     out = {}
     phase("dist")
-    dist.init(device="cuda", init_method=f"tcp://localhost:{free_port()}",
-              rank=0, world=1)
     X, y, Xt, _ = make("a9a", DIST_SCALE, seed=0)
     kw = dict(C=32.0, sigma2=64.0, heuristic="multi5pc", selection="wss1",
               device="cuda")
@@ -2633,12 +2718,14 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
     X2, y2, _, _ = make("w7a", WSS2_SCALE, seed=0)
     kw2 = dict(C=32.0, sigma2=64.0, heuristic="single5pc", selection="wss2",
                format="ell", device="cuda")
+    Xc2 = to_csr(X2)
+    w7a_wss2 = SMOSolver(SVMConfig(**kw2)).fit(Xc2, y2)
     us_single = 1e6 * w7a_wss2.stats.train_time / max(
         w7a_wss2.stats.iterations, 1)
     cuda.reset_launches()
     dist.calls.clear()
     t0 = time.perf_counter()
-    me = ParallelSMOSolver(SVMConfig(**kw2)).fit(to_csr(X2), y2)
+    me = ParallelSMOSolver(SVMConfig(**kw2)).fit(Xc2, y2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_r2 = cuda.launches["ell_kernel_rows2"]
@@ -2652,10 +2739,11 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
           f"wss2 CSR in, NCCL world 1: "
           f"{dist_fit_line(st, us_single, dict(dist.calls))} "
           f"converged={st.converged} eq9_gap_all={gap:.3e} (<= 2eps 2e-03)"
-          f" wall={wall:.1f} s; bitwise equal to [wss2-ell]: {same}; "
+          f" wall={wall:.1f} s; alpha, iterations, compactions and "
+          f"reconstructions bitwise equal to SMOSolver: {same}; "
           f"ell_kernel_rows2 launches={n_r2}", flush=True)
     if not same:
-        fail("the world-size-1 ELL wss2 fit differs from [wss2-ell]")
+        fail("the world-size-1 ELL wss2 fit differs from SMOSolver's")
     if not (st.compactions >= 1 and st.reconstructions >= 1):
         fail("the distributed ELL fit neither compacted nor reconstructed")
     if not (st.converged and gap <= 2e-3):
@@ -2663,8 +2751,20 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
     if n_r2 <= 0:
         fail("the distributed ELL fit did not launch ell_kernel_rows2")
     out["ell_kernel_rows2"] = {"dist-ell w7a": n_r2}
+    return out, ms, w7a_wss2
 
+
+def dist_serve(torch, np, a9a, Xt_a9a) -> dict:
+    """``[dist-serve]``: ``ServeEngine(shards=None)`` — the group's size,
+    through the sharded path's fp64 all-reduce — on an NCCL process group
+    of one rank, bitwise equal to ``[serve]``'s scores, ``rbf_accumulate``
+    launched. Returns its launches, by kernel and then by fit."""
+    from repro_torch.core import ServeEngine
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist
     phase("dist-serve")
+    dist.init(device="cuda", init_method=f"tcp://localhost:{free_port()}",
+              rank=0, world=1)
     eng = ServeEngine(a9a, shards=None)
     cuda.reset_launches()
     dist.calls.clear()
@@ -2685,9 +2785,8 @@ def dist_paths(torch, np, dev, a9a, w7a_wss2, Xt_a9a, multi) -> tuple:
         fail("the group's serving engine scores differ from [serve]'s")
     if n_acc <= 0:
         fail("the group's serving engine did not launch rbf_accumulate")
-    out["rbf_accumulate"] = {"dist-serve a9a": n_acc}
-    multi_out = dist_multi(torch, np, multi)
-    return out, multi_out, ms
+    dist.destroy()
+    return {"rbf_accumulate": {"dist-serve a9a": n_acc}}
 
 
 def dist_rank(rank, world, init, X, y, kw, path) -> None:
@@ -2798,7 +2897,30 @@ CHAOS_THRESHOLD = 5.0
 CHAOS_DELAY = 2.0
 
 
-def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
+def killed(what, fit, **plan):
+    """Run ``fit`` under ``chaos.FaultPlan(**plan)``; fail unless the
+    planned kill fires. Returns the plan's record."""
+    from repro_torch.launch import chaos
+    with chaos.inject(chaos.FaultPlan(**plan)) as p:
+        try:
+            fit()
+        except chaos.InjectedKill:
+            return p
+    fail(f"{what}: the kill ({plan}) did not fire")
+
+
+def timed_fit(torch, fit, hot) -> tuple:
+    """``fit()`` with the launch counts reset just before it: (its result,
+    the launches of kernel ``hot``, its wall seconds)."""
+    from repro_torch.kernels import cuda
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    m = fit()
+    torch.cuda.synchronize()
+    return m, cuda.launches[hot], time.perf_counter() - t0
+
+
+def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2) -> dict:
     """The fault-tolerance path (``SVMConfig(checkpoint_dir=..., resume=
     ...)``, ``launch.chaos``): fits killed by the chaos harness and resumed
     from their step dirs (under a temporary directory), each bitwise equal
@@ -2813,14 +2935,11 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
       ``CHAOS_DELAY`` s under ``watchdog_threshold=CHAOS_THRESHOLD``: one
       straggle event, one forced step dir, the same bits (twin:
       ``[dist]``'s ``SMOSolver`` fit);
-    * ``[wss2-ell]``'s w7a fit (scale ``WSS2_SCALE``, CSR in, single5pc,
-      wss2) killed at save 2 and resumed from save 1;
+    * ``[dist-ell]``'s ``SMOSolver`` w7a fit (``[wss2-ell]``'s: scale
+      ``WSS2_SCALE``, CSR in, single5pc, wss2) killed at save 2 and
+      resumed from save 1;
     * ``[dist]``'s a9a fit on the NCCL group of one rank, killed and
       resumed.
-
-    ``[chaos-multi]``: ``[multi-loop]``'s batched covtype wss1 and wss2
-    fits and its news20 ELL fit, each killed mid-sweep and resumed, bitwise
-    per problem.
 
     A kill that does not fire, a resume that starts fresh (or from another
     step) or any difference fails the phase. Returns the launches of each
@@ -2829,29 +2948,13 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
     import shutil
     import tempfile
     from repro_torch.ckpt import checkpoint as ck
-    from repro_torch.core import MultiProblemDriver, SMOSolver, SVMConfig
+    from repro_torch.core import SMOSolver, SVMConfig
     from repro_torch.core.parallel import ParallelSMOSolver
     from repro_torch.data import make, to_csr
-    from repro_torch.kernels import cuda
     from repro_torch.launch import chaos
     launches: dict = {}
     tmp = tempfile.mkdtemp(prefix="chaos_smoke_")
     t_phases = time.perf_counter()
-
-    def killed(what, fit, **plan):
-        with chaos.inject(chaos.FaultPlan(**plan)) as p:
-            try:
-                fit()
-            except chaos.InjectedKill:
-                return p
-        fail(f"{what}: the kill ({plan}) did not fire")
-
-    def run(fit, hot):
-        cuda.reset_launches()
-        t0 = time.perf_counter()
-        m = fit()
-        torch.cuda.synchronize()
-        return m, cuda.launches[hot], time.perf_counter() - t0
 
     def held(label, key, got, twin, X, y, C, inv, hot, step):
         m, n, wall = got
@@ -2896,14 +2999,14 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
             fail(f"the killed a9a fit left {len(steps)} complete steps")
         shutil.copytree(d, d + "_flip")
         held(f"a9a killed at dispatch {kill}", "chaos a9a kill",
-             run(lambda: SMOSolver(dataclasses.replace(
+             timed_fit(torch, lambda: SMOSolver(dataclasses.replace(
                  cfg, resume=True)).fit(X, y), "gamma_update"),
              a9a_dist, X, y, 32.0, INV, "gamma_update", steps[-1])
         chaos.corrupt_step(d + "_flip", mode="flip")
         if ck.complete_steps(d + "_flip") != steps[:-1]:
             fail("the bit-flipped step still reads as complete")
         held("a9a, newest step bit-flipped", "chaos a9a flip",
-             run(lambda: SMOSolver(dataclasses.replace(
+             timed_fit(torch, lambda: SMOSolver(dataclasses.replace(
                  cfg, checkpoint_dir=d + "_flip", resume=True)).fit(X, y),
                  "gamma_update"),
              a9a_dist, X, y, 32.0, INV, "gamma_update", steps[-2])
@@ -2919,7 +3022,8 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
                     * max(a9a_dist.stats.dispatch_times[:5]))
         with chaos.inject(chaos.FaultPlan(delay_dispatch=5,
                                           delay_seconds=delay)):
-            m, n, wall = run(lambda: SMOSolver(wd).fit(X, y), "gamma_update")
+            m, n, wall = timed_fit(torch, lambda: SMOSolver(wd).fit(X, y),
+                                   "gamma_update")
         st, forced = m.stats, ck.complete_steps(d + "_wd")
         times = sorted(st.dispatch_times)
         same = np.array_equal(m.alpha.view(np.int32),
@@ -2950,7 +3054,7 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
             fail(f"killed at save 2, the w7a fit left steps {steps}")
         held(f"w7a scale {WSS2_SCALE} CSR in single5pc wss2, killed at save "
              f"2 (a save every {every} segments)", "chaos w7a wss2",
-             run(lambda: SMOSolver(dataclasses.replace(
+             timed_fit(torch, lambda: SMOSolver(dataclasses.replace(
                  cfg2, resume=True)).fit(Xc2, y2), "ell_kernel_rows2"),
              w7a_wss2, X2, y2, 32.0, INV, "ell_kernel_rows2", steps[-1])
 
@@ -2960,20 +3064,44 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
         steps = ck.complete_steps(cfg3.checkpoint_dir)
         held("a9a on the NCCL group of one rank, killed at dispatch "
              f"{kill}", "chaos a9a NCCL world 1",
-             run(lambda: ParallelSMOSolver(dataclasses.replace(
+             timed_fit(torch, lambda: ParallelSMOSolver(dataclasses.replace(
                  cfg3, resume=True)).fit(X, y), "gamma_update"),
              a9a_dist, X, y, 32.0, INV, "gamma_update",
              steps[-1] if steps else -2)
 
-        phase("chaos-multi")
+        print(f"[chaos] took {time.perf_counter() - t_phases:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def chaos_multi(torch, np, dev, twins) -> dict:
+    """``[chaos-multi]``: ``[multi-loop]``'s batched covtype wss1 and wss2
+    fits and its news20 ELL fit (``twins``), each killed mid-sweep by the
+    chaos harness and resumed from its step dir (under a temporary
+    directory), bitwise per problem (alpha, iterations), converged with
+    every problem's fp64 Eq. 9 gap <= 2e-3, launching its kernel. A kill
+    that does not fire, a resume that starts fresh or any difference fails
+    the phase. Returns the launches of each fit's kernel, by kernel and
+    then by fit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core import MultiProblemDriver, SVMConfig
+    phase("chaos-multi")
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chaos_multi_smoke_")
+    t_phase = time.perf_counter()
+    try:
         for label, (Xf, Xd, Y, fkw, twin, hot) in twins.items():
             cfgm = SVMConfig(**dict(MULTI_FIT, **fkw),
                              checkpoint_dir=f"{tmp}/multi_{hot}")
             kill = twin[0].stats.dispatches // 2
             killed(label, lambda: MultiProblemDriver(cfgm).fit_tasks(Xf, Y),
                    kill_at_dispatch=kill)
-            ms, n, wall = run(lambda: MultiProblemDriver(dataclasses.replace(
-                cfgm, resume=True)).fit_tasks(Xf, Y), hot)
+            ms, n, wall = timed_fit(torch, lambda: MultiProblemDriver(
+                dataclasses.replace(cfgm, resume=True)).fit_tasks(Xf, Y), hot)
             st = ms[0].stats
             C, inv = fkw["C"], 1.0 / (2.0 * fkw["sigma2"])
             gaps = [eq9_gap(torch, Xd, Y[k], m.alpha, C, inv, dev)
@@ -3001,8 +3129,8 @@ def chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins) -> dict:
             if n <= 0:
                 fail(f"{label}: the resumed fit did not launch {hot}")
             launches.setdefault(hot, {})[f"chaos-multi {label}"] = n
-        print(f"[chaos-multi] [chaos] and [chaos-multi] took "
-              f"{time.perf_counter() - t_phases:.1f} s", flush=True)
+        print(f"[chaos-multi] took {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3306,6 +3434,114 @@ def row_path(torch, dev, data) -> dict:
     return launches
 
 
+def side_lane(out: str) -> None:
+    """The side lane, a second process on the card: the SVM phases that
+    need none of the main lane's fits — ``[multi-ovr]``, ``[multi-loop]``,
+    then on this process's own NCCL group of one rank ``[dist-multi]``,
+    ``[chaos-multi]``, ``[dist]``, ``[dist-ell]`` and ``[chaos]``, then
+    ``[cache]`` and ``[train-cache]`` — run here beside the main lane's
+    fits, which leave the card mostly idle (their host launches the
+    kernels). Writes to ``out`` as JSON their launches, by kernel and then
+    by fit, ``[dist]``'s ``SMOSolver`` fit's iterations and SVs (the CLI's
+    twin) and the fingerprint of ``[dist-ell]``'s ``SMOSolver`` fit (the
+    main lane holds it against ``[wss2-ell]``)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch import device as devmod
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist
+    dev = devmod.resolve("cuda")
+    t0 = time.perf_counter()
+    cuda.build()                # built by the main lane: read from build/
+    multi = multi_ovr(torch, np, dev)
+    loop, twins = multi_loop(torch, np, dev)
+    phase("dist-multi")
+    dist.init(device="cuda", init_method=f"tcp://localhost:{free_port()}",
+              rank=0, world=1)
+    on_group = dist_multi(torch, np, twins["covtype wss1"])
+    chaos = chaos_multi(torch, np, dev, twins)
+    del twins
+    on_dist, a9a_dist, w7a_wss2 = dist_fits(torch, np, dev)
+    for name, by_fit in chaos_paths(torch, np, dev, a9a_dist,
+                                    w7a_wss2).items():
+        chaos.setdefault(name, {}).update(by_fit)
+    dist.destroy()
+    cached = cache_workload(torch, np, dev)
+    for name, by_fit in train_cache(torch, np, dev, a9a_dist).items():
+        cached.setdefault(name, {}).update(by_fit)
+    print(f"[side] the side lane's phases took "
+          f"{time.perf_counter() - t0:.1f} s; seconds by phase "
+          f"{phase_seconds()}", flush=True)
+    with open(out, "w") as f:
+        json.dump(dict(multi=multi, loop=loop, dist_multi=on_group,
+                       dist=on_dist, chaos=chaos, cached=cached,
+                       dist_twin=dict(iterations=a9a_dist.stats.iterations,
+                                      n_sv=a9a_dist.stats.n_sv),
+                       wss2_ell=fit_print(w7a_wss2)), f)
+
+
+def fit_print(m) -> list:
+    """A fit's iterations, compactions, reconstructions and a SHA-256 of
+    its alpha bits: equal lists, bitwise equal fits."""
+    import hashlib
+    import numpy as np
+    st = m.stats
+    return [st.iterations, st.compactions, st.reconstructions,
+            hashlib.sha256(np.ascontiguousarray(m.alpha).tobytes())
+            .hexdigest()]
+
+
+def start_side_lane() -> dict:
+    """Start :func:`side_lane` as a second process on the card; its output
+    goes to a temporary file that :func:`join_side_lane` prints. Killed at
+    exit if still running."""
+    import atexit
+    import os
+    import signal
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "side.json")
+    log = open(os.path.join(tmp.name, "side.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+         f"import chip_smoke; chip_smoke.run(chip_smoke.side_lane, {out!r})"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+
+    def stop():             # the lane and any process it started
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return dict(proc=proc, out=out, log=log, tmp=tmp, stop=stop,
+                t0=time.perf_counter())
+
+
+def join_side_lane(lane) -> dict:
+    """Wait for :func:`start_side_lane`'s process, print its output, and
+    fail if it failed. Returns its launches (see :func:`side_lane`)."""
+    phase("side")
+    try:
+        lane["proc"].wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("the side lane ran past 900 s")
+    finally:
+        lane["stop"]()
+    wall = time.perf_counter() - lane["t0"]
+    lane["log"].seek(0)
+    print(lane["log"].read(), end="", flush=True)
+    lane["log"].close()
+    if lane["proc"].returncode != 0:
+        fail(f"the side lane exited {lane['proc'].returncode}")
+    with open(lane["out"]) as f:
+        got = json.load(f)
+    lane["tmp"].cleanup()
+    print(f"[side] joined {wall:.1f} s after its start", flush=True)
+    return got
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3363,41 +3599,47 @@ def main() -> None:
     tp = start_train_lm_tp()
     kernels["flash_attention"].update(train_lm_mesh(torch, dev, card))
     kernels["flash_attention"].update(train_lm_tp(tp, card))
+    # the SVM phases that need none of the fits below run in a second
+    # process on the card beside them (these fits' host launches the
+    # kernels and leaves the card mostly idle), and so do the command
+    # lines; the timed serving phases and kernel checks run after the side
+    # lane is joined
+    side = start_side_lane()
+    clis = start_clis()
     a9a, a9a_wss2, dense_launches, Xt_a9a = run_path(torch, np, dev,
                                                      time_ms, "a9a", "dense")
     launches.update(dense_launches)
     model, w7a_wss2, ell_launches, Xt = run_path(torch, np, dev, time_ms,
                                                  "w7a", "ell")
     launches.update(ell_launches)
+    served = dist_serve(torch, np, a9a, Xt_a9a)
+    # the cached phases' two-row kernel launches, by kernel and then by fit
+    cached_here = wss2_cache(torch, np, dev, a9a_wss2)
+    lane = join_side_lane(side)
+    same = lane["wss2_ell"] == fit_print(w7a_wss2)
+    print(f"[side] [dist-ell]'s SMOSolver fit bitwise equal to [wss2-ell]'s "
+          f"(alpha, iterations, compactions, reconstructions): {same}",
+          flush=True)
+    if not same:
+        fail("the side lane's w7a wss2 fit differs from [wss2-ell]'s")
+    check_clis(clis, lane["dist_twin"])
+    # the launches of the side lane's fits, by kernel and then by fit
+    multi = lane["multi"]
+    for fits in (lane["loop"], lane["dist_multi"]):
+        for name, by_fit in fits.items():
+            multi.setdefault(name, {}).update(by_fit)
+    dist_launches = lane["dist"]
+    for name, by_fit in served.items():
+        dist_launches.setdefault(name, {}).update(by_fit)
+    chaos_launches = lane["chaos"]
+    cached = lane["cached"]
+    for name, by_fit in cached_here.items():
+        cached.setdefault(name, {}).update(by_fit)
+    check_dryrun(dry)
     bf16_serving = serve_bf16(torch, np, dev, time_ms, (
         ("a9a", a9a, Xt_a9a, "rbf_accumulate"),
         ("w7a CSR in", model, Xt, "ell_rbf_accumulate")))
-    # the multi-problem phases' launches, by kernel and then by fit
-    multi = multi_ovr(torch, np, dev)
-    loop_launches, twins = multi_loop(torch, np, dev)
-    # the distributed phases' launches, by kernel and then by fit
-    dist_launches, dist_multi_launches, a9a_dist = dist_paths(
-        torch, np, dev, a9a, w7a_wss2, Xt_a9a, twins["covtype wss1"])
-    # the chaos phases' launches (resumed fits), by kernel and then by fit
-    chaos_launches = chaos_paths(torch, np, dev, a9a_dist, w7a_wss2, twins)
-    from repro_torch.launch import dist
-    dist.destroy()
-    del w7a_wss2, twins
-    # the command lines run beside the cached phases (whose gates are bit
-    # and hit counts, not times), which keeps the smoke inside its limit
-    clis = start_clis()
-    for fits in (loop_launches, dist_multi_launches):
-        for name, by_fit in fits.items():
-            multi.setdefault(name, {}).update(by_fit)
-    # the cached phases' two-row kernel launches, by kernel and then by fit
-    cached = cache_workload(torch, np, dev)
-    for fits in (train_cache(torch, np, dev, a9a_dist),
-                 wss2_cache(torch, np, dev, a9a_wss2)):
-        for name, by_fit in fits.items():
-            cached[name].update(by_fit)
-    check_clis(torch, np, clis, a9a_dist)
-    check_dryrun(dry)
-    del a9a, a9a_wss2, a9a_dist
+    del a9a, a9a_wss2, w7a_wss2
     phase("check-ell")
     check_ell_accumulate(torch, np, dev, time_ms, kernels, model, Xt)
     launches.update(row_path(torch, dev, w7a_buffer))
@@ -3435,7 +3677,8 @@ def main() -> None:
                                        "serve_shape_ms",
                                        "zamba_shape_ms", "shape")
                if key in k}, card=card))
-    print(f"[done] total {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(f"[done] total {time.perf_counter() - t_all:.1f} s; seconds by "
+          f"phase {phase_seconds()}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3443,12 +3686,12 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run() -> None:
-    """``main`` with every failure reported on standard output: the phase
-    and the traceback, then a non-zero exit (nothing is caught and carried
-    on)."""
+def run(fn=main, *args) -> None:
+    """``fn(*args)`` (``main``, or the side lane in its own process) with
+    every failure reported on standard output: the phase and the traceback,
+    then a non-zero exit (nothing is caught and carried on)."""
     try:
-        main()
+        fn(*args)
     except Exception:
         print(f"FAIL [{PHASE}]: uncaught exception", flush=True)
         traceback.print_exc(file=sys.stdout)

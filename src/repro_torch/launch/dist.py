@@ -13,7 +13,8 @@ Every collective of the port goes through one helper here —
 :func:`ring_shift`, and the ones autograd differentiates, built on them:
 :func:`all_reduce_grad`, and the pairs of a product split over a group
 (:func:`copy_to_group`, :func:`reduce_from_group`,
-:func:`all_gather_grad`) — each of
+:func:`all_gather_grad`), and the sharded step's gather of a parameter
+block with its fp32 reduce in the backward (:func:`gather_block`) — each of
 which calls whichever name the installed torch provides without a
 deprecation warning, and counts its calls in :data:`calls` (by helper;
 the chip smoke reads collectives per SMO iteration from it). A group
@@ -228,6 +229,37 @@ def all_gather_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     a rank's block is its block of the sum of every rank's gradient of the
     whole (one :func:`reduce_scatter`)."""
     return _AllGatherGrad.apply(t, dim % t.dim(), group)
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, token, b, gather, reduce, sink):
+        ctx.reduce, ctx.sink = reduce, sink
+        return gather(b)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.sink(ctx.reduce(g))
+        return torch.zeros((), dtype=torch.float32, device=g.device), \
+            None, None, None, None
+
+
+def gather_block(b: torch.Tensor, gather, reduce, sink,
+                 token: torch.Tensor) -> torch.Tensor:
+    """``gather(b)``, the weight a rank's forward uses from its block ``b``
+    of a parameter (``sharding.gather``: :func:`all_gather_rows` along each
+    split dim), which autograd differentiates as :func:`all_gather_grad`
+    does, but in fp32. Autograd casts the gradient a Function returns to
+    its input's dtype, so a bf16 block given its summed gradient would get
+    it rounded to bf16. The backward therefore returns none for ``b``:
+    ``reduce`` turns the gradient of the whole into this rank's fp32 block
+    of its sum (cast to fp32 first, reduce-scattered over the dims whose
+    axes split the batch, all-reduced over the batch axes the block does
+    not name) and ``sink`` takes that block into fp32 buffers the caller
+    owns. ``token``, a 0-d tensor that requires grad and is shared by every
+    gather of one forward, carries autograd to each backward: differentiate
+    the loss with respect to it (its gradient is zero)."""
+    return _GatherBlock.apply(token, b, gather, reduce, sink)
 
 
 def max_int(v: int, group=None, device=None) -> int:

@@ -14,10 +14,16 @@ explicit where the reference's is one GSPMD program:
   its rows of each microbatch: a microbatch splits over the batch axes
   (('pod','data'); with 'model' under the fsdp layout) when it divides
   over them, else every rank takes all of it;
-* gather: it all-gathers the parameters over their batch axes ('pod',
-  'data'), once a step with ``gather_params_once``, else once a
-  microbatch; under the tp layout a transformer's leaves that 'model'
-  splits stay this rank's 'model' block (below), the rest come whole;
+* gather: as the reference's GSPMD gathers FSDP blocks inside its layer
+  scan, the model gets this rank's blocks (inside ``common.fsdp_blocks``)
+  and gathers each layer's over their batch axes ('data', with 'model'
+  under the fsdp layout) as the layer runs, inside its remat block, so
+  the recompute gathers again (``common.weights``, ``dist.gather_block``);
+  ``embed``, ``ln_f`` and ``unembed`` are gathered at their use, zamba2's
+  shared block once a microbatch. With ``gather_params_once`` it gathers
+  every whole leaf once a step instead (the reference's ``strip_fsdp``
+  layout). Under the tp layout a transformer's leaves that 'model' splits
+  stay this rank's 'model' block (below), the rest come whole;
 * compute: loss and gradients of its rows; the loss divides by the
   batch's count of unmasked targets (all-reduced first) and the MoE
   router's batch means are reduced inside the forward
@@ -25,7 +31,11 @@ explicit where the reference's is one GSPMD program:
 * reduce: it sums the fp32 gradients over the batch axes and keeps its
   block (a reduce-scatter over the axes that split both, a local slice
   over axes that split the leaf only, an all-reduce over axes that split
-  the batch only); a 'model' block's gradient is already its block;
+  the batch only); a 'model' block's gradient is already its block. The
+  backward does it a layer at a time, as it leaves the layer, into fp32
+  buffers of this rank's blocks (the shared block's after its last use),
+  so no rank makes the whole model's gradient; with
+  ``gather_params_once``, once a step, on the whole leaves' gradients;
 * update: AdamW on its blocks, with the global norm of the blocks (each
   block counted by one of the ranks that hold it).
 
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -146,6 +157,16 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
     return math.prod(shape) * dtype.itemsize
 
 
+class _Unit(NamedTuple):
+    """A leaf's unit of the per-layer gather: one layer of a stack (a
+    top-level leaf is its own unit)."""
+    lead: int                 # the stacked leading dims
+    count: int                # the units a forward gathers
+    passes: int               # the gathers of each (2: remat's recompute)
+    spec: "shd.Spec"          # a unit's spec
+    meta: torch.Tensor        # a meta tensor of a unit's shape
+
+
 _CODECS = (None, "bf16", "int8")
 _TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 _QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
@@ -186,6 +207,24 @@ class MeshStep:
         self.specs = shd.leaves(shd.param_specs(self.tree, mesh, cfg.layout))
         self.in_pod = tuple(a for a in mesh.axis_names if a != "pod")
         paths = shd.leaf_paths(self.tree)
+        self.index = {p: j for j, p in enumerate(paths)}
+        self.units = []
+        for p, x, spec in zip(paths, self.shapes, self.specs):
+            lead, rem = self.model.STACKS.get(p.split(".")[0], (0, False))
+            lead_axes = [a for e in spec[:lead] for a in shd.entry_axes(e)]
+            if not self.once and math.prod(mesh.sizes[a]
+                                           for a in lead_axes) > 1:
+                raise ValueError(
+                    f"{p} {tuple(x.shape)}: the {cfg.layout} layout splits "
+                    f"its stacked layer dim ({spec}), so a layer lives "
+                    f"whole on one rank and the per-layer gather has no "
+                    f"block to gather; pass gather_params_once=True, or "
+                    f"use a mesh whose batch axes divide another dim")
+            self.units.append(_Unit(
+                lead, math.prod(x.shape[:lead]),
+                2 if rem and cfg.remat == "full" else 1,
+                shd.Spec(*spec[lead:]),
+                torch.empty(x.shape[lead:], dtype=x.dtype, device="meta")))
         self.n_model = mesh.sizes.get("model", 1)
         # leaf name -> the role of the dim whose 'model' block the forward
         # takes (common.model_parallel reads it); empty: all gathered whole
@@ -273,24 +312,72 @@ class MeshStep:
                 for b, s, split in zip(adamw.leaves(params), self.specs,
                                        self.split)]
 
+    def _fetcher(self, token: torch.Tensor, bufs: list, red: tuple):
+        """``common.fsdp_blocks``' fetch: a unit's blocks -> its weights,
+        each through ``dist.gather_block``, whose backward puts the unit's
+        reduced fp32 gradient in ``bufs`` (this rank's blocks, made at the
+        first gradient that reaches each: a top-level leaf's is that
+        gradient itself, a stack's is zeros, added into a layer at a
+        time)."""
+        def fetch(tree: dict, path: str, idx: tuple) -> dict:
+            out = {}
+            for k, b in tree.items():
+                j = self.index[f"{path}.{k}" if path else k]
+                u = self.units[j]
+                if len(idx) != u.lead:
+                    raise ValueError(f"{path}.{k}: a layer takes {u.lead} "
+                                     f"stack indices, got {idx}")
+                keep = ("model",) if self.split[j] else ()
+
+                def sink(g, j=j, idx=idx):
+                    if bufs[j] is None and not idx:
+                        bufs[j] = g
+                        return
+                    if bufs[j] is None:
+                        bufs[j] = torch.zeros(
+                            shd.block_shape(self.specs[j],
+                                            self.shapes[j].shape, self.mesh),
+                            dtype=torch.float32, device=g.device)
+                    bufs[j][idx].add_(g)
+
+                out[k] = dist.gather_block(
+                    b, lambda x, u=u, keep=keep: shd.gather(
+                        x, u.spec, self.mesh, keep),
+                    lambda g, j=j, u=u: self._reduce(
+                        g, u.meta, u.spec, red, self.split[j]),
+                    sink, token)
+            return out
+        return fetch
+
     def _reduce(self, g: torch.Tensor, leaf, spec, red: tuple,
                 split: bool = False) -> torch.Tensor:
-        """This rank's block of the sum over ``red`` of every rank's fp32
-        gradient ``g``: of the whole ``leaf`` (a meta tensor of its
-        shape), or of its 'model' block where the leaf is ``split``."""
+        """This rank's fp32 block of the sum over ``red`` of every rank's
+        gradient ``g``: of the whole ``leaf`` (a meta tensor of its shape;
+        of one layer on the per-layer path), or of its 'model' block where
+        the leaf is ``split``. A ``g`` in another dtype, or sliced, is
+        copied once to fp32, laid out as its reduce-scatter reads it (so
+        that makes no second copy)."""
         idx = shd.block(spec, leaf.shape, self.mesh, self.mesh.coord)
         local = [i for i, axs in shd.sharded_dims(spec)
                  if not set(axs) & set(red)
                  and not (split and "model" in axs)]
         if local:
             g = g[tuple(idx[i] if i in local else slice(None)
-                        for i in range(g.ndim))].clone()
+                        for i in range(g.ndim))]
+        scatter = []
         for i, axs in shd.sharded_dims(spec):
             if set(axs) <= set(red):
-                g = dist.reduce_scatter(g, i, self.mesh.group(axs))
+                scatter.append((i, axs))
             elif set(axs) & set(red):
                 raise ValueError(f"{spec}: axes {axs} split the batch only "
                                  f"in part ({red})")
+        lead = scatter[0][0] if scatter else 0
+        moved = g.movedim(lead, 0)
+        if local or g.dtype != torch.float32 or not moved.is_contiguous():
+            g = torch.empty(moved.shape, dtype=torch.float32,
+                            device=g.device).copy_(moved).movedim(0, lead)
+        for i, axs in scatter:
+            g = dist.reduce_scatter(g, i, self.mesh.group(axs))
         rest = tuple(a for a in red if a not in shd.spec_axes(spec))
         if rest:
             g = dist.all_reduce(g, "sum", self.mesh.group(rest))
@@ -303,13 +390,16 @@ class MeshStep:
         return all(c == 0 for a, c in self.mesh.coord.items()
                    if a not in named)
 
-    def _grads(self, full: list, mb: dict, count: torch.Tensor, red: tuple):
+    def _grads(self, params: dict, full: "list | None", mb: dict,
+               count: torch.Tensor, red: tuple):
         """(loss, ce, aux, grads) of this rank's rows ``mb``: its share of
         the microbatch's loss (the whole count divides it; the aux term
         once over the ``red`` ranks), the aux term (the batch's), and the
-        gradients of the parameters ``full`` (whole, or 'model' blocks)."""
+        gradients: of the gathered leaves ``full`` (whole, or 'model'
+        blocks), or, without them, this rank's fp32 blocks of the sums
+        over ``red``, which the model's per-layer gathers of ``params``
+        (this rank's blocks) reduce in the backward."""
         cfg, n_red = self.cfg, math.prod(self.mesh.sizes[a] for a in red)
-        flat = [w.detach().requires_grad_() for w in full]
         with contextlib.ExitStack() as ctx:
             if red:
                 ctx.enter_context(common.sharded_batch(self.mesh.group(red),
@@ -318,13 +408,30 @@ class MeshStep:
                 ctx.enter_context(common.model_parallel(
                     self.mesh.group(("model",)), self.n_model,
                     self.mesh.coord["model"], self.roles))
-            logits, aux = self.model.forward(
-                adamw.tree_like(self.tree, flat), cfg, mb)
+            if full is not None:
+                flat = [w.detach().requires_grad_() for w in full]
+                tree = adamw.tree_like(self.tree, flat)
+            else:
+                flat = [torch.zeros((), dtype=torch.float32,
+                                    device=adamw.leaves(params)[0].device,
+                                    requires_grad=True)]
+                bufs = [None] * len(self.shapes)
+                ctx.enter_context(common.fsdp_blocks(
+                    self._fetcher(flat[0], bufs, red)))
+                tree = params
+            logits, aux = self.model.forward(tree, cfg, mb)
             loss, metrics = common.cross_entropy(logits, mb["targets"],
                                                  count=count)
             if cfg.is_moe:
                 loss = loss + cfg.router_aux_weight * aux / n_red
             grads = torch.autograd.grad(loss, flat)
+        if full is None:
+            missing = [p for p, j in self.index.items() if bufs[j] is None]
+            if missing:
+                raise RuntimeError(f"no gradient reached {missing}: the "
+                                   f"forward must take every leaf through "
+                                   f"common.weights")
+            grads = bufs
         return loss.detach(), metrics["ce"].detach(), aux.detach(), grads
 
     def _pod_codec(self, blocks: list, residuals: "list | None") -> tuple:
@@ -379,13 +486,13 @@ class MeshStep:
         full = self._gather(params) if self.once else None
         acc, vec, new_res = None, [], None
         for i, mb in enumerate(micro):
-            loss, ce, aux, grads = self._grads(
-                full if self.once else self._gather(params), mb, counts[i],
-                red)
+            loss, ce, aux, grads = self._grads(params, full, mb, counts[i],
+                                               red)
             n_red = math.prod(mesh.sizes[a] for a in red)
             vec.append(torch.stack([loss, ce, aux.float() / n_red]))
-            grads = [g.float() for g in grads]
-            if self.use_pod or not self.once:
+            if self.once:
+                grads = [g.float() for g in grads]
+            if self.once and self.use_pod:
                 grads = [self._reduce(g, x, s, red, k) for g, x, s, k in
                          zip(grads, self.shapes, self.specs, self.split)]
             if self.use_pod:
@@ -457,7 +564,8 @@ class MeshStep:
 
         if red:
             add("all_reduce", red, 4 * A, 1, "target counts")
-        out += self.gather_plan(1 if self.once else A)
+        out += self.gather_plan(1) if self.once \
+            else self.gather_plan(A, per_layer=True)
         if self.tp:
             seq = tuple(next(iter(batch_shapes.values())).shape)[1]
             rows = per // math.prod(sizes[a] for a in split)
@@ -467,9 +575,12 @@ class MeshStep:
             per_layer = 3 if cfg.remat == "full" else 2
             add("all_reduce", red, 4 * 2 * cfg.n_experts,
                 A * cfg.n_layers * per_layer, "router batch means")
-        n_reduce = A if (self.use_pod or not self.once) else 1
-        for shape, spec in zip(self.shapes, self.specs):
-            cur = list(shape.shape)
+        for x, spec, unit in zip(self.shapes, self.specs, self.units):
+            if self.once:
+                n_reduce = A if self.use_pod else 1
+            else:                        # a unit's, as the backward leaves it
+                n_reduce, spec, x = A * unit.count, unit.spec, unit.meta
+            cur = list(x.shape)
             for i, axs in shd.sharded_dims(spec):
                 if not set(axs) & set(red):
                     cur[i] //= math.prod(sizes[a] for a in axs)
@@ -536,20 +647,28 @@ class MeshStep:
             out.append(("all_reduce", 2 * rows * seq * 4, 1, "tp ce sums"))
         return out
 
-    def gather_plan(self, calls: int = 1, whole: bool = False) -> list:
+    def gather_plan(self, calls: int = 1, whole: bool = False,
+                    per_layer: bool = False) -> list:
         """The plan's all-gathers of the parameters, ``calls`` times: one a
         split dim of each leaf, of the block gathered so far; a split
         leaf's 'model' dim stays its block unless ``whole`` (the serving
-        cells' gathers)."""
+        cells' gathers). ``per_layer``: of each unit (a layer of a stack,
+        whose stacked dims are not split; a top-level leaf), every unit
+        once a forward, and a unit under remat again in its recompute."""
         sizes, out = self.mesh.sizes, []
-        for x, spec, split in zip(self.shapes, self.specs, self.split):
+        for x, spec, split, unit in zip(self.shapes, self.specs, self.split,
+                                        self.units):
+            n = calls
+            if per_layer:
+                n = calls * unit.count * unit.passes
+                spec, x = unit.spec, unit.meta
             cur = list(shd.block_shape(spec, x.shape, self.mesh))
             for i, axs in shd.sharded_dims(spec):
                 if split and not whole and "model" in axs:
                     continue
                 out.append(dict(op="all_gather", axes=axs,
                                 group=math.prod(sizes[a] for a in axs),
-                                bytes=_nbytes(cur, x.dtype), calls=calls,
+                                bytes=_nbytes(cur, x.dtype), calls=n,
                                 what="params"))
                 cur[i] *= math.prod(sizes[a] for a in axs)
         return out

@@ -5,14 +5,19 @@ registry (twin of ``repro.models.api``).
 maps across unchanged (``convert.model_config``). ``remat="full"``
 checkpoints each layer (each mLSTM / Mamba2 block) when autograd records
 the forward (``common.remat``), as ``jax.checkpoint`` does there; serving
-and ``"none"`` run plain. Fields that steer only GSPMD or XLA there
-(``scan_layers``, ``seq_parallel``, ``layout``) are kept and have no
-effect here: the port runs eagerly on one device, with a Python loop over
-layers. ``moe_impl`` picks the MoE dispatch, as there. ``use_flash`` and
-``attn_block_q``, which choose the attention path there, are kept and have
-no effect either: prefill attention always goes through
-``ops.flash_attention`` (the kernel on the card, its plain version on the
-CPU), as every kernel of the port is chosen by tensor device. ``build``
+and ``"none"`` run plain. ``layout`` steers the port's sharding as it
+does the reference's: the specs of ``launch.sharding.param_specs``, the
+sharded step (``launch.train_lib.MeshStep``: 'tp' splits the 'model' axis
+as tensor and expert parallelism, 'fsdp' folds it into the batch axes)
+and the dry-run's cells (``launch.dryrun``). ``scan_layers`` and
+``seq_parallel``, which steer only XLA and GSPMD there, are kept and have
+no effect here: the port runs the layers in a Python loop, and no config
+of either package sets ``seq_parallel``. ``moe_impl`` picks the MoE
+dispatch, as there. ``use_flash`` and ``attn_block_q``, which choose the
+attention path there, are kept and have no effect either: prefill
+attention always goes through ``ops.flash_attention`` (the kernel on the
+card, its plain version on the CPU), as every kernel of the port is
+chosen by tensor device. ``build``
 accepts every family the reference builds: the transformer (dense / moe /
 vlm / audio), xLSTM (``ssm``) and Zamba2 (``hybrid``).
 """

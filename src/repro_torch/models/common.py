@@ -8,8 +8,11 @@ The reference's sharding helpers (``constrain_*``, ``exclude_batch_axes``,
 one batch statistic that crosses ranks (the MoE router's) goes through
 :func:`batch_means` instead, and the products split over the 'model' axis
 (the reference's ``constrain_heads`` / ``constrain_logits``) through
-:func:`model_parallel` and its collectives. ``scan_or_unroll`` is left
-out too (a Python loop over layers does its job).
+:func:`model_parallel` and its collectives. Where GSPMD gathers a layer's
+FSDP blocks inside the layer scan, the model asks :func:`weights` for a
+layer's weights (a gather inside :func:`fsdp_blocks`, else the tree
+itself). ``scan_or_unroll`` is left out too (a Python loop over layers
+does its job).
 """
 from __future__ import annotations
 
@@ -75,18 +78,54 @@ def _records_grad(args) -> bool:
     ts = [t for a in args for t in (a.values() if isinstance(a, dict)
                                     else (a,))
           if isinstance(t, torch.Tensor)]
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return torch.is_grad_enabled() and (
+        _GATHER is not None or any(t.requires_grad for t in ts))
 
 
 def remat(cfg, fn, *args):
     """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is
-    ``"full"`` and autograd records the call: the block keeps only its
-    inputs and runs again in the backward (the reference's
+    ``"full"`` and autograd records the call (inside :func:`fsdp_blocks`
+    it always does: the weights come from a gather there): the block keeps
+    only its inputs and runs again in the backward (the reference's
     ``jax.checkpoint(..., nothing_saveable)``). Otherwise (``"none"``, or
     serving, whose weights need no grad) a plain call."""
     if cfg.remat == "full" and _records_grad(args):
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+# ------------------------------------------------------ the FSDP blocks
+_GATHER = None           # fetch(blocks, path, idx) inside fsdp_blocks
+
+
+@contextlib.contextmanager
+def fsdp_blocks(fetch):
+    """Within: the parameter tree the model gets holds this rank's blocks
+    of each leaf, split over the batch axes (the reference's FSDP), and
+    :func:`weights` turns a unit's blocks (one layer of a stack, zamba2's
+    shared block, the top-level leaves) into the weights the forward uses
+    with ``fetch(blocks, path, idx)``: the sharded step's differentiable
+    gather, whose backward reduces the unit's gradient to its block
+    (``launch.train_lib.MeshStep``). A layer gathers inside the function
+    that :func:`remat` checkpoints, so its recompute gathers again and no
+    layer's gathered weights outlive its forward. The backward (and a
+    remat recompute) must run inside too."""
+    global _GATHER
+    old = _GATHER
+    _GATHER = fetch
+    try:
+        yield
+    finally:
+        _GATHER = old
+
+
+def weights(tree: dict, path: str = "", *idx) -> dict:
+    """The weights the forward uses of ``tree``: the blocks at ``path`` in
+    the parameter tree ('' the top level), layer ``idx`` of its stack
+    (:func:`at`'s index; none for an unstacked unit). Inside
+    :func:`fsdp_blocks` each is gathered over the batch axes (a leaf split
+    over 'model' keeps its 'model' block); outside, ``tree`` itself."""
+    return tree if _GATHER is None else _GATHER(tree, path, idx)
 
 
 # --------------------------------------------------------- sharded batch

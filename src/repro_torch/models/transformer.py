@@ -18,8 +18,14 @@ head_dim), the FFN by its width, the experts, and the embedding and
 unembedding by vocabulary. Each split block ends in one reduce over
 'model'; with nothing split, each collective is the identity and the ops
 are those of the unsharded model. The FFN's reduce comes after the remat
-block, so a recompute does not repeat it. Two differences from the
-reference, neither changing the function:
+block, so a recompute does not repeat it.
+
+Inside ``common.fsdp_blocks`` (the sharded step, as the reference's GSPMD
+gathers FSDP blocks inside its layer scan) ``params`` hold this rank's
+blocks: a layer gathers its weights inside its remat block (again in the
+recompute), ``embed`` for the lookup alone, ``ln_f`` and ``unembed`` for
+the logits. Two differences from the reference, neither changing the
+function:
 
 * K and V are projected to the Hkv kv heads and the attention's GQA index
   shares them among query heads; the reference repeats ``wk`` / ``wv`` to
@@ -40,6 +46,9 @@ from repro_torch.models import common
 from repro_torch.models.api import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the stacks of per-layer weights: name -> (stacked leading dims, whether a
+# layer runs under common.remat); the sharded step gathers a layer at a time
+STACKS = {"layers": (1, True)}
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -220,12 +229,16 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
 
 # ------------------------------------------------------------------ layer
 def _block(cfg: ModelConfig, p: dict, h: torch.Tensor,
-           positions: torch.Tensor, kv_out=None) -> tuple:
+           positions: torch.Tensor, kv_out=None, unit=None) -> tuple:
     """A layer as :func:`forward` runs it under remat: (h + attention(
     norm(h)), FFN(norm(that)) before its 'model' reduce
     (:func:`_ffn_reduce`), the MoE aux term: a 0-d fp32 zero for a dense
     layer). Attention split by head_dim attends with all heads and keeps
-    this rank's head_dim slice for its rows of ``wo``."""
+    this rank's head_dim slice for its rows of ``wo``. Given its ``unit``
+    (path and layer index), ``p`` are the layer's blocks, gathered here
+    (``common.weights``), inside the remat; else its weights."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     x = common.rms_norm(h, p["ln1"])
     q, kk, v = _qkv(cfg, p, x, positions)
     if kv_out is not None:                       # prefill fills the cache
@@ -259,17 +272,22 @@ def _ffn_reduce(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The input embeddings: a lookup in ``embed``, gathered for it alone
+    (the lookup saves no table for the backward), or the batch's
+    ``embeds``."""
     if cfg.frontend == "tokens":
-        return common.embed_lookup(params["embed"], batch["tokens"].long())
+        table = common.weights({"embed": params["embed"]})["embed"]
+        return common.embed_lookup(table, batch["tokens"].long())
     return batch["embeds"].to(dtype_of(cfg))
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
     """Logits; this rank's block of the vocabulary where ``unembed`` is
     split over 'model' (``common.cross_entropy`` takes them so)."""
-    h = common.rms_norm(h, params["ln_f"])
+    w = common.weights({k: params[k] for k in ("ln_f", "unembed")})
+    h = common.rms_norm(h, w["ln_f"])
     return torch.einsum("bld,dv->blv", common.to_model(h, "unembed"),
-                        params["unembed"])
+                        w["unembed"])
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
@@ -277,7 +295,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     """batch: {'tokens': (B, L)} or {'embeds': (B, L, d)}. Returns
     (logits (B, L, V), aux_loss 0-d fp32 tensor: the MoE layers' aux terms
     summed, 0 for dense layers). Each layer runs under ``common.remat``
-    (checkpointed when ``cfg.remat == "full"`` and autograd records). With
+    (checkpointed when ``cfg.remat == "full"`` and autograd records), and
+    gathers its weights from ``params``' blocks inside it. With
     ``cache`` (from ``init_cache``, position 0), each layer's K / V are
     also written to its first L rows and the cache's position becomes L."""
     h = _embed_in(params, cfg, batch)
@@ -292,7 +311,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     for i in range(cfg.n_layers):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
         lp = common.at(params["layers"], i)
-        h, y, a = common.remat(cfg, _block, cfg, lp, h, positions, kv)
+        h, y, a = common.remat(cfg, _block, cfg, lp, h, positions, kv,
+                               ("layers", i))
         h = h + _ffn_reduce(cfg, y)
         aux = aux + a
     if cache is not None:

@@ -31,6 +31,10 @@ from repro_torch.models import common, transformer
 from repro_torch.models.api import ModelConfig
 
 _NEG = -1e30
+# the stacks of blocks: name -> (stacked leading dims, whether a block runs
+# under common.remat); the sharded step gathers a block at a time
+STACKS = {"m_groups": (2, True), "s_groups": (1, False),
+          "m_tail": (1, True)}
 
 
 # ----------------------------------------------------------- mLSTM core
@@ -139,8 +143,14 @@ def _mlstm_out(p: dict, h: torch.Tensor, hh: torch.Tensor,
     return h + hh @ p["w_down"]
 
 
-def _mlstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
-    """Chunkwise mLSTM over h (B, L, d); returns (h, end (C, n, m))."""
+def _mlstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                 unit=None) -> tuple:
+    """Chunkwise mLSTM over h (B, L, d); returns (h, end (C, n, m)).
+    Given its ``unit`` (path and block index), ``p`` are the block's
+    blocks of weights, gathered here (``common.weights``), inside the
+    remat."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhlk")
     chunk = common.scan_chunk(cfg.chunk, h.shape[1])
     hh, state = _mlstm_chunk_scan(q, k, v, ig, lf, chunk)    # (B, H, L, dh)
@@ -204,7 +214,12 @@ def _slstm_scan(p: dict, x: torch.Tensor, state: tuple) -> tuple:
 
 
 def _slstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                 state: "tuple | None" = None) -> tuple:
+                 state: "tuple | None" = None, unit=None) -> tuple:
+    """One sLSTM block over h (B, L, d) from ``state`` (zeros when None);
+    returns (h, end (c, n, h, m)). Given its ``unit``, ``p`` are its
+    blocks of weights, gathered here (``common.weights``)."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     B, L, d = h.shape
     H = cfg.n_heads
     x = common.rms_norm(h, p["ln"])
@@ -247,15 +262,18 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def _schedule(cfg: ModelConfig, params: dict) -> list:
     """The blocks in order, each as (kind "m" / "s", weights, its state's
-    cache keys (None: ``s_state``), index into those caches)."""
+    cache keys (None: ``s_state``), index into those caches, its unit for
+    ``common.weights``)."""
     G, M, tail = _group_struct(cfg)
     out = []
     for g in range(G):
         out += [("m", common.at(params["m_groups"], g, j),
-                 ("m_C", "m_n", "m_m"), (g, j)) for j in range(M)]
-        out.append(("s", common.at(params["s_groups"], g), None, g))
-    out += [("m", common.at(params["m_tail"], j), ("t_C", "t_n", "t_m"), (j,))
-            for j in range(tail)]
+                 ("m_C", "m_n", "m_m"), (g, j), ("m_groups", g, j))
+                for j in range(M)]
+        out.append(("s", common.at(params["s_groups"], g), None, g,
+                    ("s_groups", g)))
+    out += [("m", common.at(params["m_tail"], j), ("t_C", "t_n", "t_m"), (j,),
+             ("m_tail", j)) for j in range(tail)]
     return out
 
 
@@ -269,16 +287,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     """batch: {'tokens': (B, L)}, L a multiple of ``min(cfg.chunk, L)``.
     Returns (logits (B, L, V), aux 0-d fp32 zero). With ``cache`` (from
     ``init_cache``, position 0), the same pass writes each block's end
-    state into it; its position becomes L."""
-    h = params["embed"][batch["tokens"].long()]
+    state into it; its position becomes L. Each block gathers its weights
+    from ``params``' blocks (``common.weights``), an mLSTM block inside
+    its remat."""
+    table = common.weights({"embed": params["embed"]})["embed"]
+    h = table[batch["tokens"].long()]
+    del table
     if cache is not None and cache["pos"] != 0:
         raise ValueError(f"prefill needs an empty cache, got pos "
                          f"{cache['pos']}")
-    for kind, lp, keys, idx in _schedule(cfg, params):
+    for kind, lp, keys, idx, unit in _schedule(cfg, params):
         if kind == "s":
-            h, state = _slstm_block(cfg, lp, h)
+            h, state = _slstm_block(cfg, lp, h, None, unit)
         else:                              # the reference remats mLSTM only
-            h, state = common.remat(cfg, _mlstm_block, cfg, lp, h)
+            h, state = common.remat(cfg, _mlstm_block, cfg, lp, h, unit)
         if cache is not None:
             for b, st in zip(_bufs(cache, keys), state):
                 b[idx].copy_(st)
@@ -317,7 +339,7 @@ def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     """One decode step. batch: {'tokens': (B, 1)}. Returns (logits (B, 1,
     V), cache): the same tensors, written in place, with ``pos + 1``."""
     h = params["embed"][batch["tokens"].long()]
-    for kind, lp, keys, idx in _schedule(cfg, params):
+    for kind, lp, keys, idx, _ in _schedule(cfg, params):
         bufs = _bufs(cache, keys)
         state = tuple(b[idx] for b in bufs)
         if kind == "s":

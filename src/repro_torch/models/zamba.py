@@ -29,6 +29,10 @@ import torch.nn.functional as F
 from repro_torch.models import common, transformer
 from repro_torch.models.api import ModelConfig
 
+# the stacks of Mamba layers: name -> (stacked leading dims, whether a layer
+# runs under common.remat); the sharded step gathers a layer at a time
+STACKS = {"groups": (2, True), "tail": (1, True)}
+
 
 def _dims(cfg: ModelConfig) -> tuple:
     """(inner width di, state N, heads H, head dim P, conv channels)."""
@@ -131,10 +135,14 @@ def _mamba_split(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
 def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  conv_state: "torch.Tensor | None" = None,
                  ssm_state: "torch.Tensor | None" = None,
-                 single_step: bool = False) -> tuple:
+                 single_step: bool = False, unit=None) -> tuple:
     """One Mamba2 layer over h (B, L, d): chunkwise over L, or one step
     from (``conv_state``, ``ssm_state`` (B, H, N, P)) with
-    ``single_step``. Returns (h + block(h), conv state, end SSD state)."""
+    ``single_step``. Returns (h + block(h), conv state, end SSD state).
+    Given its ``unit`` (path and layer index), ``p`` are the layer's
+    blocks, gathered here (``common.weights``), inside the remat."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     B, L, _ = h.shape
     di, N, H, P, _ = _dims(cfg)
     z, xin, Bc, Cc, dtr = _mamba_split(cfg, p, h)
@@ -191,18 +199,19 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def _schedule(cfg: ModelConfig, params: dict) -> list:
     """The layers in order: each Mamba layer as (weights, (conv cache key,
-    SSD cache key, index)), and after each group's last Mamba layer the
-    group's index, where the shared block runs with that group's KV
-    cache."""
+    SSD cache key, index), its unit for ``common.weights``), and after
+    each group's last Mamba layer the group's index, where the shared
+    block runs with that group's KV cache."""
     G, every, tail = _group_struct(cfg)
     out = []
     for g in range(G):
         for j in range(every):
             out.append((common.at(params["groups"], g, j),
-                        ("g_conv", "g_ssm", (g, j))))
+                        ("g_conv", "g_ssm", (g, j)), ("groups", g, j)))
         out.append(g)
     for j in range(tail):
-        out.append((common.at(params["tail"], j), ("t_conv", "t_ssm", (j,))))
+        out.append((common.at(params["tail"], j), ("t_conv", "t_ssm", (j,)),
+                    ("tail", j)))
     return out
 
 
@@ -212,8 +221,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     Returns (logits (B, L, V), aux 0-d fp32 zero). With ``cache`` (from
     ``init_cache``, position 0), the same pass fills it: each shared-block
     invocation's K / V rows 0..L-1, each Mamba layer's conv and SSD
-    states; its position becomes L."""
-    h = params["embed"][batch["tokens"].long()]
+    states; its position becomes L. Each Mamba layer gathers its weights
+    from ``params``' blocks inside its remat block; the shared block's are
+    gathered at its first invocation and held for the others
+    (``common.weights``)."""
+    table = common.weights({"embed": params["embed"]})["embed"]
+    h = table[batch["tokens"].long()]
+    del table
+    shared = None
     L = h.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=h.device)[None]
     if cache is not None and (cache["pos"] != 0 or (
@@ -224,12 +239,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         if isinstance(item, int):                    # the shared block
             kv = None if cache is None else (cache["ak"][item],
                                              cache["av"][item])
-            h, y, _ = transformer._block(cfg, params["shared_attn"], h,
-                                         positions, kv)
+            if shared is None:
+                shared = common.weights(params["shared_attn"], "shared_attn")
+            h, y, _ = transformer._block(cfg, shared, h, positions, kv)
             h = h + transformer._ffn_reduce(cfg, y)
             continue
-        lp, (kc, ks, idx) = item
-        h, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h)
+        lp, (kc, ks, idx), unit = item
+        h, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h, None, None,
+                                  False, unit)
         if cache is not None:
             if conv is not None:
                 cache[kc][idx].copy_(conv)
@@ -277,7 +294,7 @@ def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
                                           cache["ak"][item],
                                           cache["av"][item], h, pos)
             continue
-        lp, (kc, ks, idx) = item
+        lp, (kc, ks, idx), _ = item
         h, conv, S = _mamba_block(cfg, lp, h, cache[kc][idx],
                                   cache[ks][idx], single_step=True)
         if conv is not None:

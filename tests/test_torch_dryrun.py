@@ -161,22 +161,57 @@ def test_train_cell_llama3_fsdp_prices_its_plan():
     assert rec["status"] == "ok" and rec["layout"] == "fsdp"
     assert rec["accum_steps"] == 1 and rec["local_rows"] == 1
     cfg, whole = _leaf_bytes("llama3-8b", 4)
-    # every leaf splits one dim over all 256 ranks: one all-gather of its
-    # bf16 block and one reduce-scatter of its whole fp32 gradient a step,
-    # then the target counts, the metrics and the norm
-    n = len(train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
-                               production_axes()).shapes)
+    # every leaf splits one dim over all 256 ranks: one all-gather of each
+    # layer's bf16 block in the forward and again in the remat recompute
+    # (of each top-level leaf's once) and one reduce-scatter of each
+    # layer's fp32 gradient a step, then the target counts, the metrics
+    # and the norm
+    step = train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
+                              production_axes())
+    stacked = sum(u.lead > 0 for u in step.units)
+    top = len(step.shapes) - stacked
+    L = cfg.n_layers
+    assert (stacked, top) == (9, 3)
     assert rec["collectives"]["counts"] == {
-        "all_gather": n, "reduce_scatter": n, "all_reduce": 3}
+        "all_gather": 2 * L * stacked + top,
+        "reduce_scatter": L * stacked + top, "all_reduce": 3}
     assert rec["collectives"]["bytes"]["reduce_scatter"] == whole
+    layers = sum(2 * math.prod(x.shape) // 256
+                 for x, u in zip(step.shapes, step.units) if u.lead)
     assert rec["collectives"]["bytes"]["all_gather"] == \
-        rec["argument_bytes"]["params"]
+        rec["argument_bytes"]["params"] + layers
     assert rec["link_bytes_per_chip"] > whole * 255 / 256
     assert rec["flops_global"] > rec["model_flops"] > 0
     assert rec["dominant"] in ("compute", "memory", "collective")
     for k in ("t_compute_s", "t_memory_s", "t_collective_s"):
         assert rec[k] > 0
     assert rec["hbm_bytes_global"] is None and rec["source"] == "shapes"
+
+
+@pytest.mark.parametrize("once", [False, True])
+def test_per_layer_plan_gathers_each_layer_and_its_recompute(once):
+    """llama3-8b x train_4k on 16x16 (fsdp, remat full): per microbatch
+    the per-layer plan gathers each stacked leaf n_layers x (1 + remat)
+    times, one layer's block a call, and each top-level leaf once, and
+    reduces each layer's gradient once; ``gather_params_once`` keeps one
+    gather and one reduce of each whole leaf a step."""
+    cfg, shape = dryrun.cell_config("llama3-8b", "train_4k")
+    assert cfg.remat == "full" and cfg.layout == "fsdp"
+    step = train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
+                              production_axes(), gather_params_once=once)
+    plan = step.plan(configs.input_specs(cfg, shape))
+    gathers = [e for e in plan if e["what"] == "params"]
+    reduces = [e for e in plan if e["what"] == "grads"]
+    assert len(gathers) == len(reduces) == len(step.shapes) == 12
+    for g, r, x, u in zip(gathers, reduces, step.shapes, step.units):
+        assert (g["op"], g["axes"], r["op"]) == \
+            ("all_gather", ("data", "model"), "reduce_scatter")
+        n = 1 if once else u.count
+        assert g["calls"] == (1 if once else n * u.passes)
+        assert u.passes == (2 if u.lead else 1)
+        assert r["calls"] == n
+        assert g["bytes"] * 256 * n == math.prod(x.shape) * 2
+        assert r["bytes"] * n == math.prod(x.shape) * 4
 
 
 def test_train_cell_yi34b_tp_accumulates_16():
