@@ -49,7 +49,11 @@ entry points a user calls:
   unsharded step's, collectives equal to the plan, and on the same two
   ranks the fsdp layout (a 2-way FSDP) at 4 layers, one step with the
   per-layer gather and one with ``gather_params_once`` from the same
-  state, bitwise equal, the per-layer peak a rank at least 3 GiB lower
+  state, bitwise equal, the per-layer peak a rank at least 3 GiB lower,
+  then zamba2-1.2b at 7 of 38 layers and xlstm-125m at 5 of 12, full
+  width, split over 'model' by heads (fp32 against the unsharded step's
+  exact value, bf16 ms and peak a rank beside the unsharded step's,
+  zamba2's flash launches, collectives equal to the plan)
   (``[train-lm-tp]``); and the
   dry-run of every (arch x shape) cell on both production meshes on this
   machine's CPU, beside the later phases (``[dryrun]``);
@@ -1720,6 +1724,10 @@ def train_lm_mesh(torch, dev, card) -> dict:
 
 TP_LAYERS, TP_STEPS = 2, 3        # after 1 warm-up step
 TP_NOISE = 1e-3                   # the train-step tests' NOISE
+# [train-lm-tp]'s recurrent families at full width, cut in depth: zamba2 one
+# group of 6 Mamba layers with its shared block and 1 tail layer; xLSTM 3
+# mLSTM blocks and 1 sLSTM block, then 1 mLSTM tail block
+TP_FAMILIES = (("zamba2-1.2b", 7), ("xlstm-125m", 5))
 # [train-lm-tp]'s fsdp runs: layers, and the least the per-layer gather
 # must save of the whole-gather peak a rank (by shapes at 4 layers: ~3.85
 # GB of gathered bf16 weights, their bf16 and ~7.7 GB of fp32 gradient)
@@ -1730,8 +1738,9 @@ def tp_rank(rank: int, port: int, out: str) -> None:
     """One of the two ranks of ``[train-lm-tp]`` (a process of its own, on
     the one card, in a gloo group): it imports, waits for ``go`` on its
     standard input (the card is the earlier phase's until then), then runs
-    the fp32 gate, the bf16 timing and the fsdp pair; its record goes to
-    ``out`` as JSON, with the seconds of each part."""
+    the fp32 gate, the bf16 timing, the fsdp pair and the recurrent
+    families (``TP_FAMILIES``); its record goes to ``out`` as JSON, with
+    the seconds of each part."""
     t0 = time.perf_counter()
     import dataclasses
     import torch
@@ -1788,54 +1797,89 @@ def tp_rank(rank: int, port: int, out: str) -> None:
             ms=(time.perf_counter() - t) * 1e3, loss=loss,
             flash=cuda.launches["flash_attention"], calls=dict(dist.calls))
 
-    # fp32: the two ranks' step against the unsharded step from the same
-    # state, at the train-step tests' tolerance. The two ranks' step comes
-    # first, so that both pay their first step's loads at once; then the
-    # unsharded step runs on one rank at a time (two would not fit)
-    cfg = dataclasses.replace(full, n_layers=TP_LAYERS, dtype="float32")
-    specs = train_lib.shardings_for(cfg, mesh, {})[0]
-    step = train_lib.make_train_step(cfg, ocfg, mesh)
-    pb = shd.shard_tree(fresh(cfg), specs, mesh)
-    pb, ob, m, r = timed(step, pb, adamw.init(pb), batches[0])
-    gn = float(m["grad_norm"])
-    plan = train_lib.plan_calls(step.plan(batches[0]))
-    del ob, m
-    free()
-    secs["fp32 tp"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for turn in range(2):
-        if turn == rank:
-            p = fresh(cfg)
-            o = adamw.init(p)
-            p, o, m = train_lib.make_train_step(cfg, ocfg)(p, o, batches[0])
-            want = mine(p, specs)
-            gmax = [float(x.abs().max()) / 0.1 for x in adamw.leaves(o["m"])]
-            wm = mine(o["m"], specs)
-            one = dict(loss=float(m["loss"]), gn=float(m["grad_norm"]),
-                       lr=float(m["lr"]))
-            del p, o, m
-            free()
-        tdist.barrier()
-    secs["fp32 unsharded"] = time.perf_counter() - t0
-    worst, off, excused = 0.0, 0, True
-    for a, b, g, mx in zip(adamw.leaves(pb), want, wm, gmax):
-        d = (a - b).abs()
-        bad = d > 1e-5
-        worst = max(worst, float(d.max()))
-        if bool(bad.any()):
-            off += int(bad.sum())
-            noisy = (g / 0.1).abs() < TP_NOISE * mx
-            excused &= bool(noisy[bad].all()) and \
-                float(d.max()) <= 2 * one["lr"]
-    rec["fp32"] = dict(
-        r, gn=gn, want=one, calls_ok=r["calls"] == plan,
-        plan=plan, worst=worst, off=off, excused=excused,
-        split=sorted(step.roles),
-        ok=bool(abs(r["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
-                and abs(gn - one["gn"]) <= 1e-5 * abs(one["gn"])
-                and excused and r["calls"] == plan))
-    del pb, want, wm
-    free()
+    def exact(cfg, b):
+        """Loss and gradient norm of the unsharded step's function on an
+        fp64 copy of the seeded fp32 state (``common.upcast`` keeps every
+        fp32 accumulation in fp64; the attention plain, as the kernel has
+        no fp64)."""
+        p = fresh(cfg)
+        flat = [w.double().requires_grad_() for w in adamw.leaves(p)]
+        tree = adamw.tree_like(p, flat)
+        del p
+        with plain_attention():
+            loss, _ = train_lib.make_loss_fn(cfg)(tree, b)
+            g = torch.autograd.grad(loss, flat)
+        out = float(loss), float(torch.sqrt(sum((x * x).sum() for x in g)))
+        del tree, flat, g, loss
+        free()
+        return out
+
+    def gate_fp32(cfg, b, fp64=False):
+        """The two ranks' fp32 step against the unsharded step from the
+        same state, at the train-step tests' tolerance. The two ranks'
+        step comes first, so that both pay their first step's loads at
+        once; then the unsharded step runs on one rank at a time (two
+        would not fit). With ``fp64`` the loss and grad norm are held to
+        the unsharded step's exact values (:func:`exact`), and the fp32
+        unsharded step's own distance from them is reported: where the
+        function amplifies fp32 rounding, two fp32 steps differ by more
+        than the tolerance while each is close to the exact value."""
+        t0 = time.perf_counter()
+        specs = train_lib.shardings_for(cfg, mesh, {})[0]
+        step = train_lib.make_train_step(cfg, ocfg, mesh)
+        pb = shd.shard_tree(fresh(cfg), specs, mesh)
+        pb, ob, m, r = timed(step, pb, adamw.init(pb), b)
+        gn = float(m["grad_norm"])
+        plan = train_lib.plan_calls(step.plan(b))
+        del ob, m
+        free()
+        secs[f"fp32 tp {cfg.name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for turn in range(2):
+            if turn == rank:
+                p = fresh(cfg)
+                o = adamw.init(p)
+                p, o, m = train_lib.make_train_step(cfg, ocfg)(p, o, b)
+                want = mine(p, specs)
+                gmax = [float(x.abs().max()) / 0.1
+                        for x in adamw.leaves(o["m"])]
+                wm = mine(o["m"], specs)
+                one = dict(loss=float(m["loss"]), gn=float(m["grad_norm"]),
+                           lr=float(m["lr"]))
+                del p, o, m
+                free()
+                if fp64 and rank == 0:
+                    one["exact_loss"], one["exact_gn"] = exact(cfg, b)
+            tdist.barrier()
+        if fp64:                         # rank 0's, once
+            got = [one.get("exact_loss"), one.get("exact_gn")]
+            tdist.broadcast_object_list(got, src=0)
+            one["exact_loss"], one["exact_gn"] = got
+        secs[f"fp32 unsharded {cfg.name}"] = time.perf_counter() - t0
+        worst, off, excused = 0.0, 0, True
+        for a, w, g, mx in zip(adamw.leaves(pb), want, wm, gmax):
+            d = (a - w).abs()
+            bad = d > 1e-5
+            worst = max(worst, float(d.max()))
+            if bool(bad.any()):
+                off += int(bad.sum())
+                noisy = (g / 0.1).abs() < TP_NOISE * mx
+                excused &= bool(noisy[bad].all()) and \
+                    float(d.max()) <= 2 * one["lr"]
+        del pb, want, wm
+        free()
+        loss_to, gn_to = (one["exact_loss"], one["exact_gn"]) if fp64 \
+            else (one["loss"], one["gn"])
+        return dict(
+            r, gn=gn, want=one, calls_ok=r["calls"] == plan,
+            plan=plan, worst=worst, off=off, excused=excused,
+            split=sorted(step.roles), fp64=fp64,
+            ok=bool(abs(r["loss"] - loss_to) <= 1e-5 * abs(loss_to)
+                    and abs(gn - gn_to) <= 1e-5 * abs(gn_to)
+                    and excused and r["calls"] == plan))
+
+    rec["fp32"] = gate_fp32(dataclasses.replace(
+        full, n_layers=TP_LAYERS, dtype="float32"), batches[0])
     t0 = time.perf_counter()
 
     # bf16, remat full: ms a step and the peak a rank, then the unsharded
@@ -1906,6 +1950,59 @@ def tp_rank(rank: int, port: int, out: str) -> None:
         tdist.barrier()
         secs["fsdp " + ("once" if once else "per layer")] = \
             time.perf_counter() - t0
+
+    # zamba2 and xLSTM at full width, cut in depth: the fp32 gate, then two
+    # bf16 steps (the first a warm-up) a rank and on rank 0 alone the
+    # unsharded step's; flash launches a rank a step against the shared
+    # block's invocations (zamba2; xLSTM has no attention)
+    rec["families"] = {}
+    for arch, n_layers in TP_FAMILIES:
+        fam = configs.full_config(arch)
+        tpf = TokenPipeline(fam.vocab_size, batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ, seed=0)
+        fb = [{k: torch.as_tensor(a, device=dev)
+               for k, a in tpf.batch_at(i).items()} for i in range(2)]
+        cfg = dataclasses.replace(fam, n_layers=n_layers)
+        model = build(cfg)
+        fr = dict(fp32=gate_fp32(dataclasses.replace(cfg, dtype="float32"),
+                                 fb[0], fp64=True),
+                  want_flash=model._group_struct(cfg)[0]
+                  if cfg.family == "hybrid" else 0)
+        t0 = time.perf_counter()
+        specs = train_lib.shardings_for(cfg, mesh, {})[0]
+        step = train_lib.make_train_step(cfg, ocfg, mesh)
+        pb = shd.shard_tree(fresh(cfg), specs, mesh)
+        ob = adamw.init(pb)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for b in fb:
+            pb, ob, _, r = timed(step, pb, ob, b)
+            runs.append(r)
+        fr["bf16"] = dict(runs=runs, plan=train_lib.plan_calls(step.plan(
+            fb[0])), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del pb, ob
+        free()
+        tdist.barrier()
+        secs[f"bf16 tp {arch}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if rank == 0:
+            p = fresh(cfg)
+            o = adamw.init(p)
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            plain = train_lib.make_train_step(cfg, ocfg)
+            runs = []
+            for b in fb:
+                p, o, _, r = timed(plain, p, o, b)
+                runs.append(r)
+            fr["unsharded"] = dict(
+                runs=runs, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del p, o
+            free()
+        tdist.barrier()
+        secs[f"bf16 unsharded {arch}"] = time.perf_counter() - t0
+        rec["families"][arch] = fr
     rec["seconds"] = secs
     dist.destroy()
     with open(out, "w") as f:
@@ -1963,6 +2060,18 @@ def train_lm_tp(run, card) -> dict:
       equal (fingerprints; each gradient element is a sum of two fp32
       addends on both paths), the per-layer peak a rank at least
       ``FSDP_SAVES_GIB`` below the whole gather's, ms and peak printed;
+    * zamba2-1.2b and xlstm-125m at full width, cut in depth
+      (``TP_FAMILIES``), their Mamba2 layers, shared block, mLSTM and
+      sLSTM blocks split by heads: the fp32 step from the seeded init
+      against the unsharded step from the same state, its loss and grad
+      norm within 1e-5 of the unsharded step's exact value (on an fp64
+      copy of the state: these gradients amplify fp32 rounding, so an
+      fp32 unsharded step may sit further from it than the tolerance;
+      both fp32 steps' distances are printed), its params by the rule
+      above against the fp32 unsharded step; a warm-up and a bf16 remat
+      step a rank, ms and peak beside the unsharded step's; zamba2's
+      flash launches a rank a step equal to its shared block's
+      invocations;
     * every step's ``dist.calls`` equal to ``MeshStep.plan``.
 
     Both ranks share the card and gloo stages every collective through
@@ -2042,6 +2151,49 @@ def train_lm_tp(run, card) -> dict:
                         and x["flash"] == 2 * FSDP_LAYERS
                         and math.isfinite(x["loss"]) for x in (per, once))):
             bad.append(f"rank {r} fsdp")
+    fam_launches = {}
+    for arch, n_layers in TP_FAMILIES:
+        one = recs[0]["families"][arch]["unsharded"]
+        for r, rec in enumerate(recs):
+            fr = rec["families"][arch]
+            f32, b16, want = fr["fp32"], fr["bf16"], fr["want_flash"]
+            w = f32["want"]
+            print(f"[train-lm-tp] rank {r} {arch} full width, {n_layers} "
+                  f"layers, fp32: split over 'model': {f32['split']}; loss "
+                  f"{f32['loss']:.9f} / unsharded fp32 {w['loss']:.9f}, fp64 "
+                  f"{w['exact_loss']:.9f}; grad norm {f32['gn']:.9f} / "
+                  f"unsharded fp32 {w['gn']:.9f}, fp64 {w['exact_gn']:.9f} "
+                  f"(off fp64 by {f32['gn'] / w['exact_gn'] - 1:+.2e} split, "
+                  f"{w['gn'] / w['exact_gn'] - 1:+.2e} unsharded; the gate "
+                  f"holds the split step's loss and norm to fp64 at 1e-5); "
+                  f"params off by {f32['worst']:.3e} at most, {f32['off']} "
+                  f"over 1e-5, all where the gradient is under {TP_NOISE} of "
+                  f"its leaf's max and within 2 lr: {f32['excused']}; "
+                  f"collectives {f32['calls']} == plan: {f32['calls_ok']}; "
+                  f"flash {f32['flash']} (want {want}); gate: {f32['ok']}",
+                  flush=True)
+            runs = b16["runs"]
+            calls = all(x["calls"] == b16["plan"] for x in runs)
+            flash = [x["flash"] for x in runs]
+            losses = [x["loss"] for x in runs]
+            print(f"[train-lm-tp] rank {r} {arch} bf16 remat full: losses "
+                  f"{losses}; ms a step {[round(x['ms'], 1) for x in runs]} "
+                  f"(first: warm-up) against the unsharded step's "
+                  f"{[round(x['ms'], 1) for x in one['runs']]} (rank 0 "
+                  f"alone); peak {b16['peak_gib']:.2f} GiB a rank against "
+                  f"{one['peak_gib']:.2f}; flash a step {flash} (want "
+                  f"{want}); collectives a step {runs[0]['calls']} == plan: "
+                  f"{calls}; card {card}", flush=True)
+            if not (f32["ok"] and f32["flash"] == want and calls
+                    and all(f == want for f in flash)
+                    and all(math.isfinite(x) for x in losses)):
+                bad.append(f"rank {r} {arch}")
+        fam_launches[arch] = dict(
+            layers=n_layers, steps_a_rank=1 + len(recs[0]["families"][arch]
+                                                  ["bf16"]["runs"]),
+            launches=sum(x["flash"] for rec in recs for x in
+                         rec["families"][arch]["bf16"]["runs"]
+                         + [rec["families"][arch]["fp32"]]))
     one = recs[0]["unsharded"]
     print(f"[train-lm-tp] unsharded bf16 step (rank 0 alone): losses "
           f"{[x['loss'] for x in one['runs']]}; ms a step "
@@ -2057,7 +2209,8 @@ def train_lm_tp(run, card) -> dict:
         "arch": LM_ARCH, "layers": TP_LAYERS,
         "fsdp_steps_a_rank": 2, "fsdp_layers": FSDP_LAYERS,
         "fsdp_launches": sum(x["flash"] for rec in recs
-                             for x in rec["fsdp"].values())}}
+                             for x in rec["fsdp"].values()),
+        "families": fam_launches}}
 
 
 def start_dryrun() -> dict:

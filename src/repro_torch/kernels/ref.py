@@ -163,13 +163,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = Dh ** -0.5
     group = H // Hkv
     qg = q.reshape(B, Lq, Hkv, group, Dh)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(acc), k.to(acc)) * scale
     if causal:
         rows = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
         mask = rows >= torch.arange(Lk, device=q.device)[None, :]
         logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
     return out.reshape(B, Lq, H, Dh).to(q.dtype)
 
 

@@ -231,6 +231,26 @@ def all_gather_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _AllGatherGrad.apply(t, dim % t.dim(), group)
 
 
+class _AllGatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.lo, ctx.n = dim, rank(group) * t.shape[dim], t.shape[dim]
+        return all_gather_rows(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def all_gather_whole(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather_rows` along ``dim`` that autograd differentiates,
+    for a gathered tensor that every rank uses whole, as the others do
+    (a replicated activation): the gradient of the whole is then the same
+    on every rank, and a rank's block takes its block of it (no
+    collective in the backward)."""
+    return _AllGatherWhole.apply(t, dim % t.dim(), group)
+
+
 class _GatherBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, token, b, gather, reduce, sink):

@@ -11,9 +11,9 @@ shards head_dim = 128 instead).
 
 Conventions, as there:
   'model'  tensor/expert parallel axis: attention heads (head_dim where
-           the heads do not divide), the FFN width, the experts and the
-           vocabulary (:func:`model_role`); the zamba2 and xLSTM leaves
-           it splits are stored split and gathered whole for the products
+           the heads do not divide), the FFN width, the experts, the
+           vocabulary, and the heads, columns and channels of the Mamba2
+           and xLSTM leaves (:func:`model_role`)
   'data'   FSDP axis for parameters & optimizer moments (intra-pod);
            multi-pod keeps params replicated across 'pod'
   batch    activations shard over ('pod','data') combined
@@ -48,7 +48,9 @@ class Spec(tuple):
 
 # (regex on the dot-joined tree path, [candidate trailing-dim specs]
 #  [, the role of each trailing dim where 'model' splits it: what the
-#  sharded step's tensor-parallel product splits, model_role])
+#  sharded step's tensor-parallel product splits, model_role]); the
+#  reference's one rule for a_log / dt_bias / bias / b_gates is two here,
+#  with the same candidates, as the sLSTM ``bias``'s last dim is head_dim
 _PARAM_RULES: list[tuple] = [
     (r"\bembed$",        [("model", "data"), (None, "data"), (None, None)],
      ("vocab", None)),
@@ -77,15 +79,21 @@ _PARAM_RULES: list[tuple] = [
     # xLSTM
     (r"\bw_gates$",      [(None, None, None)]),
     (r"\br$",            [(None, "model", None, None),
-                          (None, None, None, None)]),
+                          (None, None, None, None)],
+     (None, "heads", None, None)),
     (r"\bwx$",           [("data", None, "model", None),
                           ("data", None, None, "model"),
-                          (None, None, None, None)]),
+                          (None, None, None, None)],
+     (None, None, "heads", "head_dim")),
     # mamba / zamba
-    (r"\bw_in$",         [("data", "model"), (None, "model"), (None, None)]),
-    (r"\bw_out$",        [("model", "data"), ("model", None), (None, None)]),
-    (r"\bconv_w$",       [(None, "model"), (None, None)]),
-    (r"\b(a_log|dt_bias|bias|b_gates)$", [("model",), (None,)]),
+    (r"\bw_in$",         [("data", "model"), (None, "model"), (None, None)],
+     (None, "columns")),
+    (r"\bw_out$",        [("model", "data"), ("model", None), (None, None)],
+     ("heads", None)),
+    (r"\bconv_w$",       [(None, "model"), (None, None)],
+     (None, "channels")),
+    (r"\b(a_log|dt_bias|b_gates)$", [("model",), (None,)], ("heads",)),
+    (r"\bbias$",         [("model",), (None,)], ("head_dim",)),
     (r"\bln", [(None,)]),
 ]
 
@@ -232,10 +240,12 @@ def model_role(path_s: str, spec: Spec) -> "tuple | None":
     """(dim, role) of the dim of a leaf that the 'model' axis splits under
     the tp layout, the role (from the rule table) one of 'heads',
     'head_dim' (the table's fallback where the heads do not divide),
-    'ffn', 'experts' and 'vocab'; None where 'model' splits no dim of the
-    leaf, or one whose products the port does not split (the xLSTM and
-    mamba leaves: those are gathered whole). Norms and the router are
-    replicated over 'model', as the table has them."""
+    'ffn', 'experts', 'vocab', 'columns' (a Mamba2 ``w_in``'s, which do
+    not fall on heads) and 'channels' (its ``conv_w``'s); None where
+    'model' splits no dim of the leaf. Norms, the router and the mLSTM
+    gates are replicated over 'model', as the table has them.
+    ``launch.train_lib.MeshStep`` decides from these which leaf groups
+    its forward computes split."""
     for pat, _, *roles in _PARAM_RULES:
         if re.search(pat, path_s):
             roles = roles[0] if roles else ()

@@ -22,16 +22,17 @@ explicit where the reference's is one GSPMD program:
   ``embed``, ``ln_f`` and ``unembed`` are gathered at their use, zamba2's
   shared block once a microbatch. With ``gather_params_once`` it gathers
   every whole leaf once a step instead (the reference's ``strip_fsdp``
-  layout). Under the tp layout a transformer's leaves that 'model' splits
-  stay this rank's 'model' block (below), the rest come whole;
+  layout). Under the tp layout the leaves that 'model' splits stay this
+  rank's 'model' block (below), the rest come whole;
 * compute: loss and gradients of its rows; the loss divides by the
   batch's count of unmasked targets (all-reduced first) and the MoE
   router's batch means are reduced inside the forward
   (``common.sharded_batch``), so the ranks' losses add up to the batch's;
-* reduce: it sums the fp32 gradients over the batch axes and keeps its
-  block (a reduce-scatter over the axes that split both, a local slice
-  over axes that split the leaf only, an all-reduce over axes that split
-  the batch only); a 'model' block's gradient is already its block. The
+* reduce: it sums the fp32 gradients over the batch axes (and 'model'
+  for a leaf used in part) and keeps its block (a reduce-scatter over the
+  axes that split both, a local slice over axes that split the leaf only,
+  an all-reduce over axes that split the batch only); a 'model' block's
+  gradient is already its block. The
   backward does it a layer at a time, as it leaves the layer, into fp32
   buffers of this rank's blocks (the shared block's after its last use),
   so no rank makes the whole model's gradient; with
@@ -41,20 +42,28 @@ explicit where the reference's is one GSPMD program:
 
 Under the tp layout the 'model' axis is the tensor and expert parallel
 axis, as the reference's GSPMD makes it (``launch.sharding.model_role``):
-for the transformer families (dense, moe, audio, vlm) each rank holds
-and computes its 'model' block of the attention heads (or of head_dim,
-where the heads do not divide: q, k and v are then gathered and the
-attention runs whole), of the FFN width, of the experts and of the
-vocabulary, inside ``common.model_parallel`` (given ``MeshStep.roles``);
-a split block ends in one all-reduce over 'model', and its input's
-gradient is all-reduced in the backward. Norms and the router stay
-replicated. No rank makes such a leaf's whole weight or its whole fp32
-gradient. A leaf group whose split the model cannot compute (the table's
-candidates differ between ``wq`` and ``wo``, say) and the zamba2 and
-xLSTM leaves are gathered whole over 'model', as is everything at a 'model' of size 1 and under the fsdp
-layout (where 'model' joins the batch axes). :meth:`MeshStep.plan` lists
-every collective the step makes, with its group and bytes;
-``launch.dryrun`` prices the same plan.
+each rank holds and computes its 'model' block of the attention heads (or
+of head_dim, where the heads do not divide: q, k and v are then gathered
+and the attention runs whole), of the FFN width, of the experts and of
+the vocabulary, and of the heads of a Mamba2 layer, an mLSTM block and an
+sLSTM block, inside ``common.model_parallel`` (given ``MeshStep.roles``).
+A split block ends in one all-reduce over 'model', and its input's
+gradient is all-reduced in the backward. The recurrent blocks keep the
+table's blocks too where these do not fall on heads (a Mamba2 ``w_in``'s
+and an mLSTM ``w_up``'s columns): each rank computes its block of the
+in-projection and the blocks are gathered (a reduce-scatter in the
+backward). The leaves a rank gets whole and uses in part (role 'part':
+a Mamba2 layer's ``conv_w`` and ``ln_h``, an mLSTM block's ``w_gates``
+and ``ln_h``, an sLSTM block's ``bias`` and ``ln_h``) have their
+gradients summed over 'model'; their gated norms sum their squares over
+'model'. Other norms and the router stay replicated. No rank makes a
+split leaf's whole weight or its whole fp32 gradient. A leaf group whose
+split the model cannot compute (the table's candidates differ between
+``wq`` and ``wo``, or xlstm-125m's 4 heads on a 'model' of 16) is
+gathered whole over 'model', as is everything at a 'model' of size 1 and
+under the fsdp layout (where 'model' joins the batch axes).
+:meth:`MeshStep.plan` lists every collective the step makes, with its
+group and bytes; ``launch.dryrun`` prices the same plan.
 """
 from __future__ import annotations
 
@@ -168,8 +177,19 @@ class _Unit(NamedTuple):
 
 
 _CODECS = (None, "bf16", "int8")
-_TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 _QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
+# the leaf groups of the recurrent blocks that split over 'model' together:
+# the table's role each needs, the leaves each rank then gets whole and
+# uses in part ('part': gradients summed over 'model'), and the roles the
+# model reads where the table's name for the dim is another block's
+_MAMBA = ({"w_in": "columns", "w_out": "heads", "a_log": "heads",
+           "dt_bias": "heads"}, ("conv_w", "ln_h"), {})
+_MLSTM = ({"mlstm.w_up": "ffn", "mlstm.w_down": "ffn", "mlstm.wq": "heads",
+           "mlstm.wk": "heads", "mlstm.wv": "heads",
+           "mlstm.b_gates": "heads"}, ("mlstm.w_gates", "mlstm.ln_h"),
+          {"mlstm.w_up": "columns", "mlstm.w_down": "heads"})
+_SLSTM = ({"slstm.wx": "heads", "slstm.r": "heads"},
+          ("slstm.bias", "slstm.ln_h"), {})
 
 
 class MeshStep:
@@ -226,41 +246,65 @@ class MeshStep:
                 shd.Spec(*spec[lead:]),
                 torch.empty(x.shape[lead:], dtype=x.dtype, device="meta")))
         self.n_model = mesh.sizes.get("model", 1)
-        # leaf name -> the role of the dim whose 'model' block the forward
-        # takes (common.model_parallel reads it); empty: all gathered whole
+        # leaf key (self._key) -> the role of the dim whose 'model' block
+        # the forward takes, or 'part' for a leaf it gets whole and uses in
+        # part (common.model_parallel reads it); empty: all gathered whole
         self.roles = {}
-        if (cfg.layout == "tp" and self.n_model > 1
-                and cfg.family in _TP_FAMILIES):
+        if cfg.layout == "tp" and self.n_model > 1:
             self.roles = self._split_roles(paths)
-        self.split = [p.rsplit(".", 1)[-1] in self.roles for p in paths]
+        keys = [self._key(p) for p in paths]
+        self.split = [self.roles.get(k) not in (None, "part") for k in keys]
+        self.summed = [self.roles.get(k) == "part" for k in keys]
         self.tp = bool(self.roles)
 
+    def _key(self, path: str) -> str:
+        """A leaf's key in :attr:`roles`: its name, scoped by its stack
+        where the family's names mean two things (``ROLE_SCOPES``)."""
+        scope = getattr(self.model, "ROLE_SCOPES", {}).get(
+            path.split(".")[0])
+        name = path.rsplit(".", 1)[-1]
+        return f"{scope}.{name}" if scope else name
+
     def _split_roles(self, paths: list) -> dict:
-        """The leaves (by name, with the role of their split dim) whose
+        """The leaves (by key, with the role of their split dim) whose
         'model' block the forward takes: a group of leaves is split where
         the model can compute each of its products from the blocks the
         table gives (attention all by heads, k and v by heads or head_dim,
         with whole GQA groups a rank, or all by head_dim; the FFN by its
-        width; the experts; each vocabulary table)."""
+        width; the experts; each vocabulary table; a Mamba2 layer, an
+        mLSTM block and an sLSTM block by heads, where the table splits
+        every one of their leaves that it names on heads, or on columns
+        that the model gathers). A split recurrent block also lists the
+        leaves it gets whole and uses in part ('part')."""
         cfg = self.cfg
-        role = {p.rsplit(".", 1)[-1]: (shd.model_role(p, s) or (0, None))[1]
+        role = {self._key(p): (shd.model_role(p, s) or (0, None))[1]
                 for p, s in zip(paths, self.specs)}
-        qkv = [n for n in _QKV if n in role]
-        h_loc, g = cfg.n_heads // self.n_model, cfg.n_heads // cfg.n_kv_heads
-        by_heads = (
-            role["wo"] == role["wq"] == role.get("bq", "heads") == "heads"
-            and all(role[w] in ("heads", "head_dim")
-                    and role.get("b" + w[1], role[w]) == role[w]
-                    for w in ("wk", "wv"))
-            and (h_loc % g == 0 or g % h_loc == 0))
-        by_dim = all(role[n] == "head_dim" for n in qkv + ["wo"])
-        kept = qkv + ["wo"] if by_heads or by_dim else []
+        kept = {}
+        if "wo" in role:
+            qkv = [n for n in _QKV if n in role]
+            h_loc = cfg.n_heads // self.n_model
+            g = cfg.n_heads // cfg.n_kv_heads
+            by_heads = (
+                role["wo"] == role["wq"] == role.get("bq", "heads") == "heads"
+                and all(role[w] in ("heads", "head_dim")
+                        and role.get("b" + w[1], role[w]) == role[w]
+                        for w in ("wk", "wv"))
+                and (h_loc % g == 0 or g % h_loc == 0))
+            by_dim = all(role[n] == "head_dim" for n in qkv + ["wo"])
+            if by_heads or by_dim:
+                kept.update({n: role[n] for n in qkv + ["wo"]})
         for group, want in ((("w_gate", "w_up", "w_down"), "ffn"),
+                            (("slstm.w_gate", "slstm.w_up", "slstm.w_down"),
+                             "ffn"),
                             (("we_gate", "we_up", "we_down"), "experts"),
                             (("embed",), "vocab"), (("unembed",), "vocab")):
             if all(role.get(n) == want for n in group):
-                kept += group
-        return {n: role[n] for n in kept}
+                kept.update({n: want for n in group})
+        for need, part, rename in (_MAMBA, _MLSTM, _SLSTM):
+            if all(role.get(n) == r for n, r in need.items()):
+                kept.update({n: rename.get(n, r) for n, r in need.items()})
+                kept.update({n: "part" for n in part})
+        return kept
 
     def local_shapes(self) -> list:
         """The shape of each leaf as the forward gets it: whole, or this
@@ -344,10 +388,17 @@ class MeshStep:
                     b, lambda x, u=u, keep=keep: shd.gather(
                         x, u.spec, self.mesh, keep),
                     lambda g, j=j, u=u: self._reduce(
-                        g, u.meta, u.spec, red, self.split[j]),
+                        g, u.meta, u.spec, self._red(red, j), self.split[j]),
                     sink, token)
             return out
         return fetch
+
+    def _red(self, red: tuple, j: int) -> tuple:
+        """The axes leaf ``j``'s gradients sum over: the batch axes
+        ``red``, and 'model' for a leaf used in part (``summed``)."""
+        if not self.summed[j]:
+            return red
+        return self.mesh.ordered(red + ("model",))
 
     def _reduce(self, g: torch.Tensor, leaf, spec, red: tuple,
                 split: bool = False) -> torch.Tensor:
@@ -382,6 +433,11 @@ class MeshStep:
         if rest:
             g = dist.all_reduce(g, "sum", self.mesh.group(rest))
         return g
+
+    def _reduce_all(self, grads: list, red: tuple) -> list:
+        return [self._reduce(g, x, s, self._red(red, j), k)
+                for j, (g, x, s, k) in enumerate(
+                    zip(grads, self.shapes, self.specs, self.split))]
 
     def _owns(self, spec) -> bool:
         """Whether this rank is the first of the ranks that hold its block
@@ -493,8 +549,7 @@ class MeshStep:
             if self.once:
                 grads = [g.float() for g in grads]
             if self.once and self.use_pod:
-                grads = [self._reduce(g, x, s, red, k) for g, x, s, k in
-                         zip(grads, self.shapes, self.specs, self.split)]
+                grads = self._reduce_all(grads, red)
             if self.use_pod:
                 grads, new_res = self._pod_codec(grads, res_in)
             if A == 1:
@@ -509,8 +564,7 @@ class MeshStep:
         if A > 1:
             acc = [g.div_(A) for g in acc]
         if self.once and not self.use_pod:
-            acc = [self._reduce(g, x, s, red, k) for g, x, s, k in
-                   zip(acc, self.shapes, self.specs, self.split)]
+            acc = self._reduce_all(acc, red)
         vec = torch.stack(vec)
         if split:
             vec = dist.all_reduce(vec, "sum", self.mesh.group(split))
@@ -575,21 +629,23 @@ class MeshStep:
             per_layer = 3 if cfg.remat == "full" else 2
             add("all_reduce", red, 4 * 2 * cfg.n_experts,
                 A * cfg.n_layers * per_layer, "router batch means")
-        for x, spec, unit in zip(self.shapes, self.specs, self.units):
+        for j, (x, spec, unit) in enumerate(zip(self.shapes, self.specs,
+                                                self.units)):
             if self.once:
                 n_reduce = A if self.use_pod else 1
             else:                        # a unit's, as the backward leaves it
                 n_reduce, spec, x = A * unit.count, unit.spec, unit.meta
+            red_j = self._red(red, j)
             cur = list(x.shape)
             for i, axs in shd.sharded_dims(spec):
-                if not set(axs) & set(red):
+                if not set(axs) & set(red_j):
                     cur[i] //= math.prod(sizes[a] for a in axs)
             for i, axs in shd.sharded_dims(spec):
-                if set(axs) <= set(red):
+                if set(axs) <= set(red_j):
                     add("reduce_scatter", axs, _nbytes(cur, torch.float32),
                         n_reduce, "grads")
                     cur[i] //= math.prod(sizes[a] for a in axs)
-            rest = tuple(a for a in red if a not in shd.spec_axes(spec))
+            rest = tuple(a for a in red_j if a not in shd.spec_axes(spec))
             if rest:
                 add("all_reduce", rest, _nbytes(cur, torch.float32),
                     n_reduce, "grads")
@@ -614,13 +670,20 @@ class MeshStep:
     def _tp_plan(self, rows: int, seq: int) -> list:
         """(helper, bytes, calls, what) of the 'model' collectives of one
         microbatch of ``rows`` x ``seq`` on this rank, in the forward, the
-        backward and the remat recompute (which repeats a layer's forward
-        ones, but not its FFN reduce, which comes after the block)."""
+        backward and the remat recompute (which repeats a block's forward
+        ones, but not the reduce of a transformer FFN, a Mamba2 layer or
+        an mLSTM block, which comes after the block). zamba2's shared
+        block runs once a group, outside remat."""
+        from repro_torch.models import xlstm, zamba
         from repro_torch.models.transformer import dtype_of
         cfg, m, roles = self.cfg, self.n_model, self.roles
         e = dtype_of(cfg).itemsize
-        act, L = rows * seq * cfg.d_model * e, cfg.n_layers
+        tok = rows * seq
+        act = tok * cfg.d_model * e
         twice = 2 if cfg.remat == "full" else 1
+        L, L_twice = cfg.n_layers, twice
+        if cfg.family == "hybrid":
+            L, L_twice = zamba._group_struct(cfg)[0], 1
         out = []
         if "embed" in roles:
             out.append(("all_reduce", act, 1, "tp embedding"))
@@ -629,22 +692,51 @@ class MeshStep:
             for w, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                              ("wv", cfg.n_kv_heads)):
                 if roles[w] == "head_dim":
-                    whole = rows * seq * heads * cfg.hd * e
-                    out.append(("all_gather", whole // m, L * twice,
+                    whole = tok * heads * cfg.hd * e
+                    out.append(("all_gather", whole // m, L * L_twice,
                                 f"tp {w[1]} head_dim"))
                     out.append(("reduce_scatter", whole, L,
                                 f"tp {w[1]} head_dim grads"))
-            out.append(("all_reduce", act, L * twice, "tp attention"))
+            out.append(("all_reduce", act, L * L_twice, "tp attention"))
         if "w_gate" in roles or "we_gate" in roles:
             out.append(("all_reduce", act, L, "tp ffn input grads"))
             out.append(("all_reduce", act, L, "tp ffn"))
         if "we_gate" in roles:
-            out.append(("all_reduce", rows * seq * cfg.top_k * 4, L,
+            out.append(("all_reduce", tok * cfg.top_k * 4, L,
                         "tp gate grads"))
+        # a Mamba2 layer / an mLSTM block (both under remat): the input's
+        # gradient, the gathered in-projection, the norm's sum of squares
+        # (summed in the backward too), and after the block the
+        # out-projection's partials
+        blocks = []
+        if "w_in" in roles:
+            di, N, H, _, _ = zamba._dims(cfg)
+            blocks.append(("mamba", cfg.n_layers, 2 * di + 2 * N + H))
+        if "mlstm.w_up" in roles:
+            G, M, tail = xlstm._group_struct(cfg)
+            blocks.append(("mlstm", G * M + tail, 4 * cfg.d_model))
+        for what, n, width in blocks:
+            out += [("all_reduce", act, n, f"tp {what} input grads"),
+                    ("all_gather", tok * width // m * e, n * twice,
+                     f"tp {what} in-projection"),
+                    ("reduce_scatter", tok * width * e, n,
+                     f"tp {what} in-projection grads"),
+                    ("all_reduce", tok * 4, n * twice, f"tp {what} norm"),
+                    ("all_reduce", tok * 4, n, f"tp {what} norm grads"),
+                    ("all_reduce", act, n, f"tp {what}")]
+        n_s = xlstm._group_struct(cfg)[0] if cfg.family == "ssm" else 0
+        if "slstm.wx" in roles:                  # no remat: once each
+            out += [("all_reduce", act, n_s, "tp slstm input grads"),
+                    ("all_reduce", tok * 4, n_s, "tp slstm norm"),
+                    ("all_reduce", tok * 4, n_s, "tp slstm norm grads"),
+                    ("all_gather", act // m, n_s, "tp slstm")]
+        if "slstm.w_gate" in roles:
+            out += [("all_reduce", act, n_s, "tp slstm ffn input grads"),
+                    ("all_reduce", act, n_s, "tp slstm ffn")]
         if "unembed" in roles:
             out.append(("all_reduce", act, 1, "tp logits input grads"))
-            out.append(("all_reduce", rows * seq * 4, 1, "tp ce max"))
-            out.append(("all_reduce", 2 * rows * seq * 4, 1, "tp ce sums"))
+            out.append(("all_reduce", tok * 4, 1, "tp ce max"))
+            out.append(("all_reduce", 2 * tok * 4, 1, "tp ce sums"))
         return out
 
     def gather_plan(self, calls: int = 1, whole: bool = False,

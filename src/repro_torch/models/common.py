@@ -167,13 +167,16 @@ _MODEL_AXIS = None       # (process group or None, size, rank, roles)
 @contextlib.contextmanager
 def model_parallel(group, size: int, rank: int, roles: dict):
     """Within: the model gets this rank's 'model' block of each leaf named
-    in ``roles`` (leaf name -> the role of the dim split over the ``size``
-    ranks of ``group``, this one ``rank`` among them: 'heads',
-    'head_dim', 'ffn', 'experts' or 'vocab'), computes its block of each
-    such product and joins them with the collectives below. With
-    ``group`` None the collectives only give their results' shapes and
-    communicate nothing (the dry-run's meta pass). The backward (and a
-    remat recompute) must run inside too."""
+    in ``roles`` (leaf name, or ``scope.name`` where a family's name means
+    two things -> the role of the dim split over the ``size`` ranks of
+    ``group``, this one ``rank`` among them: 'heads', 'head_dim', 'ffn',
+    'experts', 'vocab', or 'columns' (a product whose blocks of columns
+    do not fall on heads: it is gathered), or 'part' for a leaf it gets
+    whole and uses in part), computes its block of each such product and
+    joins them with the collectives below. With ``group`` None the
+    collectives only give their results' shapes and communicate nothing
+    (the dry-run's meta pass). The backward (and a remat recompute) must
+    run inside too."""
     global _MODEL_AXIS
     old = _MODEL_AXIS
     _MODEL_AXIS = (group, size, rank, dict(roles))
@@ -225,6 +228,44 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return dist.all_gather_grad(x, dim, group)
 
 
+def join_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every 'model' rank's block of ``x`` joined along ``dim``, for a
+    rank that uses the whole in full, as every rank does (the backward
+    takes this rank's block of the gradient)."""
+    from repro_torch.launch import dist
+    group, size = _MODEL_AXIS[:2]
+    if group is None:
+        return torch.cat([x] * size, dim)
+    return dist.all_gather_whole(x, dim, group)
+
+
+def sum_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the 'model' ranks of their partial ``x``, where each
+    rank's use of the sum differs (the backward sums the ranks' gradients
+    too: Megatron's identity backward would lose the others')."""
+    from repro_torch.launch import dist
+    group = _MODEL_AXIS[0]
+    return x if group is None else dist.all_reduce_grad(x, group)
+
+
+def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of the whole ``x`` along ``dim`` (a view)."""
+    n = x.shape[dim] // _MODEL_AXIS[1]
+    return x.narrow(dim, model_rank() * n, n)
+
+
+def rms_norm_model(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` of whole rows from this rank's block ``x`` of
+    their last dim (and ``weight``'s block): the sum of squares is summed
+    over 'model' (:func:`sum_model`)."""
+    dt = x.dtype
+    xf = upcast(x)
+    ss = sum_model(torch.sum(xf * xf, dim=-1, keepdim=True))
+    var = ss / (x.shape[-1] * _MODEL_AXIS[1])
+    return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+
+
 def _max_model(x: torch.Tensor) -> torch.Tensor:
     from repro_torch.launch import dist
     group = _MODEL_AXIS[0]
@@ -259,18 +300,28 @@ def scan_chunk(chunk: int, L: int) -> int:
 
 
 # ------------------------------------------------------------------ norms
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, for a product or a statistic the models accumulate
+    in fp32 (the reference's ``astype(float32)``), or in fp64 where it
+    already is: an fp64 copy of a step's state runs the same function at
+    fp64 throughout (the exact value an fp32 step is held to where fp32
+    rounding is amplified, ``chip_smoke.py``'s ``[train-lm-tp]``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight
 
 
 # ------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float = 1e4,
-               device: "torch.device | str" = "cpu") -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+               device: "torch.device | str" = "cpu",
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=dtype,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
 
@@ -279,13 +330,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, L, H, Dh); positions: (B, L) or (L,)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)              # (dh/2,)
-    ang = positions[..., None].float() * freqs           # (B?, L, dh/2)
+    xf = upcast(x)
+    freqs = rope_freqs(dh, theta, x.device, xf.dtype)    # (dh/2,)
+    ang = positions[..., None].to(xf.dtype) * freqs      # (B?, L, dh/2)
     if ang.dim() == 2:                                   # (L, dh/2)
         ang = ang[None]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -303,18 +355,18 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv = k.shape[2]
     g = H // Hkv
     scale = Dh ** -0.5
-    kf, vf = k.float(), v.float()
+    kf, vf = upcast(k), upcast(v)
     cols = torch.arange(L, device=q.device)
     out = []
     for s in range(0, L, block_q):
         qg = q[:, s: s + block_q].reshape(B, block_q, Hkv, g, Dh)
-        logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), kf) * scale
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", upcast(qg), kf) * scale
         rows = s + torch.arange(block_q, device=q.device)
         mask = rows[:, None] >= cols[None, :]
         logits = logits.masked_fill(~mask[None, :, None, None, :],
                                     float("-inf"))
         p = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), vf)
+        o = torch.einsum("bqhgk,bkhd->bqhgd", upcast(p.to(v.dtype)), vf)
         out.append(o.reshape(B, block_q, H, Dh))
     return torch.cat(out, dim=1).to(q.dtype)
 
@@ -363,7 +415,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     keeps them (``constrain_logits``): the max and the sum of exponentials
     are all-reduced over 'model', and the target's logit comes from the
     rank that holds it (zero from the others, summed)."""
-    lg = logits.float()
+    lg = upcast(logits)
     if split_role("unembed") is not None:
         lse, tgt = _split_lse_target(lg, targets)
     else:

@@ -35,6 +35,10 @@ _NEG = -1e30
 # under common.remat); the sharded step gathers a block at a time
 STACKS = {"m_groups": (2, True), "s_groups": (1, False),
           "m_tail": (1, True)}
+# the scope of each stack's leaf names in the roles of the 'model' axis
+# (common.split_role): ``w_up`` / ``w_down`` are the fused [x | z] and down
+# projections of an mLSTM block, and an sLSTM block's FFN
+ROLE_SCOPES = {"m_groups": "mlstm", "m_tail": "mlstm", "s_groups": "slstm"}
 
 
 # ----------------------------------------------------------- mLSTM core
@@ -50,9 +54,9 @@ def _mlstm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = dhk ** -0.5
     dev = q.device
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=dev).tril()
-    C = torch.zeros((*lead, dhk, dhv), dtype=torch.float32, device=dev)
-    n = torch.zeros((*lead, dhk), dtype=torch.float32, device=dev)
-    m = torch.zeros(lead, dtype=torch.float32, device=dev)
+    C = torch.zeros((*lead, dhk, dhv), dtype=q.dtype, device=dev)
+    n = torch.zeros((*lead, dhk), dtype=q.dtype, device=dev)
+    m = torch.zeros(lead, dtype=q.dtype, device=dev)
     hs = []
     for s in range(0, L, chunk):
         q_c = q[..., s: s + chunk, :]
@@ -125,30 +129,52 @@ def _init_mlstm(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def _mlstm_in(p: dict, h: torch.Tensor, eq: str) -> tuple:
-    """The block's projections: (q, k, v fp32 by ``eq``, ig, lf, z)."""
+    """The block's projections: (q, k, v fp32 by ``eq``, ig, lf, z). Where
+    ``w_up`` is split over 'model' (its blocks of [x | z] columns do not
+    fall on heads) each rank takes its block of the product and the
+    blocks are gathered: x whole for its heads' q, k and v, z of its
+    heads' channels; the gates of its heads."""
     x = common.rms_norm(h, p["ln"])
-    xm, z = torch.chunk(x @ p["w_up"], 2, dim=-1)             # (B, L, di)
-    q, k, v = (torch.einsum(eq, xm, p[w]).float() for w in ("wq", "wk", "wv"))
-    gates = torch.einsum("bld,dgh->bghl", xm.float(), p["w_gates"]) \
+    w_gates = p["w_gates"]
+    if common.split_role("mlstm.w_up") is None:
+        xm, z = torch.chunk(x @ p["w_up"], 2, dim=-1)         # (B, L, di)
+    else:
+        xz = common.gather_model(
+            common.to_model(x, "mlstm.w_up") @ p["w_up"], -1)
+        di, n = xz.shape[-1] // 2, p["wq"].shape[1] * p["wq"].shape[2]
+        lo = common.model_rank() * n
+        xm, z = xz[..., :di], xz[..., di + lo: di + lo + n]
+        w_gates = common.model_block(w_gates, 2)
+    q, k, v = (common.upcast(torch.einsum(eq, xm, p[w]))
+               for w in ("wq", "wk", "wv"))
+    gates = torch.einsum("bld,dgh->bghl", common.upcast(xm), w_gates) \
         + p["b_gates"][None, :, :, None]                      # (B, 2, H, L)
     return q, k, v, gates[:, 0], F.logsigmoid(gates[:, 1]), z
 
 
 def _mlstm_out(p: dict, h: torch.Tensor, hh: torch.Tensor,
                z: torch.Tensor) -> torch.Tensor:
-    """hh (B, H, L, dh) fp32 -> h + down(norm(hh) * silu(z))."""
+    """hh (B, H, L, dh) fp32 -> down(norm(hh) * silu(z)), the block's
+    output before its 'model' reduce; split over 'model', of this rank's
+    heads: the norm over the whole width, the partial product of its rows
+    of ``w_down``."""
     B, _, L, _ = hh.shape
     hh = hh.transpose(1, 2).reshape(B, L, -1).to(h.dtype)
-    hh = common.rms_norm(hh, p["ln_h"]) * F.silu(z)
-    return h + hh @ p["w_down"]
+    if common.split_role("mlstm.w_up") is None:
+        hh = common.rms_norm(hh, p["ln_h"])
+    else:
+        hh = common.rms_norm_model(hh, common.model_block(p["ln_h"], 0))
+    return (hh * F.silu(z)) @ p["w_down"]
 
 
 def _mlstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  unit=None) -> tuple:
-    """Chunkwise mLSTM over h (B, L, d); returns (h, end (C, n, m)).
-    Given its ``unit`` (path and block index), ``p`` are the block's
-    blocks of weights, gathered here (``common.weights``), inside the
-    remat."""
+    """Chunkwise mLSTM over h (B, L, d); returns (the block's output
+    before its 'model' reduce, end (C, n, m)): the caller adds
+    ``common.from_model(out, 'mlstm.w_down')`` to h, outside the remat
+    block, so that a recompute does not repeat the reduce. Given its
+    ``unit`` (path and block index), ``p`` are the block's blocks of
+    weights, gathered here (``common.weights``), inside the remat."""
     if unit is not None:
         p = common.weights(p, *unit)
     q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhlk")
@@ -163,7 +189,7 @@ def _mlstm_decode_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhk")
     C, n, m, hh = _mlstm_decode_step(C, n, m, q, k, v, ig[..., 0],
                                      lf[..., 0])
-    return _mlstm_out(p, h, hh[:, :, None], z), (C, n, m)
+    return h + _mlstm_out(p, h, hh[:, :, None], z), (C, n, m)
 
 
 # ---------------------------------------------------------- sLSTM block
@@ -191,7 +217,8 @@ def _init_slstm(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def _slstm_scan(p: dict, x: torch.Tensor, state: tuple) -> tuple:
     """x: (B, L, 4, H, dh) preactivations, recurrent over L from state
-    (c, n, h, m), each (B, H, dh). Returns (h (B, L, H, dh), end state)."""
+    (c, n, h, m), each (B, H, dh), through ``p['r']`` and ``p['bias']``.
+    Returns (h (B, L, H, dh), end state)."""
     c, n, hs, m = state
     out = []
     for t in range(x.shape[1]):
@@ -217,21 +244,37 @@ def _slstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  state: "tuple | None" = None, unit=None) -> tuple:
     """One sLSTM block over h (B, L, d) from ``state`` (zeros when None);
     returns (h, end (c, n, h, m)). Given its ``unit``, ``p`` are its
-    blocks of weights, gathered here (``common.weights``)."""
+    blocks of weights, gathered here (``common.weights``).
+
+    Split over 'model' (``common.split_role('slstm.wx')``), a rank runs
+    the recurrence of its heads (``bias`` gathered whole, its heads
+    taken), norms their outputs over the whole width and gathers them for
+    the residual; the FFN splits by its width on its own."""
     if unit is not None:
         p = common.weights(p, *unit)
-    B, L, d = h.shape
-    H = cfg.n_heads
+    B, L, _ = h.shape
     x = common.rms_norm(h, p["ln"])
-    pre = torch.einsum("bld,dghk->blghk", x.float(), p["wx"])
+    split = common.split_role("slstm.wx") is not None
+    bias, ln_h = p["bias"], p["ln_h"]
+    if split:
+        x = common.to_model(x, "slstm.wx")
+        bias = common.model_block(bias, 1)
+        ln_h = common.model_block(ln_h, 0)
+    pre = torch.einsum("bld,dghk->blghk", common.upcast(x), p["wx"])
+    H, dh = pre.shape[3], pre.shape[4]
     if state is None:
-        z = torch.zeros((B, H, d // H), dtype=torch.float32, device=h.device)
+        z = torch.zeros((B, H, dh), dtype=pre.dtype, device=h.device)
         state = (z, z, z, z)
-    hseq, state = _slstm_scan(p, pre, state)                  # (B, L, H, dh)
-    hh = common.rms_norm(hseq.reshape(B, L, d).to(h.dtype), p["ln_h"])
+    hseq, state = _slstm_scan({"r": p["r"], "bias": bias}, pre, state)
+    hh = hseq.reshape(B, L, H * dh).to(h.dtype)
+    if split:
+        hh = common.join_model(common.rms_norm_model(hh, ln_h), -1)
+    else:
+        hh = common.rms_norm(hh, ln_h)
     h = h + hh
-    x2 = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
-    return h + x2 @ p["w_down"], state
+    x2 = common.to_model(h, "slstm.w_gate")
+    x2 = F.silu(x2 @ p["w_gate"]) * (x2 @ p["w_up"])
+    return h + common.from_model(x2 @ p["w_down"], "slstm.w_gate"), state
 
 
 # ------------------------------------------------------------- full model
@@ -291,7 +334,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     from ``params``' blocks (``common.weights``), an mLSTM block inside
     its remat."""
     table = common.weights({"embed": params["embed"]})["embed"]
-    h = table[batch["tokens"].long()]
+    h = common.embed_lookup(table, batch["tokens"].long())
     del table
     if cache is not None and cache["pos"] != 0:
         raise ValueError(f"prefill needs an empty cache, got pos "
@@ -300,7 +343,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         if kind == "s":
             h, state = _slstm_block(cfg, lp, h, None, unit)
         else:                              # the reference remats mLSTM only
-            h, state = common.remat(cfg, _mlstm_block, cfg, lp, h, unit)
+            out, state = common.remat(cfg, _mlstm_block, cfg, lp, h, unit)
+            h = h + common.from_model(out, "mlstm.w_down")
         if cache is not None:
             for b, st in zip(_bufs(cache, keys), state):
                 b[idx].copy_(st)

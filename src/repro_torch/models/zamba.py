@@ -66,7 +66,7 @@ def _ssd_chunk_scan(xdt: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     (``_segsum``, and the decay to a chunk's end as a suffix sum)."""
     *lead, L, P = xdt.shape
     N = B_.shape[-1]
-    S = torch.zeros((*lead, N, P), dtype=torch.float32, device=xdt.device)
+    S = torch.zeros((*lead, N, P), dtype=xdt.dtype, device=xdt.device)
     ys = []
     for s in range(0, L, chunk):
         x_c = xdt[..., s: s + chunk, :]
@@ -124,12 +124,23 @@ def _init_mamba(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def _mamba_split(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
-    di, N, _, _, _ = _dims(cfg)
-    zxbcdt = common.rms_norm(h, p["ln"]) @ p["w_in"]
-    return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di],
-            zxbcdt[..., 2 * di: 2 * di + N],
-            zxbcdt[..., 2 * di + N: 2 * di + 2 * N],
-            zxbcdt[..., 2 * di + 2 * N:])
+    """(z, x, B, C, dt) of the in-projection of norm(h). Where ``w_in`` is
+    split over 'model' its blocks of columns do not fall on heads: each
+    rank takes its block of the product, the blocks are gathered, and it
+    keeps its heads' z, x and dt (the heads of its ``a_log`` block) and
+    the whole B and C."""
+    di, N, H, P, _ = _dims(cfg)
+    x = common.rms_norm(h, p["ln"])
+    if common.split_role("w_in") is None:
+        zx, h0, hn = x @ p["w_in"], 0, H
+    else:
+        zx = common.gather_model(common.to_model(x, "w_in") @ p["w_in"], -1)
+        hn = p["a_log"].shape[0]
+        h0 = common.model_rank() * hn
+    lo, n, dt0 = h0 * P, hn * P, 2 * di + 2 * N + h0
+    return (zx[..., lo: lo + n], zx[..., di + lo: di + lo + n],
+            zx[..., 2 * di: 2 * di + N],
+            zx[..., 2 * di + N: 2 * di + 2 * N], zx[..., dt0: dt0 + hn])
 
 
 def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -138,24 +149,41 @@ def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  single_step: bool = False, unit=None) -> tuple:
     """One Mamba2 layer over h (B, L, d): chunkwise over L, or one step
     from (``conv_state``, ``ssm_state`` (B, H, N, P)) with
-    ``single_step``. Returns (h + block(h), conv state, end SSD state).
+    ``single_step``. Returns (block(h) before its 'model' reduce, conv
+    state, end SSD state): the caller adds ``common.from_model(out,
+    'w_out')`` to h, outside the remat block, so that a recompute does not
+    repeat the reduce.
     Given its ``unit`` (path and layer index), ``p`` are the layer's
-    blocks, gathered here (``common.weights``), inside the remat."""
+    blocks, gathered here (``common.weights``), inside the remat.
+
+    Split over 'model' (``common.split_role('w_in')``), a rank runs its
+    heads: the conv of their x channels and of the whole B and C (with
+    ``conv_w`` gathered whole), their SSD, the gated norm over the whole
+    inner width (``common.rms_norm_model``) and their rows of ``w_out``,
+    a partial product."""
     if unit is not None:
         p = common.weights(p, *unit)
     B, L, _ = h.shape
-    di, N, H, P, _ = _dims(cfg)
+    di_all, N, _, P, _ = _dims(cfg)
     z, xin, Bc, Cc, dtr = _mamba_split(cfg, p, h)
+    di = z.shape[-1]                           # this rank's heads' width
+    H = di // P
+    split = common.split_role("w_in") is not None
+    conv_w, ln_h = p["conv_w"], p["ln_h"]
+    if split:
+        lo = common.model_rank() * di
+        conv_w = torch.cat([conv_w[:, lo: lo + di], conv_w[:, di_all:]], 1)
+        ln_h = common.model_block(ln_h, 0)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
     conv_out = F.silu(conv_out)
     xin = conv_out[..., :di]
-    Bc = conv_out[..., di: di + N].float()
-    Cc = conv_out[..., di + N:].float()
+    Bc = common.upcast(conv_out[..., di: di + N])
+    Cc = common.upcast(conv_out[..., di + N:])
 
-    dt_ = F.softplus(dtr.float() + p["dt_bias"])                # (B, L, H)
+    dt_ = F.softplus(common.upcast(dtr) + p["dt_bias"])         # (B, L, H)
     la = dt_ * -torch.exp(p["a_log"])                           # log decay
-    xdt = xin.float().reshape(B, L, H, P) * dt_[..., None]
+    xdt = common.upcast(xin).reshape(B, L, H, P) * dt_[..., None]
 
     if single_step:
         # recurrent: S' = exp(la) S + dt * B x^T ; y = C S'
@@ -168,8 +196,9 @@ def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                                Cc[:, None], la.transpose(1, 2), chunk)
         y = y.transpose(1, 2).reshape(B, L, di)
     y = y.to(h.dtype) * F.silu(z)
-    y = common.rms_norm(y, p["ln_h"])
-    return h + y @ p["w_out"], new_conv, S
+    y = common.rms_norm_model(y, ln_h) if split \
+        else common.rms_norm(y, ln_h)
+    return y @ p["w_out"], new_conv, S
 
 
 # ------------------------------------------------------------- full model
@@ -226,7 +255,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     gathered at its first invocation and held for the others
     (``common.weights``)."""
     table = common.weights({"embed": params["embed"]})["embed"]
-    h = table[batch["tokens"].long()]
+    h = common.embed_lookup(table, batch["tokens"].long())
     del table
     shared = None
     L = h.shape[1]
@@ -245,8 +274,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
             h = h + transformer._ffn_reduce(cfg, y)
             continue
         lp, (kc, ks, idx), unit = item
-        h, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h, None, None,
-                                  False, unit)
+        out, conv, S = common.remat(cfg, _mamba_block, cfg, lp, h, None,
+                                    None, False, unit)
+        h = h + common.from_model(out, "w_out")
         if cache is not None:
             if conv is not None:
                 cache[kc][idx].copy_(conv)
@@ -295,8 +325,9 @@ def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
                                           cache["av"][item], h, pos)
             continue
         lp, (kc, ks, idx), _ = item
-        h, conv, S = _mamba_block(cfg, lp, h, cache[kc][idx],
-                                  cache[ks][idx], single_step=True)
+        out, conv, S = _mamba_block(cfg, lp, h, cache[kc][idx],
+                                    cache[ks][idx], single_step=True)
+        h = h + out
         if conv is not None:
             cache[kc][idx].copy_(conv)
         cache[ks][idx].copy_(S)

@@ -11,7 +11,9 @@
   accum 1), yi-34b x train_4k (tp, accum 16: the 'model' axis splits its
   products, the plan's tensor-parallel collectives, a split rank's
   FLOPs), phi3.5-moe x prefill_32k
-  (einsum dispatch), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
+  (einsum dispatch), zamba2-1.2b x train_4k (tp: its Mamba layers and
+  shared block split over 'model', the plan's collectives, a split rank's
+  FLOPs), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
   extrapolation from 1 and 2 repeat units against a direct full-depth
   pass; the CLI on one cell.
 """
@@ -263,6 +265,71 @@ def test_yi34b_plan_lists_the_model_axis_collectives():
     # no parameter all-gather over 'model' but the norms' (replicated)
     gathered = {e["axes"] for e in plan if e["what"] == "params"}
     assert gathered == {("data",)}
+
+
+def test_zamba2_plan_splits_its_mamba_layers_and_shared_block():
+    """zamba2-1.2b x train_4k on 16x16 (accum 8, 2 rows a rank, remat
+    full): each Mamba layer's 'model' collectives a microbatch — the
+    input's gradient, the in-projection gathered (forward and recompute)
+    and reduce-scattered back, the gated norm's sum of squares (forward,
+    recompute and backward), the out-projection's reduce after the remat
+    block; the shared block's as a dense layer's, once a group (it runs
+    outside remat); the vocabulary's once. Only ``conv_w`` gathers over
+    'model' (whole, 2 passes a layer), and its gradient and ``ln_h``'s are
+    summed over 'model'."""
+    cfg, shape = dryrun.cell_config("zamba2-1.2b", "train_4k")
+    A = dryrun._accum_for(cfg, shape)
+    step = train_lib.MeshStep(cfg, dryrun.adamw.AdamWConfig(),
+                              production_axes(), accum_steps=A)
+    plan = step.plan(configs.input_specs(cfg, shape))
+    L, G, S, d = cfg.n_layers, cfg.n_layers // cfg.attn_every, \
+        shape.seq_len, cfg.d_model
+    tok = shape.global_batch // A // 16 * S
+    act, width, di = tok * d * 2, 2 * 2 * d + 2 * 64 + 64, 2 * d
+    want = {"tp embedding": ("all_reduce", act, A),
+            "tp attention input grads": ("all_reduce", act, A * G),
+            "tp attention": ("all_reduce", act, A * G),
+            "tp ffn input grads": ("all_reduce", act, A * G),
+            "tp ffn": ("all_reduce", act, A * G),
+            "tp mamba input grads": ("all_reduce", act, A * L),
+            "tp mamba in-projection": ("all_gather", tok * width // 16 * 2,
+                                       A * L * 2),
+            "tp mamba in-projection grads": ("reduce_scatter",
+                                             tok * width * 2, A * L),
+            "tp mamba norm": ("all_reduce", tok * 4, A * L * 2),
+            "tp mamba norm grads": ("all_reduce", tok * 4, A * L),
+            "tp mamba": ("all_reduce", act, A * L),
+            "tp logits input grads": ("all_reduce", act, A),
+            "tp ce max": ("all_reduce", tok * 4, A),
+            "tp ce sums": ("all_reduce", 2 * tok * 4, A)}
+    tp = {e["what"]: e for e in plan if e["axes"] == ("model",)
+          and e["what"].startswith("tp ")}
+    assert {k: (e["op"], e["bytes"], e["calls"]) for k, e in tp.items()} \
+        == want
+    whole = [e for e in plan if e["what"] == "params"
+             and "model" in e["axes"]]
+    assert {(e["axes"], e["bytes"]) for e in whole} == {
+        (("model",), 4 * (di + 2 * 64) // 16 * 2)}
+    assert sum(e["calls"] for e in whole) == A * L * 2
+    conv = [e for e in plan if e["what"] == "grads"
+            and e["axes"] == ("model",)]
+    assert conv and all(e["op"] == "reduce_scatter" for e in conv)
+    ln_h = [e for e in plan if e["what"] == "grads"
+            and e["axes"] == ("data", "model") and e["bytes"] == di * 4]
+    assert sum(e["calls"] for e in ln_h) == A * L
+
+
+def test_meta_pass_counts_a_split_zamba2_ranks_flops():
+    """One group of zamba2-1.2b (6 Mamba layers and the shared block)
+    under tp on 16x16: a rank's meta pass counts a sixteenth of the
+    unsharded pass's products, a little over with the replicated norms,
+    the whole B and C of its convs and the gathered in-projection."""
+    cfg, shape = dryrun.cell_config("zamba2-1.2b", "train_4k",
+                                    {"n_layers": 6})
+    shape = dataclasses.replace(shape, seq_len=cfg.chunk)
+    split = dryrun.meta_flops(cfg, shape, 1, production_axes())
+    whole = dryrun.meta_flops(cfg, shape, 1)
+    assert whole / 16 <= split <= 0.07 * whole, split / whole
 
 
 @pytest.mark.parametrize("arch,layout,most", [

@@ -225,6 +225,45 @@ def test_model_roles_on_16x16(arch, want):
     assert step.roles == want
 
 
+_MAMBA_ROLES = dict(w_in="columns", w_out="heads", a_log="heads",
+                    dt_bias="heads", conv_w="part", ln_h="part")
+_MLSTM_ROLES = {"mlstm.w_up": "columns", "mlstm.w_down": "heads",
+                "mlstm.wq": "heads", "mlstm.wk": "heads", "mlstm.wv": "heads",
+                "mlstm.b_gates": "heads", "mlstm.w_gates": "part",
+                "mlstm.ln_h": "part", "slstm.wx": "heads", "slstm.r": "heads",
+                "slstm.bias": "part", "slstm.ln_h": "part"}
+_SLSTM_FFN = {"slstm.w_gate": "ffn", "slstm.w_up": "ffn",
+              "slstm.w_down": "ffn", "embed": "vocab", "unembed": "vocab"}
+
+
+@pytest.mark.parametrize("arch,shape,want", [
+    ("zamba2-1.2b", (16, 16), dict(
+        _MAMBA_ROLES, wq="heads", wk="heads", wv="heads", wo="heads",
+        w_gate="ffn", w_up="ffn", w_down="ffn", embed="vocab",
+        unembed="vocab")),
+    ("xlstm-125m", (16, 16), _SLSTM_FFN),
+    ("xlstm-125m", (4, 4), dict(_SLSTM_FFN, **_MLSTM_ROLES))])
+def test_recurrent_model_roles(arch, shape, want):
+    """The recurrent families' leaves that 'model' splits each have a role
+    in the table (a Mamba2 ``w_in`` by columns, its ``conv_w`` by
+    channels, ``w_out`` / ``a_log`` / ``dt_bias`` by heads; xLSTM by heads,
+    head_dim where 16 does not divide its 4 heads), and the step splits a
+    block where each of its leaves is split on heads or on columns it
+    gathers: zamba2-1.2b's Mamba layers and shared block on 16x16; at
+    xlstm-125m's 4 heads on 16 only the sLSTM FFN and the vocabulary, on 4
+    its mLSTM and sLSTM blocks too. Leaves used in part ('part') are
+    gathered whole and their gradients summed over 'model'."""
+    cfg = configs.full_config(arch)
+    tree = build(cfg).init(cfg, common.MetaDraw())
+    mesh = meshlib.axes(shape, ("data", "model"))
+    specs = shd.leaves(shd.param_specs(tree, mesh, "tp"))
+    for path, spec in zip(shd.leaf_paths(tree), specs):
+        r = shd.model_role(path, spec)
+        assert (r is not None) == ("model" in shd.spec_axes(spec)), path
+    step = train_lib.MeshStep(cfg, train_lib.adamw.AdamWConfig(), mesh)
+    assert step.roles == want
+
+
 def test_meta_init_keeps_the_seeded_init():
     """The meta path draws nothing: a seeded init after it has the bits of
     one without it."""
