@@ -54,7 +54,14 @@ entry points a user calls:
   width, split over 'model' by heads (fp32 against the unsharded step's
   exact value, bf16 ms and peak a rank beside the unsharded step's,
   zamba2's flash launches, collectives equal to the plan)
-  (``[train-lm-tp]``); and the
+  (``[train-lm-tp]``); on the same two ranks the sharded serving step
+  (``MeshServe``: prefill into each rank's block of the KV cache, then
+  greedy decode), llama3-8b and phi3.5-moe at 2 layers in fp32 against
+  the unsharded step's logits and tokens, llama3-8b at 4 layers and
+  phi3.5-moe at 2 in bf16, ms a prefill, ms a decode step and peak memory
+  a rank beside the unsharded step's, and the fp32 tp train step and
+  prefill with ``seq_parallel`` against without it (``[serve-lm-tp]``);
+  and the
   dry-run of every (arch x shape) cell on both production meshes on this
   machine's CPU, beside the later phases (``[dryrun]``);
 * dense: a full-size ``a9a`` fit (C=32, sigma2=64, multi5pc, wss1) to
@@ -2003,10 +2010,325 @@ def tp_rank(rank: int, port: int, out: str) -> None:
         tdist.barrier()
         secs[f"bf16 unsharded {arch}"] = time.perf_counter() - t0
         rec["families"][arch] = fr
+    t0 = time.perf_counter()
+    rec["serve"] = serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs)
+    secs["serve-lm-tp"] = time.perf_counter() - t0
     rec["seconds"] = secs
     dist.destroy()
     with open(out, "w") as f:
         json.dump(rec, f)
+
+
+# [serve-lm-tp]: llama3-8b at full width in bf16, cut in depth; phi3.5-moe
+# at 2 layers (split by experts); the fp32 gates at 2 layers of each
+SERVE_TP_LAYERS, SERVE_TP_GATE = 4, 2
+SERVE_TP_MOE = "phi3.5-moe-42b-a6.6b"
+SERVE_TP_TOL = 1e-4     # fp32: max |logit - unsharded| over max |unsharded|
+
+
+def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
+    """``[serve-lm-tp]`` on one of ``[train-lm-tp]``'s two ranks: the
+    sharded serving step (``MeshServe``: the prefill into this rank's
+    block of the KV cache, then greedy decode steps) on the (1, 2) tp
+    mesh, ``LM_BATCH`` x ``LM_PROMPT`` prompt tokens and ``LM_NEW``
+    decode steps.
+
+    * fp32 gates at ``SERVE_TP_GATE`` layers of llama3-8b and of
+      phi3.5-moe: the prefill's logits (every position) and each decode
+      step's against the port's unsharded step on this card from the same
+      weights and the same decode inputs (the unsharded step's greedy
+      tokens, fed to both), within ``SERVE_TP_TOL`` of max |logit|; the
+      greedy tokens equal, except where the unsharded logits of the two
+      tokens are within that tolerance (a near tie, counted); a token
+      that an MoE layer routes to other experts in the two runs (its
+      top-k near a tie, flipped by rounding) is counted, and it and its
+      sequence's later positions are left out (at most half of them);
+    * bf16, llama3-8b at ``SERVE_TP_LAYERS`` layers and phi3.5-moe at
+      ``SERVE_TP_GATE``: a warm-up, then ms a prefill, ms a decode step
+      and the peak a rank, beside the unsharded step's (rank 0 alone);
+    * ``seq_parallel``: the fp32 tp train step (``TRAIN_BATCH`` x
+      ``TRAIN_SEQ``) and the fp32 prefill at ``SERVE_TP_GATE`` layers with
+      it against without it, from the same state;
+    * every call's ``dist.calls`` against its plan, and the prefill's
+      flash launches a rank (one a layer)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dist, train_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw
+
+    B, L, N = LM_BATCH, LM_PROMPT, LM_NEW
+    group = mesh.group(("model",))
+    out = {}
+
+    def inputs(cfg):
+        g = torch.Generator(device=dev).manual_seed(1)
+        return torch.randint(0, cfg.vocab_size, (B, L), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def vocab(x, split):
+        # this rank's vocabulary block -> the whole vocabulary
+        if "unembed" not in split:
+            return x
+        return dist.all_gather_rows(x.contiguous(), x.dim() - 1, group)
+
+    def unsharded(cfg, prompts, feed=None, n=N):
+        """The port's unsharded prefill and ``n`` decode steps (fed
+        ``feed``, else greedy): logits, tokens, ms, peak."""
+        p = fresh(cfg)
+        model = build(cfg)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cache = model.init_cache(cfg, B, L + n, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, _ = model.forward(p, cfg, {"tokens": prompts}, cache=cache)
+        tok = torch.argmax(lg[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        ms_pre = (time.perf_counter() - t) * 1e3
+        res = dict(prefill=lg, decode=[], tokens=[tok], ms_pre=ms_pre)
+        t = time.perf_counter()
+        for i in range(n):
+            x = tok[:, None] if feed is None else feed[:, i: i + 1]
+            lg, cache = model.decode(p, cfg, cache, {"tokens": x})
+            tok = torch.argmax(lg[:, -1], dim=-1)
+            res["decode"].append(lg[:, -1])
+            res["tokens"].append(tok)
+        torch.cuda.synchronize()
+        res["ms_dec"] = (time.perf_counter() - t) * 1e3 / n
+        res["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        del p, cache
+        return res
+
+    def sharded(cfg, prompts, feed=None, n=N):
+        """The same through ``MeshServe`` on this rank's blocks: logits
+        over the whole vocabulary, tokens, ms, peak, flash launches of the
+        prefill, and whether every call's collectives met its plan."""
+        specs = train_lib.shardings_for(cfg, mesh, {})[0]
+        pb = shd.shard_tree(fresh(cfg), specs, mesh)
+        pre = train_lib.make_prefill_step(cfg, mesh)
+        dec = train_lib.make_serve_step(cfg, mesh)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cache = pre.init_cache(B, L + n, device=dev)
+        batch = {"tokens": prompts}
+        cuda.reset_launches()
+        dist.calls.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = pre.logits(pb, batch, cache)
+        tok = pre.greedy(lg)
+        torch.cuda.synchronize()
+        ms_pre = (time.perf_counter() - t) * 1e3
+        flash = cuda.launches["flash_attention"]
+        ok = dict(dist.calls) == train_lib.plan_calls(pre.plan(batch))
+        res = dict(prefill=lg, decode=[], tokens=[tok], ms_pre=ms_pre,
+                   flash=flash, split=sorted(pre.roles))
+        ms = 0.0
+        for i in range(n):
+            x = tok[:, None] if feed is None else feed[:, i: i + 1]
+            b = {"tokens": x}
+            plan = train_lib.plan_calls(dec.plan(b, pos=cache["pos"]))
+            dist.calls.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = dec.logits(pb, b, cache)
+            tok = dec.greedy(lg)
+            torch.cuda.synchronize()
+            ms += time.perf_counter() - t
+            ok &= dict(dist.calls) == plan
+            res["decode"].append(lg[:, -1])
+            res["tokens"].append(tok)
+        res.update(ms_dec=ms * 1e3 / n, calls_ok=bool(ok),
+                   peak=torch.cuda.max_memory_allocated() / 2**30,
+                   cache_block=list(cache["k"].shape))
+        del pb, cache
+        return res
+
+    @contextlib.contextmanager
+    def routes(record):
+        # each MoE layer call's top-k experts (sorted), (B, L, k)
+        route = transformer._route
+
+        def rec(x, p, c):
+            out = route(x, p, c)
+            record.append(torch.sort(out[0], dim=-1).values)
+            return out
+        transformer._route = rec
+        try:
+            yield
+        finally:
+            transformer._route = route
+
+    def gate(cfg):
+        """The fp32 gate of ``cfg`` (see the docstring). Where an MoE
+        layer routes a token to other experts in the two runs (top-k near
+        a tie, flipped by rounding), that token and the later positions of
+        its sequence (their capacity slots and attention depend on it) are
+        counted and left out of the logits' comparison, and its row out of
+        the decode steps' after it."""
+        prompts = inputs(cfg)
+        r1, r2 = [], []
+        with routes(r1):
+            one = unsharded(cfg, prompts)
+        feed = torch.stack(one["tokens"][:N], dim=1)   # its greedy inputs
+        free()
+        with routes(r2):
+            got = sharded(cfg, prompts, feed)
+        want_lg = [one["prefill"]] + one["decode"]
+        got_lg = [vocab(x, got["split"])
+                  for x in [got["prefill"]] + got["decode"]]
+        n = cfg.n_layers if cfg.is_moe else 0
+        flip = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        for x, y in zip(r1[:n], r2[:n]):
+            flip |= (x != y).any(-1)
+        first = torch.where(flip.any(1), flip.float().argmax(1),
+                            torch.full((B,), L, device=dev))
+        keep = [torch.arange(L, device=dev)[None] < first[:, None]]
+        rows = ~flip.any(1)
+        for i in range(N):
+            for x, y in zip(r1[n * (i + 1): n * (i + 2)],
+                            r2[n * (i + 1): n * (i + 2)]):
+                rows &= ~(x != y).any(-1)[:, 0]
+            keep.append(rows.clone())
+        errs = []
+        for a, b, k in zip(got_lg, want_lg, keep):
+            d = torch.where(k[..., None], (a - b).abs(), 0.0)
+            errs.append(float(d.max() / b.abs().max()))
+        ties, off = 0, 0
+        for a, b, lg, k in zip(got["tokens"], one["tokens"],
+                               [x[:, -1] if x.dim() == 3 else x
+                                for x in want_lg], keep):
+            k = k[:, -1] if k.dim() == 2 else k
+            diff = (a != b) & k
+            if bool(diff.any()):
+                idx = torch.nonzero(diff)[:, 0]
+                gap = (lg[idx, b[idx]] - lg[idx, a[idx]]).abs()
+                near = gap <= SERVE_TP_TOL * lg.abs().max()
+                ties += int(near.sum())
+                off += int((~near).sum())
+        res = dict(err_prefill=errs[0], err_decode=max(errs[1:]),
+                   ties=ties, off=off, calls_ok=got["calls_ok"],
+                   flash=got["flash"], split=got["split"],
+                   cache_block=got["cache_block"],
+                   flips=int(sum(int((x != y).any(-1).sum())
+                                 for x, y in zip(r1, r2))),
+                   left_out=int((~keep[0]).sum()),
+                   rows_left_out=int((~keep[-1]).sum()),
+                   ok=bool(max(errs) <= SERVE_TP_TOL and off == 0
+                           and got["calls_ok"]
+                           and int((~keep[0]).sum()) <= B * L // 2))
+        del one, got, want_lg, got_lg
+        free()
+        return res
+
+    def timed(cfg):
+        """bf16: a warm-up, then the sharded step a rank and the unsharded
+        step on rank 0 alone (greedy)."""
+        prompts = inputs(cfg)
+        sharded(cfg, prompts, n=2)                      # warm-up
+        free()
+        got = sharded(cfg, prompts)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in [got["prefill"]] + got["decode"])
+        res = dict(ms_pre=got["ms_pre"], ms_dec=got["ms_dec"],
+                   peak=got["peak"], flash=got["flash"],
+                   calls_ok=got["calls_ok"], finite=finite,
+                   split=got["split"], cache_block=got["cache_block"],
+                   sample=[int(t[0]) for t in got["tokens"][:8]])
+        del got
+        free()
+        tdist.barrier()
+        if tdist.get_rank() == 0:
+            unsharded(cfg, prompts, n=2)                 # warm-up
+            free()
+            one = unsharded(cfg, prompts)
+            res["unsharded"] = dict(ms_pre=one["ms_pre"],
+                                    ms_dec=one["ms_dec"], peak=one["peak"])
+            del one
+            free()
+        tdist.barrier()
+        return res
+
+    llama = configs.full_config(LM_ARCH)
+    moe = configs.full_config(SERVE_TP_MOE)
+    t0 = time.perf_counter()
+    for name, cfg in ((LM_ARCH, llama), (SERVE_TP_MOE, moe)):
+        out[f"gate {name}"] = gate(dataclasses.replace(
+            cfg, n_layers=SERVE_TP_GATE, dtype="float32"))
+    secs["serve fp32 gates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out[f"bf16 {LM_ARCH}"] = timed(dataclasses.replace(
+        llama, n_layers=SERVE_TP_LAYERS))
+    out[f"bf16 {SERVE_TP_MOE}"] = timed(dataclasses.replace(
+        moe, n_layers=SERVE_TP_GATE))
+    secs["serve bf16"] = time.perf_counter() - t0
+
+    # seq_parallel: the fp32 tp train step and prefill with it and without
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama, n_layers=SERVE_TP_GATE, dtype="float32")
+    tp = TokenPipeline(cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       seed=0)
+    batch = {k: torch.as_tensor(a, device=dev)
+             for k, a in tp.batch_at(0).items()}
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, decay_steps=100)
+    specs = train_lib.shardings_for(cfg, mesh, {})[0]
+    steps = {}
+    for sp in (False, True):
+        c = dataclasses.replace(cfg, seq_parallel=sp)
+        step = train_lib.make_train_step(c, ocfg, mesh)
+        pb = shd.shard_tree(fresh(c), specs, mesh)
+        dist.calls.clear()
+        pb, ob, m = step(pb, adamw.init(pb), batch)
+        steps[sp] = dict(loss=float(m["loss"]), gn=float(m["grad_norm"]),
+                         lr=float(m["lr"]), params=adamw.leaves(pb),
+                         m=adamw.leaves(ob["m"]),
+                         calls_ok=dict(dist.calls) == train_lib.plan_calls(
+                             step.plan(batch)),
+                         rs=dist.calls["reduce_scatter"])
+        del ob
+        free()
+    a, b = steps[True], steps[False]
+    worst, excused = 0.0, True
+    for x, w, g in zip(a["params"], b["params"], b["m"]):
+        d = (x - w).abs()
+        worst = max(worst, float(d.max()))
+        bad = d > 1e-5
+        if bool(bad.any()):
+            noisy = (g / 0.1).abs() < TP_NOISE * float((g / 0.1).abs().max())
+            excused &= bool(noisy[bad].all()) and float(d.max()) <= 2 * b["lr"]
+    prompts = inputs(cfg)
+    pre = {}
+    for sp in (False, True):
+        c = dataclasses.replace(cfg, seq_parallel=sp)
+        srv = train_lib.make_prefill_step(c, mesh)
+        pb = shd.shard_tree(fresh(c), specs, mesh)
+        dist.calls.clear()
+        lg, _ = srv.logits(pb, {"tokens": prompts})
+        srv.greedy(lg)
+        ok = dict(dist.calls) == train_lib.plan_calls(
+            srv.plan({"tokens": prompts}))
+        pre[sp] = (vocab(lg, srv.roles), ok)
+        del pb, lg
+    err = rel_err(pre[True][0], pre[False][0])
+    out["seq_parallel"] = dict(
+        loss=[a["loss"], b["loss"]], gn=[a["gn"], b["gn"]], worst=worst,
+        excused=excused, prefill_err=err, rs=a["rs"],
+        calls_ok=a["calls_ok"] and b["calls_ok"] and pre[True][1]
+        and pre[False][1],
+        ok=bool(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+                and abs(a["gn"] - b["gn"]) <= 1e-5 * abs(b["gn"])
+                and excused and err <= SERVE_TP_TOL and a["rs"] > 0
+                and a["calls_ok"] and b["calls_ok"] and pre[True][1]
+                and pre[False][1]))
+    del steps, a, b, pre
+    free()
+    secs["serve seq_parallel"] = time.perf_counter() - t0
+    return out
 
 
 def start_train_lm_tp() -> dict:
@@ -2204,13 +2526,82 @@ def train_lm_tp(run, card) -> dict:
         fail(f"[train-lm-tp] gates failed: {bad}")
     launches = sum(x["flash"] for rec in recs
                    for x in rec["bf16"]["runs"] + [rec["fp32"]])
-    return {"train_lm_tp_launches": {
+    launches = {"train_lm_tp_launches": {
         "ranks": 2, "steps_a_rank": 2 + TP_STEPS, "launches": launches,
         "arch": LM_ARCH, "layers": TP_LAYERS,
         "fsdp_steps_a_rank": 2, "fsdp_layers": FSDP_LAYERS,
         "fsdp_launches": sum(x["flash"] for rec in recs
                              for x in rec["fsdp"].values()),
         "families": fam_launches}}
+    launches["serve_lm_tp_launches"] = serve_lm_tp(recs, card)
+    return launches
+
+
+def serve_lm_tp(recs, card) -> dict:
+    """``[serve-lm-tp]``'s report and gates, from the two ranks' records
+    (:func:`serve_tp_rank`); returns the prefills' flash launches a rank
+    for the kernels line."""
+    phase("serve-lm-tp")
+    bad, flash = [], {}
+    for r, rec in enumerate(recs):
+        sv = rec["serve"]
+        for name in (LM_ARCH, SERVE_TP_MOE):
+            g = sv[f"gate {name}"]
+            print(f"[serve-lm-tp] rank {r} {name} full width, "
+                  f"{SERVE_TP_GATE} layers, fp32, {LM_BATCH} x {LM_PROMPT} "
+                  f"prompt + {LM_NEW} decode steps on (1, 2), split over "
+                  f"'model': {g['split']}; cache block {g['cache_block']}; "
+                  f"prefill logits off the unsharded step's by "
+                  f"{g['err_prefill']:.3e} of max |logit|, decode steps by "
+                  f"{g['err_decode']:.3e} at most (<= {SERVE_TP_TOL}); "
+                  f"greedy tokens differ at {g['ties'] + g['off']} (near "
+                  f"ties {g['ties']}); MoE tokens routed to other experts "
+                  f"than unsharded {g['flips']} (layer calls x tokens), "
+                  f"prefill positions left out {g['left_out']} of "
+                  f"{LM_BATCH * LM_PROMPT}, rows left out of the last "
+                  f"decode step {g['rows_left_out']}; flash a prefill "
+                  f"{g['flash']} (want "
+                  f"{SERVE_TP_GATE}); collectives == plan: {g['calls_ok']}; "
+                  f"gate: {g['ok']}; card {card}", flush=True)
+            if not (g["ok"] and g["flash"] == SERVE_TP_GATE):
+                bad.append(f"rank {r} fp32 {name}")
+        for name, layers in ((LM_ARCH, SERVE_TP_LAYERS),
+                             (SERVE_TP_MOE, SERVE_TP_GATE)):
+            t = sv[f"bf16 {name}"]
+            one = recs[0]["serve"][f"bf16 {name}"]["unsharded"]
+            flash.setdefault(f"rank {r}", {})[name] = dict(
+                layers=layers, flash_a_prefill=t["flash"])
+            print(f"[serve-lm-tp] rank {r} {name} full width, {layers} "
+                  f"layers, bf16, {LM_BATCH} x {LM_PROMPT} + {LM_NEW} greedy "
+                  f"steps: prefill {t['ms_pre']:.1f} ms, decode "
+                  f"{t['ms_dec']:.2f} ms a step, peak {t['peak']:.2f} GiB a "
+                  f"rank; the unsharded step (rank 0 alone) "
+                  f"{one['ms_pre']:.1f} ms, {one['ms_dec']:.2f} ms, "
+                  f"{one['peak']:.2f} GiB; cache block {t['cache_block']}; "
+                  f"flash a prefill {t['flash']} (want {layers}); "
+                  f"collectives == plan: {t['calls_ok']}; finite: "
+                  f"{t['finite']}; tokens of row 0 {t['sample']}; card "
+                  f"{card}", flush=True)
+            if not (t["calls_ok"] and t["finite"] and t["flash"] == layers):
+                bad.append(f"rank {r} bf16 {name}")
+        sp = sv["seq_parallel"]
+        print(f"[serve-lm-tp] rank {r} seq_parallel, {LM_ARCH} full width, "
+              f"{SERVE_TP_GATE} layers, fp32: the tp train step "
+              f"({TRAIN_BATCH} x {TRAIN_SEQ}) with it / without it: loss "
+              f"{sp['loss'][0]:.7f} / {sp['loss'][1]:.7f}, grad norm "
+              f"{sp['gn'][0]:.7f} / {sp['gn'][1]:.7f}, params off by "
+              f"{sp['worst']:.3e} at most (any over 1e-5 where the gradient "
+              f"is under {TP_NOISE} of its leaf's max and within 2 lr: "
+              f"{sp['excused']}); {sp['rs']} reduce-scatters; the prefill's "
+              f"logits off by {sp['prefill_err']:.3e} of max |logit|; "
+              f"collectives == plan: {sp['calls_ok']}; gate: {sp['ok']}; "
+              f"seconds {rec['seconds'].get('serve-lm-tp', 0.0):.1f}; card "
+              f"{card}", flush=True)
+        if not sp["ok"]:
+            bad.append(f"rank {r} seq_parallel")
+    if bad:
+        fail(f"[serve-lm-tp] gates failed: {bad}")
+    return flash
 
 
 def start_dryrun() -> dict:
@@ -3826,6 +4217,7 @@ def main() -> None:
                                        "lm_launches", "train_lm_launches",
                                        "train_lm_mesh_launches",
                                        "train_lm_tp_launches",
+                                       "serve_lm_tp_launches",
                                        "train_fwd_ms", "train_bwd_ms",
                                        "serve_shape_ms",
                                        "zamba_shape_ms", "shape")

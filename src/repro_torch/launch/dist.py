@@ -13,7 +13,8 @@ Every collective of the port goes through one helper here —
 :func:`ring_shift`, and the ones autograd differentiates, built on them:
 :func:`all_reduce_grad`, and the pairs of a product split over a group
 (:func:`copy_to_group`, :func:`reduce_from_group`,
-:func:`all_gather_grad`), and the sharded step's gather of a parameter
+:func:`all_gather_grad`, :func:`reduce_scatter_grad`), and the sharded
+step's gather of a parameter
 block with its fp32 reduce in the backward (:func:`gather_block`) — each of
 which calls whichever name the installed torch provides without a
 deprecation warning, and counts its calls in :data:`calls` (by helper;
@@ -229,6 +230,27 @@ def all_gather_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     a rank's block is its block of the sum of every rank's gradient of the
     whole (one :func:`reduce_scatter`)."""
     return _AllGatherGrad.apply(t, dim % t.dim(), group)
+
+
+class _ReduceScatterGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g.contiguous(), ctx.dim, ctx.group), None, \
+            None
+
+
+def reduce_scatter_grad(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`reduce_scatter` along ``dim`` that autograd differentiates,
+    out of a product split over ``group`` into a tensor held in blocks
+    (the sequence-parallel residual stream): every rank's partial ``t``
+    reaches every block, so its gradient is every rank's block of the
+    result's gradient, gathered (one :func:`all_gather_rows`)."""
+    return _ReduceScatterGrad.apply(t, dim % t.dim(), group)
 
 
 class _AllGatherWhole(torch.autograd.Function):

@@ -19,23 +19,31 @@ no compiled program, so each cell is priced from what the port would do:
   specs of ``launch.sharding`` on an axis view of the mesh;
 * ``model_flops``: 6 (train) or 2 times ``active_params`` times tokens,
   as the reference computes it;
-* the collectives: the train step's own plan (``MeshStep.plan``, the list
-  that tests hold the step's ``dist.calls`` to), or for a serving cell the
-  gathers of the parameters (the port serves on one device today), priced
-  per chip by the ring model;
+* the collectives: the step's own plan, the list that tests hold its
+  ``dist.calls`` to: ``MeshStep.plan`` for a train cell, ``MeshServe.plan``
+  for a prefill or decode cell of the transformer families (a decode cell
+  reading a cache filled to ``seq_len - 1``), priced per chip by the ring
+  model. zamba2 and xLSTM do not serve on a mesh yet (ROADMAP item 14e):
+  their serving cells keep the price of one gather of every whole
+  parameter a step;
 * FLOPs, on the single-pod mesh, by the reference's scheme: models of one
   and two repeat units (and the hybrid's tail), differenced and
   extrapolated to full depth, times ``accum``. Each is a forward (and for
   a train cell a backward, through remat as configured) at the cell's
   full width, full sequence and one rank's microbatch, on ``meta``
   tensors under ``torch.utils.flop_counter.FlopCounterMode``, so it also
-  proves that every cell's shapes flow through the step. A train cell
-  under tp runs with this rank's 'model' blocks (``MeshStep.local_shapes``)
-  inside ``common.model_parallel`` with no process group, so it counts a
-  rank's own split products and its collectives only give shapes (the
-  plan prices them). The count is of matrix products (what
-  ``FlopCounterMode`` counts); on meta the attention takes its plain
-  path.
+  proves that every cell's shapes flow through the step. A train cell,
+  and a serving cell of the transformer families, under tp runs with this
+  rank's 'model' blocks (``local_shapes``; a decode cell with this rank's
+  block of the cache) inside ``common.model_parallel`` with no process
+  group, so it counts a rank's own split products and its collectives
+  only give shapes (the plan prices them). The count is of matrix
+  products (what ``FlopCounterMode`` counts); on meta the attention takes
+  its plain path.
+
+``overrides`` (``run_cell``'s, applied to the config as the reference's
+``lower_cell`` applies its own) price a variant of a cell, e.g.
+``{"seq_parallel": True}``; there is no command-line flag for them.
 
 The three terms use the H100 peaks of ``launch.roofline`` (bf16 tensor
 cores, HBM3, NVLink). The memory term is a lower bound: the arguments read
@@ -164,14 +172,23 @@ def model_flops(cfg, shape) -> float:
         * tokens
 
 
+def _serves_on_mesh(cfg) -> bool:
+    return cfg.family in train_lib._TRANSFORMER
+
+
 def collective_plan(cfg, shape, mesh, accum: int) -> list:
-    """The collectives of one step of the cell: the train step's plan, or
-    for a serving cell one all-gather of each split dim of each parameter
-    (``gather_params_once``'s gathers)."""
+    """The collectives of one step of the cell: the train step's plan, the
+    serving step's (decode from a cache filled to ``seq_len - 1``), or for
+    a serving cell of a family that does not serve on a mesh (ROADMAP item
+    14e) one all-gather of each split dim of each whole parameter."""
+    batch = configs.input_specs(cfg, shape)
     if shape.kind == "train":
         step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh,
                                   accum_steps=accum)
-        return step.plan(configs.input_specs(cfg, shape))
+        return step.plan(batch)
+    if _serves_on_mesh(cfg):
+        return train_lib.MeshServe(cfg, mesh, shape.kind).plan(
+            batch, pos=shape.seq_len - 1 if shape.kind == "decode" else 0)
     return train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh).gather_plan(
         whole=True)
 
@@ -194,19 +211,29 @@ def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
     """FLOPs of one rank's pass over ``rows`` rows on meta tensors: the
     loss's forward and backward (train), the prefill step, or one decode
     step against a cache filled to ``seq_len - 1``. Given the ``mesh``, a
-    train cell's pass takes the sharded step's 'model' blocks."""
+    train cell's pass, and a serving cell's of the transformer families,
+    takes the sharded step's 'model' blocks (and a decode cell this rank's
+    block of the cache)."""
     model = build(cfg)
     params = model.init(cfg, common.MetaDraw())
     sub = dataclasses.replace(shape, global_batch=rows)
     batch = configs.input_specs(cfg, sub)
     ctx = contextlib.nullcontext()
-    if shape.kind == "train" and mesh is not None:
+    step = None
+    if mesh is not None and shape.kind == "train":
         step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh)
-        if step.tp:
-            params = adamw.tree_like(params, [
-                torch.empty(s, dtype=x.dtype, device="meta")
-                for s, x in zip(step.local_shapes(), adamw.leaves(params))])
-            ctx = common.model_parallel(None, step.n_model, 0, step.roles)
+        sp = step._seq(shape.seq_len, step.layout(shape.global_batch)[1])
+    elif mesh is not None and _serves_on_mesh(cfg):
+        step = train_lib.MeshServe(cfg, mesh, shape.kind)
+        sp = step._seq(batch[next(iter(batch))].shape[1],
+                       step.row_axes(shape.global_batch))
+    if step is not None and step.tp:
+        params = adamw.tree_like(params, [
+            torch.empty(s, dtype=x.dtype, device="meta")
+            for s, x in zip(step.local_shapes(), adamw.leaves(params))])
+        ctx = common.model_parallel(None, step.n_model, 0,
+                                    step.seq_roles if sp else step.roles,
+                                    seq=sp)
     with ctx, FlopCounterMode(display=False) as fc:
         if shape.kind == "train":
             flat = [w.requires_grad_() for w in adamw.leaves(params)]
@@ -217,7 +244,9 @@ def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
             with torch.no_grad():
                 train_lib.make_prefill_step(cfg)(params, batch)
         else:
-            cache = model.init_cache(cfg, rows, shape.seq_len, device="meta")
+            cache = model.init_cache(cfg, rows, shape.seq_len, device="meta") \
+                if step is None else step.init_cache(
+                    shape.global_batch, shape.seq_len, device="meta")
             cache["pos"] = shape.seq_len - 1
             with torch.no_grad():
                 train_lib.make_serve_step(cfg)(params, cache, batch)
@@ -225,7 +254,7 @@ def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
 
 
 def flops_extrapolated(arch: str, shape_name: str, mesh, accum: int,
-                       rows: int) -> float:
+                       rows: int, overrides: "dict | None" = None) -> float:
     """Global FLOPs of the cell's step: 1-unit and 2-unit models
     differenced and extrapolated to full depth (plus the hybrid's tail),
     exact by linearity because repeat units are identical; times the
@@ -243,7 +272,8 @@ def flops_extrapolated(arch: str, shape_name: str, mesh, accum: int,
     scale = shape.seq_len / seq
 
     def measure(n_layers):
-        cfg, sh = cell_config(arch, shape_name, {"n_layers": n_layers})
+        cfg, sh = cell_config(arch, shape_name,
+                              dict(overrides or {}, n_layers=n_layers))
         return meta_flops(cfg, dataclasses.replace(sh, seq_len=seq), rows,
                           mesh)
 
@@ -255,7 +285,8 @@ def flops_extrapolated(arch: str, shape_name: str, mesh, accum: int,
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             verbose: bool = True, cost_tier: bool = True) -> dict:
+             verbose: bool = True, cost_tier: bool = True,
+             overrides: "dict | None" = None) -> dict:
     mesh = production_axes(multi_pod=multi_pod)
     name = "2x16x16" if multi_pod else "16x16"
     if verbose:
@@ -263,7 +294,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec = {"arch": arch, "shape": shape_name, "mesh": name,
            "source": "shapes"}
     try:
-        cfg, shape = cell_config(arch, shape_name)
+        cfg, shape = cell_config(arch, shape_name, overrides)
     except SkipCell as e:
         if verbose:
             print(f"  SKIP: {e}")
@@ -295,7 +326,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return rec
     t0 = time.perf_counter()
     rows = local_rows(cfg, shape, mesh, accum)
-    flops_g = flops_extrapolated(arch, shape_name, mesh, accum, rows)
+    flops_g = flops_extrapolated(arch, shape_name, mesh, accum, rows,
+                                 overrides)
     # the state is read once, and a train step writes params and moments
     written = args["params"] + args.get("opt", 0) if shape.kind == "train" \
         else args.get("cache", 0)

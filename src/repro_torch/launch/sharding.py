@@ -348,9 +348,11 @@ def gather(b: torch.Tensor, spec: Spec, mesh,
     split dim, over the group of its axes. A bit copy. A dim split over an
     axis of ``keep`` stays this rank's block (``keep=('model',)``: the
     block a tensor-parallel product takes, :func:`strip_fsdp`'s layout
-    reached by gathering)."""
+    reached by gathering); a dim "split" over axes of size 1 is whole
+    already, and makes no collective."""
+    sizes = _sizes(mesh)
     for i, axs in sharded_dims(spec):
-        if set(axs) & set(keep):
+        if set(axs) & set(keep) or math.prod(sizes[a] for a in axs) == 1:
             continue
         if mesh.ordered(axs) != axs:
             raise ValueError(f"{spec}: axes {axs} are not in the mesh's "

@@ -1,9 +1,10 @@
 """Step builders (twin of ``repro.launch.train_lib``): the loss, the
 train step with gradient accumulation (on one device or on a mesh), the
 specs of a sharded state (``shardings_for``, ``serve_shardings``), the
-prefill step and the greedy decode step. PyTorch runs eagerly, so each
-builder returns a plain function (the reference returns what it
-jit-compiles).
+prefill step and the greedy decode step (on one device, or for the
+transformer families on a mesh: :class:`MeshServe`). PyTorch runs
+eagerly, so each builder returns a plain function or callable (the
+reference returns what it jit-compiles).
 
 On a mesh (``launch.mesh.make_mesh``, one process a device) the step is
 explicit where the reference's is one GSPMD program:
@@ -64,6 +65,15 @@ gathered whole over 'model', as is everything at a 'model' of size 1 and
 under the fsdp layout (where 'model' joins the batch axes).
 :meth:`MeshStep.plan` lists every collective the step makes, with its
 group and bytes; ``launch.dryrun`` prices the same plan.
+
+With ``cfg.seq_parallel`` (the reference's ``constrain_hidden``: 'model'
+in the mesh, L a multiple of its size and more than 1) a transformer's
+residual stream between its products is this rank's block of L: each
+split product's input is all-gathered over L and its output
+reduce-scattered (all-reduced without), the norms run on the block and
+their gradients are summed over 'model'; the plan lists these (``sp
+...``). :class:`MeshServe` is the serving step on the same blocks,
+forward only.
 """
 from __future__ import annotations
 
@@ -192,40 +202,27 @@ _SLSTM = ({"slstm.wx": "heads", "slstm.r": "heads"},
           ("slstm.bias", "slstm.ln_h"), {})
 
 
-class MeshStep:
-    """The train step on a live mesh (see the module docstring): called as
-    ``step(params, opt_state, batch)`` with this rank's blocks of params
-    and moments (``shardings_for``'s specs) and the global batch; it
-    returns ``(params, opt_state, metrics)``, plus the residuals of the
-    compressed pod exchange as a fourth value when ``grad_compress`` is
-    set and the mesh has a 'pod' axis (pass them back in as
-    ``residuals``).
+# the families whose forward has the reference's constrain_hidden (where
+# ``seq_parallel`` acts) and whose serving step runs on a mesh
+_TRANSFORMER = ("dense", "moe", "vlm", "audio")
+# the leaves a transformer layer uses in part under seq_parallel (the norms
+# run on this rank's block of L): their gradients are summed over 'model'
+_SEQ_PART = ("ln1", "ln2", "ln_f")
 
-    The pod path keeps the reference's per-pod semantics (its step vmaps
-    over 'pod'): each pod's loss, aux term and gradient are its own
-    (global over its other batch axes); the codec acts on each pod's fp32
-    gradient plus its residual; the gradient is the mean over pods of the
-    decoded values, which travel compressed (an all-gather of int8 codes
-    and their scales, or of bf16 values); the loss is the mean of the
-    pods'. A rank's residual is its block of its pod's row. With
-    ``accum_steps`` > 1 each microbatch starts from a zero residual and
-    the residuals come back as passed in, as there."""
 
-    def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
-                 grad_compress: "str | None" = None, accum_steps: int = 1,
+class _MeshModel:
+    """What the train and serving steps on a mesh share: the parameter
+    tree's shapes and ``cfg.layout``'s specs, each leaf's unit of the
+    per-layer gather, and the 'model' roles (``roles``, ``split``,
+    ``summed``; under ``seq_parallel`` ``seq_roles`` and ``seq_summed``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh,
                  gather_params_once: bool = False):
-        if grad_compress not in _CODECS:
-            raise ValueError(f"grad_compress must be one of {_CODECS}, got "
-                             f"{grad_compress!r}")
-        self.cfg, self.opt_cfg, self.mesh = cfg, opt_cfg, mesh
-        self.accum, self.once = accum_steps, gather_params_once
-        self.use_pod = bool(grad_compress) and "pod" in mesh.axis_names
-        self.codec = grad_compress if self.use_pod else None
+        self.cfg, self.mesh, self.once = cfg, mesh, gather_params_once
         self.model = build(cfg)
         self.tree = self.model.init(cfg, common.MetaDraw())
         self.shapes = adamw.leaves(self.tree)
         self.specs = shd.leaves(shd.param_specs(self.tree, mesh, cfg.layout))
-        self.in_pod = tuple(a for a in mesh.axis_names if a != "pod")
         paths = shd.leaf_paths(self.tree)
         self.index = {p: j for j, p in enumerate(paths)}
         self.units = []
@@ -256,6 +253,12 @@ class MeshStep:
         self.split = [self.roles.get(k) not in (None, "part") for k in keys]
         self.summed = [self.roles.get(k) == "part" for k in keys]
         self.tp = bool(self.roles)
+        # under seq_parallel the norms, and an embedding gathered whole, run
+        # on this rank's block of L: used in part
+        part = list(_SEQ_PART) + (["embed"] if "embed" in keys
+                                  and "embed" not in self.roles else [])
+        self.seq_roles = dict(self.roles, **{k: "part" for k in part})
+        self.seq_summed = [self.seq_roles.get(k) == "part" for k in keys]
 
     def _key(self, path: str) -> str:
         """A leaf's key in :attr:`roles`: its name, scoped by its stack
@@ -264,6 +267,40 @@ class MeshStep:
             path.split(".")[0])
         name = path.rsplit(".", 1)[-1]
         return f"{scope}.{name}" if scope else name
+
+    def _seq(self, seq: int, split: tuple) -> bool:
+        """Whether ``cfg.seq_parallel`` puts L over 'model' for sequences of
+        ``seq`` positions whose rows split over ``split``: the reference's
+        ``constrain_hidden`` condition ('model' in the mesh, ``seq`` a
+        multiple of its size and more than 1), in the transformer families
+        (the others have no such constraint). Under the fsdp layout rows
+        that split over the batch axes split over 'model' too, and the
+        reference's constraint then names 'model' twice, which JAX refuses
+        (``DuplicateSpecError``, on a 4-device host mesh): so does this.
+        Where the rows do not split, or 'model' has size 1, it places
+        nothing and the function is the same: the port computes as without
+        it. Under tp with 'model' > 1 the layer's attention and FFN must be
+        split over 'model' (their products join the L blocks)."""
+        cfg = self.cfg
+        if not (cfg.seq_parallel and cfg.family in _TRANSFORMER
+                and "model" in self.mesh.sizes and seq % self.n_model == 0
+                and seq > 1):
+            return False
+        if "model" in split:
+            raise ValueError(
+                f"seq_parallel with the batch split over {split}: the "
+                f"{cfg.layout} layout's batch axes hold 'model', and the "
+                f"residual stream's constraint would name 'model' twice "
+                f"(the reference raises DuplicateSpecError)")
+        if not self.tp:
+            return False
+        if "wo" not in self.roles or not ({"w_gate", "we_gate"}
+                                          & set(self.roles)):
+            raise ValueError(
+                f"seq_parallel on {cfg.name}: its attention or FFN is not "
+                f"split over 'model' (split: {sorted(self.roles)}), so no "
+                f"product joins the L blocks")
+        return True
 
     def _split_roles(self, paths: list) -> dict:
         """The leaves (by key, with the role of their split dim) whose
@@ -318,6 +355,66 @@ class MeshStep:
             out.append(tuple(shape))
         return out
 
+    def gather_plan(self, calls: int = 1, whole: bool = False,
+                    per_layer: bool = False, remat: bool = True) -> list:
+        """The plan's all-gathers of the parameters, ``calls`` times: one a
+        split dim of each leaf, of the block gathered so far; a split
+        leaf's 'model' dim stays its block unless ``whole`` (the gathers
+        that price the recurrent families' serving cells). ``per_layer``:
+        of each unit (a layer of a stack, whose stacked dims are not split;
+        a top-level leaf), every unit once a forward, and a unit under
+        remat again in its recompute (``remat``: a pass that records
+        gradients; serving runs none)."""
+        sizes, out = self.mesh.sizes, []
+        for x, spec, split, unit in zip(self.shapes, self.specs, self.split,
+                                        self.units):
+            n = calls
+            if per_layer:
+                n = calls * unit.count * (unit.passes if remat else 1)
+                spec, x = unit.spec, unit.meta
+            cur = list(shd.block_shape(spec, x.shape, self.mesh))
+            for i, axs in shd.sharded_dims(spec):
+                g = math.prod(sizes[a] for a in axs)
+                if split and not whole and "model" in axs or g == 1:
+                    continue
+                out.append(dict(op="all_gather", axes=axs, group=g,
+                                bytes=_nbytes(cur, x.dtype), calls=n,
+                                what="params"))
+                cur[i] *= g
+        return out
+
+
+class MeshStep(_MeshModel):
+    """The train step on a live mesh (see the module docstring): called as
+    ``step(params, opt_state, batch)`` with this rank's blocks of params
+    and moments (``shardings_for``'s specs) and the global batch; it
+    returns ``(params, opt_state, metrics)``, plus the residuals of the
+    compressed pod exchange as a fourth value when ``grad_compress`` is
+    set and the mesh has a 'pod' axis (pass them back in as
+    ``residuals``).
+
+    The pod path keeps the reference's per-pod semantics (its step vmaps
+    over 'pod'): each pod's loss, aux term and gradient are its own
+    (global over its other batch axes); the codec acts on each pod's fp32
+    gradient plus its residual; the gradient is the mean over pods of the
+    decoded values, which travel compressed (an all-gather of int8 codes
+    and their scales, or of bf16 values); the loss is the mean of the
+    pods'. A rank's residual is its block of its pod's row. With
+    ``accum_steps`` > 1 each microbatch starts from a zero residual and
+    the residuals come back as passed in, as there."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
+                 grad_compress: "str | None" = None, accum_steps: int = 1,
+                 gather_params_once: bool = False):
+        if grad_compress not in _CODECS:
+            raise ValueError(f"grad_compress must be one of {_CODECS}, got "
+                             f"{grad_compress!r}")
+        super().__init__(cfg, mesh, gather_params_once)
+        self.opt_cfg, self.accum = opt_cfg, accum_steps
+        self.use_pod = bool(grad_compress) and "pod" in mesh.axis_names
+        self.codec = grad_compress if self.use_pod else None
+        self.in_pod = tuple(a for a in mesh.axis_names if a != "pod")
+
     # -------------------------------------------------------- the layout
     def layout(self, rows: int) -> tuple:
         """(rows of a microbatch, the axes its rows split over, the axes its
@@ -356,7 +453,8 @@ class MeshStep:
                 for b, s, split in zip(adamw.leaves(params), self.specs,
                                        self.split)]
 
-    def _fetcher(self, token: torch.Tensor, bufs: list, red: tuple):
+    def _fetcher(self, token: torch.Tensor, bufs: list, red: tuple,
+                 sp: bool):
         """``common.fsdp_blocks``' fetch: a unit's blocks -> its weights,
         each through ``dist.gather_block``, whose backward puts the unit's
         reduced fp32 gradient in ``bufs`` (this rank's blocks, made at the
@@ -388,15 +486,17 @@ class MeshStep:
                     b, lambda x, u=u, keep=keep: shd.gather(
                         x, u.spec, self.mesh, keep),
                     lambda g, j=j, u=u: self._reduce(
-                        g, u.meta, u.spec, self._red(red, j), self.split[j]),
+                        g, u.meta, u.spec, self._red(red, j, sp),
+                        self.split[j]),
                     sink, token)
             return out
         return fetch
 
-    def _red(self, red: tuple, j: int) -> tuple:
+    def _red(self, red: tuple, j: int, sp: bool = False) -> tuple:
         """The axes leaf ``j``'s gradients sum over: the batch axes
-        ``red``, and 'model' for a leaf used in part (``summed``)."""
-        if not self.summed[j]:
+        ``red``, and 'model' for a leaf used in part (``summed``; under
+        seq_parallel, ``sp``, ``seq_summed``)."""
+        if not (self.seq_summed if sp else self.summed)[j]:
             return red
         return self.mesh.ordered(red + ("model",))
 
@@ -427,15 +527,17 @@ class MeshStep:
         if local or g.dtype != torch.float32 or not moved.is_contiguous():
             g = torch.empty(moved.shape, dtype=torch.float32,
                             device=g.device).copy_(moved).movedim(0, lead)
+        sizes = self.mesh.sizes
         for i, axs in scatter:
-            g = dist.reduce_scatter(g, i, self.mesh.group(axs))
+            if math.prod(sizes[a] for a in axs) > 1:
+                g = dist.reduce_scatter(g, i, self.mesh.group(axs))
         rest = tuple(a for a in red if a not in shd.spec_axes(spec))
-        if rest:
+        if math.prod(sizes[a] for a in rest) > 1:
             g = dist.all_reduce(g, "sum", self.mesh.group(rest))
-        return g
+        return g.contiguous()
 
-    def _reduce_all(self, grads: list, red: tuple) -> list:
-        return [self._reduce(g, x, s, self._red(red, j), k)
+    def _reduce_all(self, grads: list, red: tuple, sp: bool) -> list:
+        return [self._reduce(g, x, s, self._red(red, j, sp), k)
                 for j, (g, x, s, k) in enumerate(
                     zip(grads, self.shapes, self.specs, self.split))]
 
@@ -447,14 +549,15 @@ class MeshStep:
                    if a not in named)
 
     def _grads(self, params: dict, full: "list | None", mb: dict,
-               count: torch.Tensor, red: tuple):
+               count: torch.Tensor, red: tuple, sp: bool):
         """(loss, ce, aux, grads) of this rank's rows ``mb``: its share of
         the microbatch's loss (the whole count divides it; the aux term
         once over the ``red`` ranks), the aux term (the batch's), and the
         gradients: of the gathered leaves ``full`` (whole, or 'model'
         blocks), or, without them, this rank's fp32 blocks of the sums
         over ``red``, which the model's per-layer gathers of ``params``
-        (this rank's blocks) reduce in the backward."""
+        (this rank's blocks) reduce in the backward. ``sp``: under
+        seq_parallel."""
         cfg, n_red = self.cfg, math.prod(self.mesh.sizes[a] for a in red)
         with contextlib.ExitStack() as ctx:
             if red:
@@ -463,7 +566,8 @@ class MeshStep:
             if self.tp:
                 ctx.enter_context(common.model_parallel(
                     self.mesh.group(("model",)), self.n_model,
-                    self.mesh.coord["model"], self.roles))
+                    self.mesh.coord["model"],
+                    self.seq_roles if sp else self.roles, seq=sp))
             if full is not None:
                 flat = [w.detach().requires_grad_() for w in full]
                 tree = adamw.tree_like(self.tree, flat)
@@ -473,7 +577,7 @@ class MeshStep:
                                     requires_grad=True)]
                 bufs = [None] * len(self.shapes)
                 ctx.enter_context(common.fsdp_blocks(
-                    self._fetcher(flat[0], bufs, red)))
+                    self._fetcher(flat[0], bufs, red, sp)))
                 tree = params
             logits, aux = self.model.forward(tree, cfg, mb)
             loss, metrics = common.cross_entropy(logits, mb["targets"],
@@ -530,7 +634,9 @@ class MeshStep:
     def __call__(self, params: dict, opt_state: dict, batch: dict,
                  residuals: "dict | None" = None) -> tuple:
         mesh, cfg, A = self.mesh, self.cfg, self.accum
-        per, split, red = self.layout(next(iter(batch.values())).shape[0])
+        first = next(iter(batch.values()))
+        per, split, red = self.layout(first.shape[0])
+        sp = self._seq(first.shape[1], split)
         micro = [{k: x[self._rows(i, per, split)] for k, x in batch.items()}
                  for i in range(A)]
         counts = torch.stack([(mb["targets"] >= 0).float().sum()
@@ -543,13 +649,13 @@ class MeshStep:
         acc, vec, new_res = None, [], None
         for i, mb in enumerate(micro):
             loss, ce, aux, grads = self._grads(params, full, mb, counts[i],
-                                               red)
+                                               red, sp)
             n_red = math.prod(mesh.sizes[a] for a in red)
             vec.append(torch.stack([loss, ce, aux.float() / n_red]))
             if self.once:
                 grads = [g.float() for g in grads]
             if self.once and self.use_pod:
-                grads = self._reduce_all(grads, red)
+                grads = self._reduce_all(grads, red, sp)
             if self.use_pod:
                 grads, new_res = self._pod_codec(grads, res_in)
             if A == 1:
@@ -564,7 +670,7 @@ class MeshStep:
         if A > 1:
             acc = [g.div_(A) for g in acc]
         if self.once and not self.use_pod:
-            acc = self._reduce_all(acc, red)
+            acc = self._reduce_all(acc, red, sp)
         vec = torch.stack(vec)
         if split:
             vec = dist.all_reduce(vec, "sum", self.mesh.group(split))
@@ -605,8 +711,9 @@ class MeshStep:
         (an axis view will do)."""
         mesh, cfg, A = self.mesh, self.cfg, self.accum
         sizes = mesh.sizes
-        per, split, red = self.layout(
-            tuple(next(iter(batch_shapes.values())).shape)[0])
+        rows, seq = tuple(next(iter(batch_shapes.values())).shape)[:2]
+        per, split, red = self.layout(rows)
+        sp = self._seq(seq, split)
         out = []
 
         def add(op, axes, nbytes, calls, what):
@@ -621,9 +728,8 @@ class MeshStep:
         out += self.gather_plan(1) if self.once \
             else self.gather_plan(A, per_layer=True)
         if self.tp:
-            seq = tuple(next(iter(batch_shapes.values())).shape)[1]
-            rows = per // math.prod(sizes[a] for a in split)
-            for op, nbytes, calls, what in self._tp_plan(rows, seq):
+            mine = per // math.prod(sizes[a] for a in split)
+            for op, nbytes, calls, what in self._tp_plan(mine, seq, sp):
                 add(op, ("model",), nbytes, A * calls, what)
         if red and cfg.is_moe:
             per_layer = 3 if cfg.remat == "full" else 2
@@ -635,18 +741,19 @@ class MeshStep:
                 n_reduce = A if self.use_pod else 1
             else:                        # a unit's, as the backward leaves it
                 n_reduce, spec, x = A * unit.count, unit.spec, unit.meta
-            red_j = self._red(red, j)
+            red_j = self._red(red, j, sp)
             cur = list(x.shape)
             for i, axs in shd.sharded_dims(spec):
                 if not set(axs) & set(red_j):
                     cur[i] //= math.prod(sizes[a] for a in axs)
             for i, axs in shd.sharded_dims(spec):
-                if set(axs) <= set(red_j):
+                g = math.prod(sizes[a] for a in axs)
+                if set(axs) <= set(red_j) and g > 1:
                     add("reduce_scatter", axs, _nbytes(cur, torch.float32),
                         n_reduce, "grads")
-                    cur[i] //= math.prod(sizes[a] for a in axs)
+                    cur[i] //= g
             rest = tuple(a for a in red_j if a not in shd.spec_axes(spec))
-            if rest:
+            if math.prod(sizes[a] for a in rest) > 1:
                 add("all_reduce", rest, _nbytes(cur, torch.float32),
                     n_reduce, "grads")
         if self.use_pod:
@@ -667,13 +774,16 @@ class MeshStep:
         return out
 
 
-    def _tp_plan(self, rows: int, seq: int) -> list:
+    def _tp_plan(self, rows: int, seq: int, sp: bool = False) -> list:
         """(helper, bytes, calls, what) of the 'model' collectives of one
         microbatch of ``rows`` x ``seq`` on this rank, in the forward, the
         backward and the remat recompute (which repeats a block's forward
         ones, but not the reduce of a transformer FFN, a Mamba2 layer or
         an mLSTM block, which comes after the block). zamba2's shared
-        block runs once a group, outside remat."""
+        block runs once a group, outside remat. Under seq_parallel
+        (``sp``) a split product's input is all-gathered over L (its
+        backward reduce-scatters) and its output reduce-scattered over L
+        (its backward all-gathers), where they are all-reduced without."""
         from repro_torch.models import xlstm, zamba
         from repro_torch.models.transformer import dtype_of
         cfg, m, roles = self.cfg, self.n_model, self.roles
@@ -684,11 +794,17 @@ class MeshStep:
         L, L_twice = cfg.n_layers, twice
         if cfg.family == "hybrid":
             L, L_twice = zamba._group_struct(cfg)[0], 1
+        blk = act // m
         out = []
         if "embed" in roles:
-            out.append(("all_reduce", act, 1, "tp embedding"))
+            out += [("reduce_scatter", act, 1, "sp embedding"),
+                    ("all_gather", blk, 1, "sp embedding grads")] if sp \
+                else [("all_reduce", act, 1, "tp embedding")]
         if "wo" in roles:
-            out.append(("all_reduce", act, L, "tp attention input grads"))
+            out += [("all_gather", blk, L * L_twice, "sp attention input"),
+                    ("reduce_scatter", act, L, "sp attention input grads")] \
+                if sp else [("all_reduce", act, L,
+                             "tp attention input grads")]
             for w, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                              ("wv", cfg.n_kv_heads)):
                 if roles[w] == "head_dim":
@@ -697,8 +813,15 @@ class MeshStep:
                                 f"tp {w[1]} head_dim"))
                     out.append(("reduce_scatter", whole, L,
                                 f"tp {w[1]} head_dim grads"))
-            out.append(("all_reduce", act, L * L_twice, "tp attention"))
-        if "w_gate" in roles or "we_gate" in roles:
+            out += [("reduce_scatter", act, L * L_twice, "sp attention"),
+                    ("all_gather", blk, L, "sp attention grads")] if sp \
+                else [("all_reduce", act, L * L_twice, "tp attention")]
+        if sp and ("w_gate" in roles or "we_gate" in roles):
+            out += [("all_gather", blk, L * L_twice, "sp ffn input"),
+                    ("reduce_scatter", act, L, "sp ffn input grads"),
+                    ("reduce_scatter", act, L, "sp ffn"),
+                    ("all_gather", blk, L, "sp ffn grads")]
+        elif "w_gate" in roles or "we_gate" in roles:
             out.append(("all_reduce", act, L, "tp ffn input grads"))
             out.append(("all_reduce", act, L, "tp ffn"))
         if "we_gate" in roles:
@@ -733,36 +856,16 @@ class MeshStep:
         if "slstm.w_gate" in roles:
             out += [("all_reduce", act, n_s, "tp slstm ffn input grads"),
                     ("all_reduce", act, n_s, "tp slstm ffn")]
-        if "unembed" in roles:
+        if sp:                  # ln_f on the block, L gathered for unembed
+            out.append(("all_gather", blk, 1, "sp logits input"))
+            if "unembed" in roles:
+                out.append(("reduce_scatter", act, 1,
+                            "sp logits input grads"))
+        elif "unembed" in roles:
             out.append(("all_reduce", act, 1, "tp logits input grads"))
+        if "unembed" in roles:
             out.append(("all_reduce", tok * 4, 1, "tp ce max"))
             out.append(("all_reduce", 2 * tok * 4, 1, "tp ce sums"))
-        return out
-
-    def gather_plan(self, calls: int = 1, whole: bool = False,
-                    per_layer: bool = False) -> list:
-        """The plan's all-gathers of the parameters, ``calls`` times: one a
-        split dim of each leaf, of the block gathered so far; a split
-        leaf's 'model' dim stays its block unless ``whole`` (the serving
-        cells' gathers). ``per_layer``: of each unit (a layer of a stack,
-        whose stacked dims are not split; a top-level leaf), every unit
-        once a forward, and a unit under remat again in its recompute."""
-        sizes, out = self.mesh.sizes, []
-        for x, spec, split, unit in zip(self.shapes, self.specs, self.split,
-                                        self.units):
-            n = calls
-            if per_layer:
-                n = calls * unit.count * unit.passes
-                spec, x = unit.spec, unit.meta
-            cur = list(shd.block_shape(spec, x.shape, self.mesh))
-            for i, axs in shd.sharded_dims(spec):
-                if split and not whole and "model" in axs:
-                    continue
-                out.append(dict(op="all_gather", axes=axs,
-                                group=math.prod(sizes[a] for a in axs),
-                                bytes=_nbytes(cur, x.dtype), calls=n,
-                                what="params"))
-                cur[i] *= math.prod(sizes[a] for a in axs)
         return out
 
 
@@ -806,12 +909,15 @@ def shardings_for(cfg: ModelConfig, mesh, batch_shapes: dict,
 
 
 # ----------------------------------------------------------------- serve
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
     """Prefill: forward over the prompt; returns the last position's greedy
     next token (B,). Given an empty cache (``init_cache``), the same pass
     also fills it (the prompt's K / V; the recurrent families' end
     states), so decoding goes on from position L (the reference's step
-    leaves the cache to the caller)."""
+    leaves the cache to the caller). With a ``mesh`` it is a
+    :class:`MeshServe` over this rank's blocks."""
+    if mesh is not None:
+        return MeshServe(cfg, mesh, "prefill")
     model = build(cfg)
 
     def prefill_step(params: dict, batch: dict,
@@ -822,8 +928,11 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One greedy decode step against the cache: (next token (B,), cache)."""
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """One greedy decode step against the cache: (next token (B,), cache).
+    With a ``mesh`` it is a :class:`MeshServe` over this rank's blocks."""
+    if mesh is not None:
+        return MeshServe(cfg, mesh, "decode")
     model = build(cfg)
 
     def serve_step(params: dict, cache: dict, batch: dict) -> tuple:
@@ -831,6 +940,251 @@ def make_serve_step(cfg: ModelConfig):
         return torch.argmax(logits[:, -1, :], dim=-1), cache
 
     return serve_step
+
+
+class MeshServe(_MeshModel):
+    """Prefill (``kind`` 'prefill') or one greedy decode step ('decode') of
+    the transformer families on a live mesh, the program of the
+    reference's serving cells (its dry-run lowers them with the parameters
+    in their specs under ``cfg.layout``, the batch in its batch specs and
+    the cache in ``cache_specs``):
+
+    * the batch is the global batch; a rank reads its rows (split over the
+      batch axes where they divide it, ``batch_specs``' block, else all of
+      it) and returns their greedy tokens;
+    * the parameters are this rank's blocks (``shardings_for``'s specs): a
+      layer gathers its 'data' blocks as it runs and frees them after it
+      (``common.fsdp_blocks``, forward only), ``embed``, ``ln_f`` and
+      ``unembed`` at their use; under the tp layout the 'model' axis
+      splits as :class:`MeshStep`'s does (``roles``): attention by heads
+      (by head_dim where they do not divide), the FFN by its width, MoE by
+      experts under both dispatches, ``unembed`` by vocabulary. No rank
+      holds a whole stacked leaf;
+    * the cache is this rank's block under ``serve_shardings``' specs
+      (:meth:`init_cache`): its rows, and its kv heads or its slice of
+      head_dim; prefill writes it, decode reads and writes it in place
+      (from a head_dim slice the attention logits are partial sums, summed
+      over 'model' before the softmax);
+    * under a vocabulary split the greedy token is the (value, index)
+      maximum across 'model', the lowest index winning ties: the token of
+      the unsharded ``torch.argmax``;
+    * prefill under ``cfg.seq_parallel`` puts L over 'model' between the
+      products, as :class:`MeshStep` does.
+
+    Called as the unsharded steps are: ``serve(params, batch, cache=None)
+    -> tokens`` (prefill), ``serve(params, cache, batch) -> (tokens,
+    cache)`` (decode); :meth:`logits` gives this rank's logits.
+    :meth:`plan` lists every collective of one call, in
+    :meth:`MeshStep.plan`'s format. zamba2 and xLSTM raise
+    ``NotImplementedError``: ROADMAP item 14e."""
+
+    def __init__(self, cfg: ModelConfig, mesh, kind: str):
+        if kind not in ("prefill", "decode"):
+            raise ValueError(f"kind must be 'prefill' or 'decode', got "
+                             f"{kind!r}")
+        if cfg.family not in _TRANSFORMER:
+            raise NotImplementedError(
+                f"{cfg.name}: serving the {cfg.family} family on a mesh is "
+                f"ROADMAP item 14e (its decode state needs head splits of "
+                f"its own); serve it on one device (no mesh)")
+        super().__init__(cfg, mesh)
+        self.kind = kind
+        self.bax = shd.batch_axes_for(mesh, cfg.layout)
+
+    # ------------------------------------------------------ rows and cache
+    def row_axes(self, n: int) -> tuple:
+        """The axes a global batch of ``n`` rows splits over: the batch
+        axes where they divide it, else none (every rank takes all)."""
+        nb = math.prod(self.mesh.sizes[a] for a in self.bax)
+        return self.bax if n % nb == 0 else ()
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        sizes, coord = self.mesh.sizes, self.mesh.coord
+        k, idx = 1, 0
+        for a in self.row_axes(n):
+            k, idx = k * sizes[a], idx * sizes[a] + coord[a]
+        return slice(idx * (n // k), (idx + 1) * (n // k))
+
+    def join_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """Every rank's rows of ``x`` (this rank's of a global batch of
+        ``n``: the tokens a call returns) joined in order: the global
+        batch's, which the next decode step takes."""
+        axes = self.row_axes(n)
+        if not axes:
+            return x
+        return dist.all_gather_rows(x.contiguous(), 0, self.mesh.group(axes))
+
+    def cache_blocks(self, batch: int, max_len: int) -> dict:
+        """{'k', 'v'}: (shape, dtype) of this rank's block of the cache of
+        a global batch of ``batch`` rows and ``max_len`` positions. The
+        cache's rows must split as the batch's do, and a cache split over
+        'model' needs the attention split over it too."""
+        specs, shapes = serve_shardings(self.cfg, self.mesh, batch, max_len)
+        spec = specs["k"]
+        if set(shd.entry_axes(spec[1])) != set(self.row_axes(batch)):
+            raise ValueError(
+                f"the cache's rows split over {shd.entry_axes(spec[1])} "
+                f"({spec}) and the batch's over {self.row_axes(batch)} "
+                f"(layout {self.cfg.layout}): a rank would not hold its "
+                f"rows' cache")
+        if "model" in shd.spec_axes(spec) and self.n_model > 1 \
+                and "wo" not in self.roles:
+            raise ValueError(
+                f"the cache splits over 'model' ({spec}) and the attention "
+                f"does not (split: {sorted(self.roles)})")
+        return {k: (shd.block_shape(specs[k], tuple(shapes[k].shape),
+                                    self.mesh), shapes[k].dtype)
+                for k in ("k", "v")}
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: "torch.device | str" = "cuda") -> dict:
+        """This rank's block of an empty cache (position 0): no rank makes
+        the whole cache."""
+        out = {k: torch.zeros(shape, dtype=dt, device=device)
+               for k, (shape, dt) in self.cache_blocks(batch,
+                                                       max_len).items()}
+        out["pos"] = 0
+        return out
+
+    def _fetch(self, tree: dict, path: str, idx: tuple) -> dict:
+        """``common.fsdp_blocks``' fetch: a unit's blocks gathered over
+        their batch axes (a split leaf keeps its 'model' block)."""
+        out = {}
+        for k, b in tree.items():
+            j = self.index[f"{path}.{k}" if path else k]
+            u = self.units[j]
+            if len(idx) != u.lead:
+                raise ValueError(f"{path}.{k}: a layer takes {u.lead} "
+                                 f"stack indices, got {idx}")
+            out[k] = shd.gather(b, u.spec, self.mesh,
+                                ("model",) if self.split[j] else ())
+        return out
+
+    # ----------------------------------------------------------- the step
+    def logits(self, params: dict, batch: dict,
+               cache: "dict | None" = None) -> tuple:
+        """(this rank's rows' logits, the cache): the last dim this rank's
+        block of the vocabulary where ``unembed`` is split over 'model'.
+        Prefill fills an empty ``cache`` (this rank's block); decode needs
+        one."""
+        n, seq = next(iter(batch.values())).shape[:2]
+        axes = self.row_axes(n)
+        mine = self.rows(n)
+        mb = {k: x[mine] for k, x in batch.items()}
+        if cache is not None:
+            want = self.cache_blocks(n, cache["k"].shape[2])
+            for k, (shape, _) in want.items():
+                if tuple(cache[k].shape) != tuple(shape):
+                    raise ValueError(f"cache[{k!r}] is {tuple(cache[k].shape)}"
+                                     f"; this rank's block is {shape}")
+        sp = self._seq(seq, axes)
+        with torch.no_grad(), contextlib.ExitStack() as ctx:
+            if self.tp:
+                ctx.enter_context(common.model_parallel(
+                    self.mesh.group(("model",)), self.n_model,
+                    self.mesh.coord["model"],
+                    self.seq_roles if sp else self.roles, seq=sp))
+            ctx.enter_context(common.fsdp_blocks(self._fetch))
+            if self.kind == "prefill":
+                logits, _ = self.model.forward(params, self.cfg, mb,
+                                               cache=cache)
+            else:
+                logits, cache = self.model.decode(params, self.cfg, cache,
+                                                  mb)
+        return logits, cache
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy tokens of this rank's rows: the last position's
+        argmax over the whole vocabulary, across 'model' where ``unembed``
+        is split (each rank's first maximum and its index, gathered; the
+        largest value wins, then the lowest index)."""
+        last = logits[:, -1, :]
+        if "unembed" not in self.roles:
+            return torch.argmax(last, dim=-1)
+        idx = torch.argmax(last, dim=-1)
+        val = torch.gather(last, -1, idx[:, None])[:, 0].float()
+        base = self.mesh.coord["model"] * last.shape[-1]
+        got = dist.all_gather(torch.stack([val, (idx + base).float()]),
+                              self.mesh.group(("model",)))   # (m, 2, B)
+        best = got[:, 0].amax(dim=0)
+        cand = torch.where(got[:, 0] == best, got[:, 1],
+                           torch.full_like(got[:, 1], float("inf")))
+        return cand.amin(dim=0).long()
+
+    def __call__(self, params: dict, a, b=None):
+        if self.kind == "prefill":
+            return self.greedy(self.logits(params, a, b)[0])
+        logits, cache = self.logits(params, b, a)
+        return self.greedy(logits), cache
+
+    # ----------------------------------------------------------- the plan
+    def plan(self, batch_shapes: dict, pos: int = 0) -> list:
+        """Every collective one call makes on this mesh, in
+        :meth:`MeshStep.plan`'s format, given the global batch's shapes
+        and, for decode, the cache position it reads (the logits summed
+        over a head_dim-split cache grow with it). Needs no process
+        group."""
+        sizes = self.mesh.sizes
+        n, seq = tuple(next(iter(batch_shapes.values())).shape)[:2]
+        axes = self.row_axes(n)
+        rows = n // math.prod(sizes[a] for a in axes)
+        out = self.gather_plan(1, per_layer=True, remat=False)
+        if self.tp:
+            part = self.kind == "decode" and "model" in shd.entry_axes(
+                serve_shardings(self.cfg, self.mesh, n, pos + 1)[0]["k"][-1])
+            for op, nbytes, calls, what in self._serve_tp_plan(
+                    rows, seq, self._seq(seq, axes), part, pos):
+                if calls:
+                    out.append(dict(op=op, axes=("model",),
+                                    group=self.n_model, bytes=int(nbytes),
+                                    calls=int(calls), what=what))
+        return out
+
+    def _serve_tp_plan(self, rows: int, seq: int, sp: bool, part: bool,
+                       pos: int) -> list:
+        """(helper, bytes, calls, what) of the 'model' collectives of one
+        call on ``rows`` x ``seq`` (forward only); ``part``: decode from a
+        head_dim slice of the cache, reading ``pos + 1`` rows."""
+        from repro_torch.models.transformer import dtype_of
+        cfg, m, roles = self.cfg, self.n_model, self.roles
+        e, L, H, hd = dtype_of(cfg).itemsize, cfg.n_layers, cfg.n_heads, \
+            cfg.hd
+        tok = rows * seq
+        act = tok * cfg.d_model * e
+        blk = act // m
+        out = []
+        if "embed" in roles:
+            out.append(("reduce_scatter", act, 1, "sp embedding") if sp
+                       else ("all_reduce", act, 1, "tp embedding"))
+        if "wo" in roles:
+            if sp:
+                out.append(("all_gather", blk, L, "sp attention input"))
+            for w, heads in (("wq", H), ("wk", cfg.n_kv_heads),
+                             ("wv", cfg.n_kv_heads)):
+                if roles[w] == "head_dim":
+                    out.append(("all_gather", tok * heads * hd * e // m, L,
+                                f"tp {w[1]} head_dim"))
+            if part:
+                if roles["wq"] == "heads":
+                    out.append(("all_gather", rows * H // m * hd * e, L,
+                                "tp decode q heads"))
+                out.append(("all_reduce", rows * H * (pos + 1) * 4, L,
+                            "tp decode logits"))
+                if roles["wo"] != "head_dim":
+                    out.append(("all_gather", rows * H * hd // m * e, L,
+                                "tp decode attention"))
+            out.append(("reduce_scatter", act, L, "sp attention") if sp
+                       else ("all_reduce", act, L, "tp attention"))
+        if "w_gate" in roles or "we_gate" in roles:
+            out += [("all_gather", blk, L, "sp ffn input"),
+                    ("reduce_scatter", act, L, "sp ffn")] if sp \
+                else [("all_reduce", act, L, "tp ffn")]
+        if sp:
+            out.append(("all_gather", blk, 1, "sp logits input"))
+        if "unembed" in roles:
+            out.append(("all_gather", 2 * rows * 4, 1, "tp greedy token"))
+        return out
 
 
 def serve_shardings(cfg: ModelConfig, mesh, batch: int,

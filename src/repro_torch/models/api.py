@@ -7,17 +7,19 @@ checkpoints each layer (each mLSTM / Mamba2 block) when autograd records
 the forward (``common.remat``), as ``jax.checkpoint`` does there; serving
 and ``"none"`` run plain. ``layout`` steers the port's sharding as it
 does the reference's: the specs of ``launch.sharding.param_specs``, the
-sharded step (``launch.train_lib.MeshStep``: 'tp' splits the 'model' axis
-as tensor and expert parallelism, 'fsdp' folds it into the batch axes)
-and the dry-run's cells (``launch.dryrun``). ``scan_layers`` and
-``seq_parallel``, which steer only XLA and GSPMD there, are kept and have
-no effect here: the port runs the layers in a Python loop, and no config
-of either package sets ``seq_parallel``. ``moe_impl`` picks the MoE
-dispatch, as there. ``use_flash`` and ``attn_block_q``, which choose the
-attention path there, are kept and have no effect either: prefill
-attention always goes through ``ops.flash_attention`` (the kernel on the
-card, its plain version on the CPU), as every kernel of the port is
-chosen by tensor device. ``build``
+sharded steps (``launch.train_lib.MeshStep`` and ``MeshServe``: 'tp'
+splits the 'model' axis as tensor and expert parallelism, 'fsdp' folds
+it into the batch axes) and the dry-run's cells (``launch.dryrun``).
+``seq_parallel`` puts L over 'model' in the transformer's residual
+stream on a mesh, where the reference's ``constrain_hidden`` does (the
+train step and the prefill under tp; no config of either package sets
+it). ``scan_layers``, which steers only XLA there, is kept and has no
+effect here: the port runs the layers in a Python loop. ``moe_impl``
+picks the MoE dispatch, as there. ``use_flash`` and ``attn_block_q``,
+which choose the attention path there, are kept and have no effect
+either: prefill attention always goes through ``ops.flash_attention``
+(the kernel on the card, its plain version on the CPU), as every kernel
+of the port is chosen by tensor device. ``build``
 accepts every family the reference builds: the transformer (dense / moe /
 vlm / audio), xLSTM (``ssm``) and Zamba2 (``hybrid``).
 """
@@ -71,10 +73,11 @@ class ModelConfig:
     attn_block_q: int = 512        # blockwise-attention q tile (jnp path;
                                    # no effect in the port)
     seq_parallel: bool = False     # Korthikanti-style L-sharded residual
-                                   # stream. MEASURED: ~5% win on prefill,
-                                   # 2.5x collective REGRESSION on train
-                                   # (constraint transposes in backward) —
-                                   # off by default; see §Perf iteration 2.
+                                   # stream between the transformer's
+                                   # products on a mesh (the reference
+                                   # measured ~5% on prefill, 2.5x the
+                                   # collectives on train) — off by
+                                   # default
     layout: str = "tp"             # 'tp': tensor/expert parallel over
                                    # 'model' (baseline); 'fsdp': fold the
                                    # model axis into data parallelism —

@@ -160,12 +160,13 @@ def batch_means(t: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------- the 'model' axis
-_MODEL_AXIS = None       # (process group or None, size, rank, roles)
-                         # inside model_parallel
+_MODEL_AXIS = None       # (process group or None, size, rank, roles,
+                         # seq) inside model_parallel
 
 
 @contextlib.contextmanager
-def model_parallel(group, size: int, rank: int, roles: dict):
+def model_parallel(group, size: int, rank: int, roles: dict,
+                   seq: bool = False):
     """Within: the model gets this rank's 'model' block of each leaf named
     in ``roles`` (leaf name, or ``scope.name`` where a family's name means
     two things -> the role of the dim split over the ``size`` ranks of
@@ -173,13 +174,15 @@ def model_parallel(group, size: int, rank: int, roles: dict):
     'experts', 'vocab', or 'columns' (a product whose blocks of columns
     do not fall on heads: it is gathered), or 'part' for a leaf it gets
     whole and uses in part), computes its block of each such product and
-    joins them with the collectives below. With ``group`` None the
-    collectives only give their results' shapes and communicate nothing
-    (the dry-run's meta pass). The backward (and a remat recompute) must
-    run inside too."""
+    joins them with the collectives below. With ``seq`` (the reference's
+    ``seq_parallel``) the transformer's residual stream between its
+    products is this rank's block of L (:func:`seq_in`, :func:`seq_out`).
+    With ``group`` None the collectives only give their results' shapes
+    and communicate nothing (the dry-run's meta pass). The backward (and a
+    remat recompute) must run inside too."""
     global _MODEL_AXIS
     old = _MODEL_AXIS
-    _MODEL_AXIS = (group, size, rank, dict(roles))
+    _MODEL_AXIS = (group, size, rank, dict(roles), seq)
     try:
         yield
     finally:
@@ -254,6 +257,68 @@ def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, model_rank() * n, n)
 
 
+def seq_parallel() -> bool:
+    """Whether the residual stream is this rank's block of L over 'model'
+    (inside :func:`model_parallel` with ``seq``)."""
+    return _MODEL_AXIS is not None and _MODEL_AXIS[4]
+
+
+def seq_block(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, L, ...), whole, into the residual stream: this rank's
+    block of L under :func:`seq_parallel`, else ``x``."""
+    return model_block(x, 1) if seq_parallel() else x
+
+
+def seq_in(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``, of the residual stream, into the product of leaf ``name``:
+    under :func:`seq_parallel` every rank's block of L, gathered (a split
+    product's backward reduce-scatters the ranks' partial gradients of
+    the whole; a whole product's, which every rank computes alike, takes
+    this rank's block); else :func:`to_model`."""
+    if not seq_parallel():
+        return to_model(x, name)
+    if split_role(name) is None:
+        return join_model(x, 1)
+    return gather_model(x, 1)
+
+
+def seq_out(y: torch.Tensor, name: str) -> torch.Tensor:
+    """Out of the product of leaf ``name``, split over 'model', into the
+    residual stream: under :func:`seq_parallel` this rank's block of L of
+    the sum of every rank's partial ``y`` (one reduce-scatter; the
+    backward all-gathers); else :func:`from_model`."""
+    if not seq_parallel():
+        return from_model(y, name)
+    from repro_torch.launch import dist
+    group = _MODEL_AXIS[0]
+    if group is None:
+        return model_block(y, 1)
+    return dist.reduce_scatter_grad(y, 1, group)
+
+
+class _OwnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[1] // _MODEL_AXIS[1]
+        keep = torch.zeros_like(g)
+        lo = model_rank() * n
+        keep[:, lo: lo + n] = g[:, lo: lo + n]
+        return keep
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, L, ...), gathered over L by :func:`seq_in`, into a
+    consumer that every rank computes alike (the MoE router): under
+    :func:`seq_parallel` the backward keeps this rank's block of L of the
+    gradient and zeroes the rest, so that the gather's reduce-scatter
+    counts the consumer's gradient once; else ``x``."""
+    return _OwnRows.apply(x) if seq_parallel() else x
+
+
 def rms_norm_model(x: torch.Tensor, weight: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """:func:`rms_norm` of whole rows from this rank's block ``x`` of
@@ -276,16 +341,17 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``; where ``table`` is this rank's block of the
     vocabulary rows over 'model', each rank looks up the ids in its rows,
     writes zero for the others, and the blocks are summed (exact: one term
-    of each sum is not zero)."""
-    if split_role("embed") is None:
-        return table[ids]
+    of each sum is not zero); under :func:`seq_parallel` each rank keeps
+    its block of L of the sum (a reduce-scatter), or of ``table[ids]``."""
+    if split_role("embed") in (None, "part"):
+        return seq_block(table[ids])
     n = table.shape[0]
     loc = ids - model_rank() * n
     inside = (loc >= 0) & (loc < n)
     rows = table[loc.clamp(0, n - 1)]
-    return from_model(torch.where(inside[..., None], rows,
-                                  torch.zeros((), dtype=rows.dtype,
-                                              device=rows.device)), "embed")
+    return seq_out(torch.where(inside[..., None], rows,
+                               torch.zeros((), dtype=rows.dtype,
+                                           device=rows.device)), "embed")
 
 
 def scan_chunk(chunk: int, L: int) -> int:

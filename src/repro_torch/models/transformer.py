@@ -18,7 +18,16 @@ head_dim), the FFN by its width, the experts, and the embedding and
 unembedding by vocabulary. Each split block ends in one reduce over
 'model'; with nothing split, each collective is the identity and the ops
 are those of the unsharded model. The FFN's reduce comes after the remat
-block, so a recompute does not repeat it.
+block, so a recompute does not repeat it. A decode step does the same,
+and a KV cache holds this rank's block of it (``launch.sharding``'s
+``cache_specs``: its kv heads, or its slice of head_dim, whose attention
+logits are partial sums over 'model', summed before the softmax).
+
+With ``seq_parallel`` in the context (the reference's ``constrain_hidden``
+with L over 'model') the residual stream between the products is this
+rank's block of L: the norms run on the block, a split product's input is
+gathered over L and its output reduce-scattered over L (``common.seq_in``
+/ ``seq_out``); the MoE router runs on the gathered whole, as unsharded.
 
 Inside ``common.fsdp_blocks`` (the sharded step, as the reference's GSPMD
 gathers FSDP blocks inside its layer scan) ``params`` hold this rank's
@@ -107,10 +116,12 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 # ------------------------------------------------------------------ layer
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     """q, k and v of x, RoPE on q and k. Inside ``common.model_parallel``
-    with attention split: this rank's query heads and the kv heads they
-    read; a leaf split by head_dim gives its head_dim slice, gathered over
-    'model' before RoPE (which pairs the two halves of head_dim)."""
-    x = common.to_model(x, "wq")
+    with attention split: this rank's query heads, and its kv heads, or
+    all of them where k and v are split by head_dim (:func:`_attn_kv`
+    picks the ones its query heads read); a leaf split by head_dim gives
+    its head_dim slice, gathered over 'model' before RoPE (which pairs the
+    two halves of head_dim)."""
+    x = common.seq_in(x, "wq")
     out = []
     for n in "qkv":
         t = torch.einsum("bld,dhk->blhk", x, p["w" + n])
@@ -120,12 +131,32 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
             t = common.gather_model(t, -1)
         out.append(t)
     q, kk, v = out
-    if common.split_role("wq") == "heads" and \
-            common.split_role("wk") == "head_dim":
-        kk, v = _kv_heads(cfg, kk, q.shape[2]), _kv_heads(cfg, v, q.shape[2])
     q = common.apply_rope(q, positions, cfg.rope_theta)
     kk = common.apply_rope(kk, positions, cfg.rope_theta)
     return q, kk, v
+
+
+def _attn_kv(cfg: ModelConfig, q: torch.Tensor, kk: torch.Tensor,
+             v: torch.Tensor) -> tuple:
+    """The k and v that q's heads attend: where this rank's query heads
+    are a block and k and v (split by head_dim, gathered) hold every kv
+    head, the heads of their GQA groups; else k and v."""
+    if common.split_role("wq") == "heads" and \
+            common.split_role("wk") == "head_dim":
+        return _kv_heads(cfg, kk, q.shape[2]), _kv_heads(cfg, v, q.shape[2])
+    return kk, v
+
+
+def _cache_part(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``t`` (B, L, kv heads, head_dim) as the cache
+    block ``c`` (B, S, Hkv or its block, head_dim or its slice) holds it:
+    where ``t`` has every kv head and ``c`` a block of them, or ``t`` the
+    whole head_dim and ``c`` a slice, this rank's over 'model' (the
+    blocks of ``launch.sharding.cache_specs``); else ``t``."""
+    for dim in (2, 3):
+        if t.shape[dim] != c.shape[dim]:
+            t = common.model_block(t, dim)
+    return t
 
 
 def _kv_heads(cfg: ModelConfig, t: torch.Tensor, h_loc: int) -> torch.Tensor:
@@ -186,13 +217,18 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
     them) the routing is the same on every rank, each rank runs its
     experts on all the tokens, and ``y`` is this rank's partial, which
     :func:`_ffn_reduce` sums; the gates and the dispatched tokens take
-    their gradients from every rank."""
+    their gradients from every rank. Under ``common.seq_parallel`` ``x``
+    is this rank's block of L: it is gathered first, and routed whole."""
+    sp = common.seq_parallel()
+    if sp:
+        x = common.seq_in(x, "we_gate")
     B, L, d = x.shape
-    gi, gv, pos, keep, onehot, cap, aux = _route(x, p, cfg)
+    gi, gv, pos, keep, onehot, cap, aux = _route(common.own_rows(x), p, cfg)
     E = p["we_gate"].shape[0]
     split = common.split_role("we_gate") is not None
     if split:
-        gv, x = common.to_model(gv, "we_gate"), common.to_model(x, "we_gate")
+        gv = common.to_model(gv, "we_gate")
+        x = x if sp else common.to_model(x, "we_gate")
         e0 = common.model_rank() * E
 
     if cfg.moe_impl == "einsum":
@@ -236,21 +272,21 @@ def _block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     layer). Attention split by head_dim attends with all heads and keeps
     this rank's head_dim slice for its rows of ``wo``. Given its ``unit``
     (path and layer index), ``p`` are the layer's blocks, gathered here
-    (``common.weights``), inside the remat; else its weights."""
+    (``common.weights``), inside the remat; else its weights. Prefill
+    writes this rank's block of the prompt's K / V into ``kv_out``."""
     if unit is not None:
         p = common.weights(p, *unit)
     x = common.rms_norm(h, p["ln1"])
     q, kk, v = _qkv(cfg, p, x, positions)
     if kv_out is not None:                       # prefill fills the cache
         kc, vc = kv_out
-        kc[:, : kk.shape[1]] = kk
-        vc[:, : v.shape[1]] = v
-    attn = common.attention(q, kk, v, causal=True)
+        kc[:, : kk.shape[1]] = _cache_part(kk, kc)
+        vc[:, : v.shape[1]] = _cache_part(v, vc)
+    attn = common.attention(q, *_attn_kv(cfg, q, kk, v), causal=True)
     if common.split_role("wo") == "head_dim":
-        n, r = p["wo"].shape[1], common.model_rank()
-        attn = attn[..., r * n: (r + 1) * n]
-    h = h + common.from_model(torch.einsum("blhk,hkd->bld", attn, p["wo"]),
-                              "wo")
+        attn = common.model_block(attn, 3)
+    h = h + common.seq_out(torch.einsum("blhk,hkd->bld", attn, p["wo"]),
+                           "wo")
     return (h,) + _ffn_out(cfg, p, h)
 
 
@@ -260,33 +296,36 @@ def _ffn_out(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
     x = common.rms_norm(h, p["ln2"])
     if cfg.is_moe:
         return _moe_ffn(x, p, cfg)
-    y = common.swiglu(common.to_model(x, "w_gate"), p["w_gate"], p["w_up"],
+    y = common.swiglu(common.seq_in(x, "w_gate"), p["w_gate"], p["w_up"],
                       p["w_down"])
     return y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _ffn_reduce(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
-    """The FFN's output out of 'model': outside the remat block, so that a
-    recompute does not repeat it."""
-    return common.from_model(y, "we_gate" if cfg.is_moe else "w_gate")
+    """The FFN's output out of 'model' (under seq_parallel, this rank's
+    block of L of it): outside the remat block, so that a recompute does
+    not repeat it."""
+    return common.seq_out(y, "we_gate" if cfg.is_moe else "w_gate")
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """The input embeddings: a lookup in ``embed``, gathered for it alone
     (the lookup saves no table for the backward), or the batch's
-    ``embeds``."""
+    ``embeds`` (under seq_parallel this rank's block of L of either)."""
     if cfg.frontend == "tokens":
         table = common.weights({"embed": params["embed"]})["embed"]
         return common.embed_lookup(table, batch["tokens"].long())
-    return batch["embeds"].to(dtype_of(cfg))
+    return common.seq_block(batch["embeds"].to(dtype_of(cfg)))
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
     """Logits; this rank's block of the vocabulary where ``unembed`` is
-    split over 'model' (``common.cross_entropy`` takes them so)."""
+    split over 'model' (``common.cross_entropy`` takes them so). Under
+    seq_parallel the norm runs on this rank's block of L, which is then
+    gathered."""
     w = common.weights({k: params[k] for k in ("ln_f", "unembed")})
     h = common.rms_norm(h, w["ln_f"])
-    return torch.einsum("bld,dv->blv", common.to_model(h, "unembed"),
+    return torch.einsum("bld,dv->blv", common.seq_in(h, "unembed"),
                         w["unembed"])
 
 
@@ -300,7 +339,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     ``cache`` (from ``init_cache``, position 0), each layer's K / V are
     also written to its first L rows and the cache's position becomes L."""
     h = _embed_in(params, cfg, batch)
-    L = h.shape[1]
+    L = next(iter(batch.values())).shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=h.device)[None]
     if cache is not None:
         if cache["pos"] != 0 or cache["k"].shape[2] < L:
@@ -351,28 +390,71 @@ def _decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _decode_attention_part(cfg: ModelConfig, q: torch.Tensor,
+                           kc: torch.Tensor, vc: torch.Tensor,
+                           pos: int) -> torch.Tensor:
+    """:func:`_decode_attention` from this rank's head_dim slice of the
+    cache (kc / vc: (B, S, Hkv, hd / n)): every rank scores every query
+    head (q gathered over 'model' where it holds its heads) against its
+    slice, the partial logits are summed over 'model' before the scale and
+    the softmax, and each rank weights its slice of v. Returns what ``wo``
+    takes: this rank's head_dim slice of every head where ``wo`` is split
+    by head_dim, else the slices gathered (this rank's heads of them where
+    ``wo`` is split by heads)."""
+    if q.shape[2] < cfg.n_heads:
+        q = common.join_model(q, 2)
+    B, _, Hkv, dc = kc.shape
+    H = q.shape[2]
+    qg = common.model_block(q, 3).reshape(B, 1, Hkv, H // Hkv, dc)
+    k, v = kc[:, : pos + 1], vc[:, : pos + 1]
+    logits = common.sum_model(torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                                           k.float()))
+    logits = logits * cfg.hd ** -0.5
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(vc.dtype).float(),
+                       v.float())
+    out = out.reshape(B, 1, H, dc).to(q.dtype)
+    if common.split_role("wo") == "head_dim":
+        return out
+    out = common.join_model(out, 3)
+    return common.model_block(out, 2) if common.split_role("wo") == "heads" \
+        else out
+
+
 def _decode_layer(cfg: ModelConfig, p: dict, kc: torch.Tensor,
-                  vc: torch.Tensor, h: torch.Tensor, pos: int) -> torch.Tensor:
+                  vc: torch.Tensor, h: torch.Tensor, pos: int,
+                  unit=None) -> torch.Tensor:
+    """One layer of a decode step, K / V written into the cache block in
+    place at row ``pos``; its products split and joined over 'model' as
+    :func:`_block`'s. Given its ``unit``, ``p`` are the layer's blocks,
+    gathered here."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     x = common.rms_norm(h, p["ln1"])
     posv = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
     q, kk, v = _qkv(cfg, p, x, posv)
-    kc[:, pos] = kk[:, 0]                          # in place
-    vc[:, pos] = v[:, 0]
-    attn = _decode_attention(q, kc, vc, pos)
-    h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
-    return h + _ffn_out(cfg, p, h)[0]
+    kc[:, pos] = _cache_part(kk, kc)[:, 0]         # in place
+    vc[:, pos] = _cache_part(v, vc)[:, 0]
+    if kc.shape[3] < q.shape[3]:                   # a head_dim slice
+        attn = _decode_attention_part(cfg, q, kc, vc, pos)
+    else:
+        attn = _decode_attention(q, kc, vc, pos)
+    h = h + common.from_model(torch.einsum("blhk,hkd->bld", attn, p["wo"]),
+                              "wo")
+    return h + _ffn_reduce(cfg, _ffn_out(cfg, p, h)[0])
 
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     """One decode step. batch: {'tokens': (B, 1)} or {'embeds': (B, 1, d)}.
     Returns (logits (B, 1, V), cache): the same K / V tensors, written in
-    place at row ``pos``, with ``pos + 1``."""
+    place at row ``pos``, with ``pos + 1``. Inside ``common.fsdp_blocks``
+    each layer gathers its weights as :func:`forward`'s do."""
     h = _embed_in(params, cfg, batch)
     pos = cache["pos"]
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"KV cache full ({pos} rows)")
     for i in range(cfg.n_layers):
         h = _decode_layer(cfg, common.at(params["layers"], i), cache["k"][i],
-                          cache["v"][i], h, pos)
+                          cache["v"][i], h, pos, ("layers", i))
     return _logits(params, h), {"k": cache["k"], "v": cache["v"],
                                 "pos": pos + 1}

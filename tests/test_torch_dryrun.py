@@ -15,7 +15,12 @@
   shared block split over 'model', the plan's collectives, a split rank's
   FLOPs), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
   extrapolation from 1 and 2 repeat units against a direct full-depth
-  pass; the CLI on one cell.
+  pass; the CLI on one cell;
+* the serving cells of the transformer families priced from
+  ``MeshServe.plan`` and a rank's blocks (llama3-8b x prefill_32k /
+  decode_32k and phi3.5-moe x decode_32k against the whole-parameter
+  gathers they were priced by before), each such cell's meta pass, and a
+  ``seq_parallel`` override's own collectives.
 """
 import dataclasses
 import json
@@ -354,7 +359,9 @@ def test_prefill_cell_moe_runs_einsum_dispatch():
     rec = dryrun.run_cell("phi3.5-moe-42b-a6.6b", "prefill_32k", False,
                           verbose=False)
     assert rec["status"] == "ok" and rec["flops_global"] > rec["model_flops"]
-    assert set(rec["collectives"]["counts"]) == {"all_gather"}
+    # the per-layer gathers of the parameters, and the split attention's,
+    # FFN's and embedding's all-reduces over 'model'
+    assert set(rec["collectives"]["counts"]) == {"all_gather", "all_reduce"}
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
@@ -375,7 +382,7 @@ def test_extrapolated_flops_equal_a_full_depth_pass(arch):
     cfg, shape = dryrun.cell_config(arch, "decode_32k")
     rows = dryrun.local_rows(cfg, shape, mesh, 1)
     got = dryrun.flops_extrapolated(arch, "decode_32k", mesh, 1, rows)
-    assert got == dryrun.meta_flops(cfg, shape, rows) * mesh.size
+    assert got == dryrun.meta_flops(cfg, shape, rows, mesh) * mesh.size
 
 
 def test_cli_writes_the_records(tmp_path):
@@ -386,3 +393,95 @@ def test_cli_writes_the_records(tmp_path):
     assert [(r["mesh"], r["status"]) for r in recs] == [
         ("16x16", "ok"), ("2x16x16", "ok")]
     assert "t_compute_s" in recs[0] and "t_compute_s" not in recs[1]
+
+
+# (cell, the parent's link GiB a chip and useful ratio, priced by one
+# gather of every whole parameter with every rank running the whole model)
+BEFORE = {("llama3-8b", "prefill_32k"): (14.899, 0.03),
+          ("llama3-8b", "decode_32k"): (14.899, 0.03),
+          ("phi3.5-moe-42b-a6.6b", "decode_32k"): (77.685, 0.01)}
+
+
+@pytest.mark.parametrize("arch,shape", list(BEFORE))
+def test_serving_cells_price_the_sharded_serving_step(arch, shape):
+    """A transformer serving cell on 16x16 is priced from ``MeshServe``:
+    its plan is the serving step's (a layer's 'data' blocks gathered as
+    it runs, a split leaf's 'model' block kept; no whole-parameter
+    gather), its FLOPs a rank's split products, and its argument bytes
+    the specs' blocks as before. The decode cells' link bytes a chip fall
+    far below the whole gather's; the prefill's rise (each layer's two
+    all-reduces of the activations over 'model', 512 MiB each at 2 x
+    32,768 tokens), while its roofline time falls from the whole model's
+    compute on every rank. Every cell's useful ratio rises."""
+    link0, useful0 = BEFORE[(arch, shape)]
+    rec = dryrun.run_cell(arch, shape, False, verbose=False)
+    cfg, sh = dryrun.cell_config(arch, shape)
+    mesh = production_axes()
+    serve = train_lib.MeshServe(cfg, mesh, sh.kind)
+    plan = dryrun.collective_plan(cfg, sh, mesh, 1)
+    assert plan == serve.plan(configs.input_specs(cfg, sh),
+                              pos=sh.seq_len - 1 if sh.kind == "decode"
+                              else 0)
+    params = [e for e in plan if e["what"] == "params"]
+    assert params == serve.gather_plan(1, per_layer=True, remat=False)
+    assert params != serve.gather_plan(whole=True)
+    assert all("model" not in e["axes"] for e in params)
+    whole = sum(x.numel() * x.dtype.itemsize for x in serve.shapes)
+    gathered = sum(e["bytes"] * e["group"] * e["calls"] for e in params)
+    assert gathered < whole / 8
+    assert rec["argument_bytes"] == dryrun.argument_bytes(cfg, sh, mesh)
+    assert rec["useful_ratio"] > 4 * useful0
+    t = max(rec["t_compute_s"], rec["t_memory_s"], rec["t_collective_s"])
+    link = rec["link_bytes_per_chip"] / 2**30
+    if sh.kind == "decode":
+        assert link < link0 / 4, link
+    else:
+        assert link > link0 and t < 0.1 * rec["t_compute_s"] * 16, link
+
+
+def test_a_seq_parallel_override_prices_its_own_collectives():
+    """``overrides={'seq_parallel': True}`` on llama3-8b x prefill_32k: the
+    plan's all-reduces over 'model' become reduce-scatters, each with an
+    all-gather of a rank's block of L (ring bytes unchanged); a train cell
+    under tp gains them in the backward too; the fsdp train cell, whose
+    batch splits over 'model', raises as the reference's constraint does."""
+    base = dryrun.run_cell("llama3-8b", "prefill_32k", False, verbose=False,
+                           cost_tier=False)
+    sp = dryrun.run_cell("llama3-8b", "prefill_32k", False, verbose=False,
+                         cost_tier=False, overrides={"seq_parallel": True})
+    c0, c1 = base["collectives"]["counts"], sp["collectives"]["counts"]
+    assert "reduce_scatter" not in c0 and "all_reduce" not in c1
+    assert c1["reduce_scatter"] == c0["all_reduce"]
+    assert c1["all_gather"] == c0["all_gather"] + c0["all_reduce"]
+    assert sp["link_bytes_per_chip"] == pytest.approx(
+        base["link_bytes_per_chip"], rel=1e-12)
+    tp = dryrun.run_cell("llama3-8b", "train_4k", False, verbose=False,
+                         cost_tier=False,
+                         overrides={"seq_parallel": True, "layout": "tp"})
+    assert tp["collectives"]["counts"]["reduce_scatter"] > 0
+    with pytest.raises(ValueError, match="name 'model' twice"):
+        dryrun.run_cell("llama3-8b", "train_4k", False, verbose=False,
+                        cost_tier=False, overrides={"seq_parallel": True})
+
+
+SERVING = [(a, s) for a in configs.ARCH_IDS
+           if configs.full_config(a).family not in ("ssm", "hybrid")
+           for s in ("prefill_32k", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", SERVING)
+def test_every_transformer_serving_cell_prices_on_the_mesh(arch, shape):
+    """Every prefill and decode cell of the transformer families runs its
+    meta pass on a rank's blocks and its plan on the single-pod mesh; the
+    multi-pod mesh's plan too. A rank's FLOPs are about a sixteenth of
+    the whole model's in decode; in prefill up to ~0.4 where the heads do
+    not divide 'model' (R16: the 32k-token attention runs whole)."""
+    rec = dryrun.run_cell(arch, shape, False, verbose=False)
+    assert rec["status"] == "ok", rec
+    assert 0 < rec["useful_ratio"] <= 1.0
+    cfg, sh = dryrun.cell_config(arch, shape, {"n_layers": 1})
+    whole = dryrun.meta_flops(cfg, sh, rec["local_rows"])
+    split = dryrun.meta_flops(cfg, sh, rec["local_rows"], production_axes())
+    assert split < (whole / 8 if sh.kind == "decode" else whole / 2)
+    assert dryrun.run_cell(arch, shape, True, verbose=False,
+                           cost_tier=False)["status"] == "ok"

@@ -60,13 +60,25 @@ ARCHS = {"dense": "llama3-8b", "moe": "phi3.5-moe-42b-a6.6b",
          "moe-einsum": "phi3.5-moe-42b-a6.6b", "yi": "yi-34b",
          "qwen": "qwen2.5-32b", "audio": "musicgen-large",
          "dense-remat": "llama3-8b", "zamba": "zamba2-1.2b",
-         "xlstm": "xlstm-125m", "xlstm-96": "xlstm-125m"}
+         "xlstm": "xlstm-125m", "xlstm-96": "xlstm-125m",
+         "dense-sp": "llama3-8b", "moe-sp": "phi3.5-moe-42b-a6.6b",
+         "moe-serve": "phi3.5-moe-42b-a6.6b",
+         "moe-einsum-serve": "phi3.5-moe-42b-a6.6b"}
 # xlstm-96: d_model 96, so that the sLSTM FFN (128 wide; 85 at the smoke
 # width, which no 'model' > 1 divides) splits over 'model' too
 OVERRIDES = {"moe-einsum": {"moe_impl": "einsum"},
              "dense-remat": {"remat": "full"}, "zamba": {"remat": "full"},
              "xlstm": {"remat": "full"},
-             "xlstm-96": {"remat": "full", "d_model": 96}}
+             "xlstm-96": {"remat": "full", "d_model": 96},
+             "dense-sp": {"seq_parallel": True},
+             "moe-sp": {"seq_parallel": True},
+             # capacity factor E / k: a prompt's prefill drops no token, so
+             # the cache it fills is the one the reference's one-token
+             # decode over the prompt builds (with drops the two differ in
+             # both packages: tests/test_torch_moe.py)
+             "moe-serve": {"capacity_factor": 2.0},
+             "moe-einsum-serve": {"capacity_factor": 2.0,
+                                  "moe_impl": "einsum"}}
 MESH22 = ((2, 2), ("data", "model"))
 MESH14 = ((1, 4), ("data", "model"))
 POD = ((2, 2, 1), ("pod", "data", "model"))
@@ -88,7 +100,18 @@ CASES = {
     "pod-None": ("dense", POD, "tp", 1, False, None),
     "pod-bf16": ("dense", POD, "tp", 1, False, "bf16"),
     "pod-int8": ("dense", POD, "tp", 1, False, "int8"),
+    "tp-sp": ("dense-sp", MESH22, "tp", 1, False, None),
 }
+# serving on the mesh (MeshServe, tp): name -> (arch key, mesh); the
+# prompt is the first batch's tokens (B x L), then N_DEC decode steps fed
+# the second batch's first tokens (none under seq_parallel, which acts on
+# the prefill only)
+SERVE = {"dense": ("dense", MESH22), "dense-1x4": ("dense", MESH14),
+         "moe": ("moe-serve", MESH22),
+         "moe-einsum": ("moe-einsum-serve", MESH22),
+         "yi": ("yi", MESH22), "audio": ("audio", MESH22),
+         "dense-sp": ("dense-sp", MESH22)}
+N_DEC = 4
 
 
 def _inputs(path) -> dict:
@@ -161,9 +184,46 @@ for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
                 opt=jax.tree.map(np.asarray, opt),
                 res=None if res is None else jax.tree.map(np.asarray, res)))
     out[name] = hist
+
+# serving: the forward over the prompt, and the cache built by decoding
+# the prompt one token at a time (the reference example's way), then
+# N_DEC decode steps; each jitted with the serving cells' shardings
+from repro.models.api import build
+SERVE, N_DEC = %(serve)r, %(n_dec)r
+for name, (key, (shape, axes)) in SERVE.items():
+    cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]), layout='tp',
+                              **OVERRIDES.get(key, {}))
+    mesh = meshlib.make_mesh(shape, axes,
+                             devices=jax.devices()[:int(np.prod(shape))])
+    model = build(cfg)
+    b0, b1 = D[key]['batches'][:2]
+    k = 'embeds' if 'embeds' in b0 else 'tokens'
+    B, L = b0[k].shape[:2]
+    psh, _, bsh, _ = train_lib.shardings_for(cfg, mesh, {k: b0[k]})
+    bsh1 = train_lib.shardings_for(cfg, mesh, {k: b0[k][:, :1]})[2]
+    csh, _ = train_lib.serve_shardings(cfg, mesh, B, L + N_DEC)
+    with meshlib.set_mesh(mesh):
+        params = jax.device_put(jax.tree.map(jnp.asarray, D[key]['init']),
+                                psh)
+        fwd = jax.jit(lambda p, b: model.forward(p, cfg, b)[0],
+                      in_shardings=(psh, bsh))
+        dec = jax.jit(lambda p, c, b: model.decode(p, cfg, c, b),
+                      in_shardings=(psh, csh, bsh1),
+                      out_shardings=(None, csh))
+        logits = np.asarray(fwd(params, {k: jnp.asarray(b0[k])}))
+        n = 0 if cfg.seq_parallel else N_DEC
+        cache = jax.device_put(model.init_cache(cfg, B, L + N_DEC), csh)
+        for t in range(L if n else 0):
+            _, cache = dec(params, cache, {k: jnp.asarray(b0[k][:, t:t + 1])})
+        steps = []
+        for i in range(n):
+            lg, cache = dec(params, cache,
+                            {k: jnp.asarray(b1[k][:, i:i + 1])})
+            steps.append(np.asarray(lg))
+    out['serve-' + name] = dict(prefill=logits, decode=steps)
 pickle.dump(out, open(sys.argv[2], 'wb'))
 """ % dict(cases=CASES, steps=STEPS, ocfg=OCFG, archs=ARCHS,
-           over=OVERRIDES)
+           over=OVERRIDES, serve=SERVE, n_dec=N_DEC)
 
 
 # the common head of every port process: a gloo group, and helpers that
@@ -185,6 +245,7 @@ rank, world = int(rank), int(world)
 dist.init(device='cpu', init_method=init, rank=rank, world=world)
 D = pickle.load(open(inputs, 'rb'))
 CASES, OCFG, ARCHS, OVERRIDES = %(cases)r, %(ocfg)r, %(archs)r, %(over)r
+SERVE, N_DEC = %(serve)r, %(n_dec)r
 res = {}
 
 def setup(key, shape, axes, layout):
@@ -222,7 +283,8 @@ def run_step(step, pb, ob, b, r=None):
     calls = dict(dist.calls)
     plan = train_lib.plan_calls(step.plan(b))
     return o, dict(calls=calls, plan=plan)
-""" % dict(cases=CASES, ocfg=OCFG, archs=ARCHS, over=OVERRIDES)
+""" % dict(cases=CASES, ocfg=OCFG, archs=ARCHS, over=OVERRIDES,
+           serve=SERVE, n_dec=N_DEC)
 
 _TAIL = """
 if rank == 0:
@@ -251,11 +313,26 @@ for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
             r = shd.shard_tree(shd.map_with_path(
                 lambda _, x: torch.tensor(x[mesh.coord['pod']]),
                 prev['res']), ps, mesh)
+        if cfg.seq_parallel:
+            # the same step without seq_parallel, from the same state
+            twin = train_lib.make_train_step(
+                dataclasses.replace(cfg, seq_parallel=False),
+                adamw.AdamWConfig(**OCFG), mesh)
+            tp_, to_ = blocks(D[key]['init'] if prev is None
+                              else prev['params'],
+                              None if prev is None else prev['opt'], ps,
+                              os_, mesh)
+            tp_, to_, tm = twin(tp_, to_, batch(key, s))
+            no_sp = dict(loss=float(tm['loss']),
+                         grad_norm=float(tm['grad_norm']),
+                         params=whole(tp_, ps, mesh))
         o, calls = run_step(step, pb, ob, batch(key, s), r)
         rec = dict(loss=float(o[2]['loss']),
                    grad_norm=float(o[2]['grad_norm']),
                    lr=float(o[2]['lr']), params=whole(o[0], ps, mesh),
                    m=whole(o[1]['m'], ps, mesh), **calls)
+        if cfg.seq_parallel:
+            rec['no_sp'] = no_sp
         if codec:
             pod = mesh.group(('pod',))
             rows = shd.gather_tree(o[3], ps, mesh)
@@ -418,6 +495,94 @@ for key, shape in (('zamba', (1, 4)), ('xlstm-96', (2, 2))):
                         dtype=torch.float64)
     res['split-' + key] = dict(ranks=dist.all_gather(mine).tolist(),
                                roles=step.roles, **calls)
+
+# seq_parallel on the MoE arch (the router on the gathered whole): one tp
+# step on (2, 2) with it and one without it, from the seeded init
+scfg, m22s, pss, oss = setup('moe-sp', (2, 2), ('data', 'model'), 'tp')
+got = {}
+for sp in (True, False):
+    c = dataclasses.replace(scfg, seq_parallel=sp)
+    step = train_lib.make_train_step(c, ocfg, m22s)
+    pb, ob = blocks(D['moe-sp']['init'], None, pss, oss, m22s)
+    (pb, ob, m), calls = run_step(step, pb, ob, batch('moe-sp', 0))
+    got[sp] = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']),
+                   lr=float(m['lr']), params=whole(pb, pss, m22s),
+                   m=whole(ob['m'], pss, m22s), **calls)
+res['moe-sp'] = got
+
+# serving (MeshServe): prefill over the prompt into this rank's block of
+# the cache, then N_DEC decode steps; the logits and tokens of the whole
+# batch, and on every rank: its cache block against its block of the
+# unsharded step's cache, the shape of every weight a layer fetched
+# against its unit's block, and dist.calls against the plan
+from repro_torch.models.api import build
+for name, (key, (shape, axes)) in SERVE.items():
+    cfg, mesh, ps, _ = setup(key, shape, axes, 'tp')
+    b0, b1 = D[key]['batches'][:2]
+    k = 'embeds' if 'embeds' in b0 else 'tokens'
+    prompt = {k: torch.tensor(b0[k])}
+    B, L = prompt[k].shape[:2]
+    steps = [{k: torch.tensor(b1[k][:, i:i + 1])}
+             for i in range(0 if cfg.seq_parallel else N_DEC)]
+    pre = train_lib.make_prefill_step(cfg, mesh)
+    dec = train_lib.make_serve_step(cfg, mesh)
+    p = convert.lm_params(D[key]['init'], 'cpu')
+    pb = shd.shard_tree(p, ps, mesh)
+    want = {}
+    for path, j in pre.index.items():
+        u = pre.units[j]
+        sh = list(u.meta.shape)
+        for i, axs in shd.sharded_dims(u.spec):
+            if pre.split[j] and 'model' in axs:
+                sh[i] //= pre.n_model
+        want[path] = tuple(sh)
+    fetched = []
+    for srv in (pre, dec):
+        def rec_fetch(tree, path, idx, f=srv._fetch):
+            got = f(tree, path, idx)
+            fetched.extend((f'{path}.{n}' if path else n, tuple(w.shape))
+                           for n, w in got.items())
+            return got
+        srv._fetch = rec_fetch
+
+    def joined(x):
+        # this rank's rows (and vocabulary block) -> the whole batch's
+        if 'unembed' in pre.roles and x.dim() == 3:
+            x = dist.all_gather_rows(x.contiguous(), 2,
+                                     mesh.group(('model',)))
+        return pre.join_rows(x, B)
+
+    cache = pre.init_cache(B, L + N_DEC, device='cpu')
+    dist.calls.clear()
+    lg, cache = pre.logits(pb, prompt, cache)
+    tok = pre.greedy(lg)
+    ok = dict(dist.calls) == train_lib.plan_calls(pre.plan(prompt))
+    rec = dict(prefill=joined(lg).numpy(), decode=[],
+               tokens=[joined(tok).tolist()], roles=sorted(pre.roles))
+    for b in steps:
+        plan = train_lib.plan_calls(dec.plan(b, pos=cache['pos']))
+        dist.calls.clear()
+        lg, cache = dec.logits(pb, b, cache)
+        tok = dec.greedy(lg)
+        ok &= dict(dist.calls) == plan
+        rec['decode'].append(joined(lg).numpy())
+        rec['tokens'].append(joined(tok).tolist())
+    model = build(cfg)
+    full = model.init_cache(cfg, B, L + N_DEC, device='cpu')
+    model.forward(p, cfg, prompt, cache=full)
+    for b in steps:
+        _, full = model.decode(p, cfg, full, b)
+    cs, _ = train_lib.serve_shardings(cfg, mesh, B, L + N_DEC)
+    cerr = max(float((cache[c] - shd.shard(full[c], cs[c], mesh)).abs()
+                     .max()) for c in ('k', 'v'))
+    c_ok = all(tuple(cache[c].shape) == shd.block_shape(
+        cs[c], tuple(full[c].shape), mesh) for c in ('k', 'v'))
+    f_ok = all(got == want[path] for path, got in fetched)
+    mine = torch.tensor([cerr, float(c_ok), float(f_ok), len(fetched),
+                         float(ok), float(cache['pos'])],
+                        dtype=torch.float64)
+    rec['ranks'] = dist.all_gather(mine).tolist()
+    res['serve-' + name] = rec
 """ + _TAIL
 
 # 1 rank: every mesh, layout and option bitwise equal to the unsharded step
@@ -476,6 +641,56 @@ for g in grads:
     want.append(x - compress.dequantize_int8(*compress.quantize_int8(x)))
 out1['int8-residual'] = dict(bitwise=all(
     torch.equal(a, b) for a, b in zip(adamw.leaves(o[3]), want)), calls=True)
+# MeshServe (prefill into the cache, then N_DEC decode steps) and
+# seq_parallel (a train step and a prefill) on (1, 1): bitwise the
+# unsharded steps
+from repro_torch.models.api import build
+for key in ('dense', 'moe'):
+    cfg, mesh, ps, os_ = setup(key, (1, 1), ('data', 'model'), 'tp')
+    model = build(cfg)
+    b0, b1 = D[key]['batches'][:2]
+    prompt = {'tokens': torch.tensor(b0['tokens'])}
+    steps = [{'tokens': torch.tensor(b1['tokens'][:, i:i + 1])}
+             for i in range(N_DEC)]
+    B, L = prompt['tokens'].shape
+    p = convert.lm_params(D[key]['init'], 'cpu')
+    pb = shd.shard_tree(p, ps, mesh)
+    pre = train_lib.make_prefill_step(cfg, mesh)
+    dec = train_lib.make_serve_step(cfg, mesh)
+    c1 = model.init_cache(cfg, B, L + N_DEC, device='cpu')
+    c2 = pre.init_cache(B, L + N_DEC, device='cpu')
+    want, _ = model.forward(p, cfg, prompt, cache=c1)
+    dist.calls.clear()
+    got, c2 = pre.logits(pb, prompt, c2)
+    ok = torch.equal(got, want) and torch.equal(
+        pre.greedy(got), train_lib.make_prefill_step(cfg)(p, prompt))
+    cl = dict(dist.calls) == train_lib.plan_calls(pre.plan(prompt))
+    for b in steps:
+        plan = train_lib.plan_calls(dec.plan(b, pos=c2['pos']))
+        want, c1 = model.decode(p, cfg, c1, b)
+        dist.calls.clear()
+        got, c2 = dec.logits(pb, b, c2)
+        ok &= torch.equal(got, want) and torch.equal(
+            dec.greedy(got), torch.argmax(want[:, -1, :], dim=-1))
+        cl &= dict(dist.calls) == plan
+    ok &= all(torch.equal(c1[c], c2[c]) for c in ('k', 'v'))
+    out1[f'serve-{key}'] = dict(bitwise=bool(ok), calls=bool(cl))
+    scfg, mesh, ps, os_ = setup(key + '-sp', (1, 1), ('data', 'model'), 'tp')
+    sp = train_lib.make_train_step(scfg, adamw.AdamWConfig(**OCFG), mesh)
+    p2, o2, m2 = train_lib.make_train_step(
+        cfg, adamw.AdamWConfig(**OCFG))(p, adamw.init(p), batch(key, 0))
+    pb, ob = blocks(D[key]['init'], None, ps, os_, mesh)
+    (pb, ob, m3), calls = run_step(sp, pb, ob, batch(key, 0))
+    ok = {k: float(v) for k, v in m2.items()} == \
+        {k: float(v) for k, v in m3.items()}
+    ok &= same(p2, pb) and same(o2['m'], ob['m'])
+    pf = train_lib.make_prefill_step(scfg, mesh)
+    q = convert.lm_params(D[key]['init'], 'cpu')
+    want, _ = model.forward(q, cfg, prompt)
+    ok &= torch.equal(pf.logits(shd.shard_tree(q, ps, mesh), prompt)[0],
+                      want)
+    out1[f'sp-{key}'] = dict(bitwise=bool(ok),
+                             calls=calls['calls'] == calls['plan'])
 res['world1'] = out1
 """ + _TAIL
 
@@ -500,15 +715,19 @@ def _wait(procs, out, deadline):
     """The pickled results of a group, or the exception of its failure
     (raised by the tests that read it)."""
     try:
-        for proc in procs:
+        for r, proc in enumerate(procs):
             try:
                 _, err = proc.communicate(
                     timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 for q in procs:
                     q.kill()
-                raise
-            assert proc.returncode == 0, err[-4000:]
+                tails = [q.communicate()[1][-1500:] for q in procs[r:]]
+                raise TimeoutError(
+                    f"{out}: rank {r} still running at the fixture's "
+                    f"{TIMEOUT} s deadline; stderr of ranks {r}..: "
+                    f"{tails}") from None
+            assert proc.returncode == 0, f"{out}: rank {r}: {err[-4000:]}"
         with open(out, "rb") as f:
             return pickle.load(f)
     except Exception as exc:          # noqa: BLE001 — held for the tests
@@ -587,7 +806,8 @@ UNSHARDED_ONLY = ("zamba-fsdp", "zamba-tp-1x4")
 @pytest.mark.parametrize("case", ["tp", "fsdp", "moe", "pod-None",
                                   "tp-1x4", "yi", "moe-einsum", "qwen",
                                   "audio", "fsdp-remat", "zamba-fsdp",
-                                  "xlstm-fsdp", "zamba-tp-1x4", "xlstm-96"])
+                                  "xlstm-fsdp", "zamba-tp-1x4", "xlstm-96",
+                                  "tp-sp"])
 def test_sharded_step_matches_reference_and_unsharded(runs, case):
     key, _, layout, accum, _, _ = CASES[case]
     ref = _get(runs, "ref", case)
@@ -611,6 +831,121 @@ def test_sharded_step_matches_reference_and_unsharded(runs, case):
         _assert_steps(hist, [dict(loss=h1[0], grad_norm=h1[1])],
                       mine["params"], _flat(p1), [prev_m, m1])
         assert mine["calls"] == mine["plan"], (mine["calls"], mine["plan"])
+
+
+def test_seq_parallel_step_matches_the_step_without_it(runs):
+    """The tp step with ``seq_parallel`` (L over 'model' between the
+    products) against the same sharded step without it, from the same
+    state (the two steps held from the reference's; dense), and one MoE
+    step from the seeded init (the router on the gathered whole, its
+    input gradient counted once): the same function, summed in another
+    order."""
+    ref, got = _get(runs, "ref", "tp-sp"), _get(runs, "held", "tp-sp")
+    for s, mine in enumerate(got):
+        prev_m = _zeros_like(ref[0]["opt"]["m"]) if s == 0 \
+            else ref[s - 1]["opt"]["m"]
+        twin = mine["no_sp"]
+        _assert_steps([(mine["loss"], mine["grad_norm"], mine["lr"])],
+                      [twin], mine["params"], twin["params"],
+                      [prev_m, ref[s]["opt"]["m"]])
+        assert "reduce_scatter" in mine["plan"], mine["plan"]
+    moe = _get(runs, "free", "moe-sp")
+    sp, no = moe[True], moe[False]
+    zero = {k: np.zeros_like(v) for k, v in no["m"].items()}
+    _assert_steps([(sp["loss"], sp["grad_norm"], sp["lr"])], [no],
+                  sp["params"], no["params"], [zero, no["m"]])
+    assert sp["calls"] == sp["plan"] and no["calls"] == no["plan"]
+    assert "reduce_scatter" in sp["plan"]
+
+
+@pytest.mark.parametrize("case", list(SERVE))
+def test_sharded_serving_matches_reference(runs, case):
+    """``MeshServe`` on 4 ranks (tp: attention by heads, by head_dim for
+    yi-34b and for llama3-8b's kv heads on (1, 4), the FFN by width, MoE by
+    experts under both dispatches, the vocabulary; musicgen's embeds) against
+    the reference's forward and decode jitted with the serving cells'
+    shardings: prefill logits and each decode step's within 1e-4 (the
+    reference's cache built by one-token decode over the prompt, the
+    port's by the prefill), and the greedy tokens equal. Every rank holds
+    its ``cache_specs`` block of the cache (its block of the unsharded
+    step's cache within 1e-5), every weight a layer fetches is its unit's
+    block (a split leaf's 'model' block, never a whole stacked leaf), and
+    ``dist.calls`` equals the plan at every step."""
+    ref = _get(runs, "ref", "serve-" + case)
+    got = _get(runs, "free", "serve-" + case)
+    np.testing.assert_allclose(got["prefill"], ref["prefill"], rtol=1e-4,
+                               atol=1e-4)
+    n = 0 if OVERRIDES.get(SERVE[case][0], {}).get("seq_parallel") \
+        else N_DEC
+    assert len(got["decode"]) == len(ref["decode"]) == n
+    for s, (a, b) in enumerate(zip(got["decode"], ref["decode"])):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"step {s}")
+    want = [np.argmax(x[:, -1], axis=-1).tolist()
+            for x in [ref["prefill"]] + ref["decode"]]
+    assert got["tokens"] == want
+    for cerr, c_ok, f_ok, n_fetch, calls_ok, pos in got["ranks"]:
+        assert cerr <= 1e-5 and c_ok and f_ok and n_fetch > 0, \
+            (cerr, c_ok, f_ok, n_fetch)
+        assert calls_ok and pos == L + len(got["decode"])
+
+
+def test_seq_parallel_prefill_matches_the_prefill_without_it(runs):
+    """The prefill with ``seq_parallel`` against the same mesh's without
+    it, and the plan's reduce-scatters in place of its all-reduces."""
+    sp, base = (_get(runs, "free", "serve-" + c)
+                for c in ("dense-sp", "dense"))
+    np.testing.assert_allclose(sp["prefill"], base["prefill"], rtol=1e-5,
+                               atol=1e-5)
+    assert sp["tokens"] == base["tokens"][:1]
+    cfg = _port_cfg("dense-sp", "tp")
+    prompt = {"tokens": torch.zeros((B, L), dtype=torch.int32)}
+    ops = [e["op"] for e in train_lib.MeshServe(
+        cfg, meshlib.axes(*MESH22), "prefill").plan(prompt)
+        if e["what"].startswith(("sp ", "tp "))]
+    assert "all_reduce" not in ops and "reduce_scatter" in ops
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_recurrent_families_do_not_serve_on_a_mesh_yet(arch):
+    cfg = configs.smoke_config(arch)
+    for kind in ("prefill", "decode"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
+            train_lib.MeshServe(cfg, meshlib.axes(*MESH22), kind)
+    with pytest.raises(NotImplementedError, match="14e"):
+        train_lib.make_serve_step(cfg, meshlib.axes(*MESH22))
+
+
+def test_seq_parallel_follows_the_references_constraint():
+    """``seq_parallel`` acts where the reference's ``constrain_hidden``
+    puts L over 'model': L a multiple of 'model' and more than 1 (decode
+    never); under the fsdp layout a batch that splits over the batch axes
+    splits over 'model' too, and the reference's constraint then names
+    'model' twice (JAX raises ``DuplicateSpecError``), as this raises; a
+    batch that does not split leaves the step as it is."""
+    import dataclasses
+    base = configs.smoke_config("llama3-8b")
+    mesh = meshlib.axes(*MESH22)
+    b = lambda n, l: {"tokens": torch.zeros((n, l), dtype=torch.int32),
+                      "targets": torch.zeros((n, l), dtype=torch.int32)}
+    ocfg = adamw.AdamWConfig()
+    sp = train_lib.MeshStep(dataclasses.replace(base, seq_parallel=True),
+                            ocfg, mesh)
+    no = train_lib.MeshStep(base, ocfg, mesh)
+    assert sp.plan(b(8, 31)) == no.plan(b(8, 31))      # 'model' is 2
+    assert sp.plan(b(8, 32)) != no.plan(b(8, 32))
+    dec = train_lib.MeshServe(dataclasses.replace(base, seq_parallel=True),
+                              mesh, "decode")
+    one = {"tokens": torch.zeros((8, 1), dtype=torch.int32)}
+    assert dec.plan(one) == train_lib.MeshServe(base, mesh,
+                                                "decode").plan(one)
+    fsdp = dataclasses.replace(base, seq_parallel=True, layout="fsdp")
+    step = train_lib.MeshStep(fsdp, ocfg, mesh)
+    with pytest.raises(ValueError, match="name 'model' twice"):
+        step.plan(b(8, 32))
+    assert step.plan(b(2, 32)) == train_lib.MeshStep(
+        dataclasses.replace(fsdp, seq_parallel=False), ocfg,
+        mesh).plan(b(2, 32))
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8"])
@@ -765,7 +1100,7 @@ def test_per_layer_path_gathers_no_whole_stacked_leaf(runs):
 
 
 @pytest.mark.parametrize("what", ["dense-tp", "dense-fsdp", "moe",
-                                  "int8-residual"])
+                                  "int8-residual", "serve", "sp"])
 def test_one_rank_mesh_is_bitwise_the_unsharded_step(runs, what):
     w1 = _get(runs, "world1", "world1")
     keys = [k for k in w1 if k.startswith(what)]

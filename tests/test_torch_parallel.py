@@ -3,12 +3,14 @@ process group of CPU processes, against the reference's
 ``ParallelSMOSolver`` on a 4-device host mesh and against the port's own
 single-device solver.
 
-Every case group runs once per module: 4 gloo ranks of the port (each
-asserts that its trained alpha equals rank 0's, and rank 0 prints the
-results as JSON), one world-size-1 group, and one reference subprocess
-with ``--xla_force_host_platform_device_count=4``, all at once. The inputs
-are made here from a seed with numpy and handed to both packages in one
-``.npz`` file. The tests then hold:
+Every case group runs once per module: groups of 4 gloo ranks of the
+port (each asserts that its trained alpha equals rank 0's, and rank 0
+prints the results as JSON), one after another, beside one world-size-1
+group and one reference subprocess with
+``--xla_force_host_platform_device_count=4``. Each group has its own
+deadline from its own start, and at most six processes are alive at once.
+The inputs are made here from a seed with numpy and handed to both
+packages in one ``.npz`` file. The tests then hold:
 
 * port P = 4 vs reference P = 4 — the outcome contract (verdict, dual
   objective within 5e-4 relative, labels on >= 99.5% of the points, the
@@ -302,8 +304,10 @@ if int(rank) == 0:
 dist.destroy()
 """ % dict(heur=HEURISTICS, blobs=BLOBS, sparse=SPARSE, shrinky=SHRINKY)
 
-# two groups of 4 ranks, run at once beside the reference and world 1
-_P4 = ("compaction,mirror,cache_wss1,fuse",
+# the groups of 4 ranks, run one after another beside the reference and
+# world 1 (a group's fits share its cached fits: ``fuse`` fits the shrink-
+# heavy set again, and its fused fits are the heaviest, ~35 s each here)
+_P4 = ("compaction,mirror,cache_wss1", "fuse",
        "blobs,sparse,ring,cache_wss2,serve,guards")
 
 
@@ -338,23 +342,32 @@ _KEYS = {"blobs": ("single_original_iters",) + HEURISTICS,
 
 def _collect(procs, cases, deadline):
     try:
-        return _Results(_finish(procs, deadline))
+        return _Results(_finish(procs, cases, deadline))
     except Exception as exc:
         return _Results({k: exc for c in cases.split(",")
                          for k in _KEYS.get(c, (c,))})
 
 
-def _finish(procs, deadline):
+def _finish(procs, cases, deadline):
+    """Rank 0's JSON; a timeout, or a rank that exits with an error, raises
+    an error that says which, with each rank's last lines of stderr."""
+    start = time.monotonic()
     outs = []
-    for proc in procs:
+    for r, proc in enumerate(procs):
         try:
             out, err = proc.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            raise
-        assert proc.returncode == 0, err[-4000:]
+            tails = [q.communicate()[1][-1500:] for q in procs[r:]]
+            raise TimeoutError(
+                f"{cases}: rank {r} still running at the group's {TIMEOUT} s "
+                f"deadline ({time.monotonic() - start:.0f} s after the wait "
+                f"began); stderr of ranks {r}..: {tails}") from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cases}: rank {r} exited with "
+                               f"{proc.returncode}:\n{err[-4000:]}")
         outs.append(out)
     return json.loads(outs[0].strip().splitlines()[-1])
 
@@ -369,17 +382,20 @@ def runs(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4",
                  JAX_PLATFORMS="cpu"), cwd=ROOT)
-    p4 = [_spawn_group(4, cases, npz, tmp) for cases in _P4]
     p1 = _spawn_group(1, "world1", npz, tmp)
-    deadline = time.monotonic() + TIMEOUT
+    start = time.monotonic()
+    alive = [ref] + p1
     try:
         port = _Results()
-        for cases, group in zip(_P4, p4):
-            port.update(_collect(group, cases, deadline))
-        got = dict(port=port, world1=_collect(p1, "world1", deadline),
-                   ref=_collect([ref], "reference", deadline), D=D)
+        for cases in _P4:
+            group = _spawn_group(4, cases, npz, tmp)
+            alive += group
+            port.update(_collect(group, cases, time.monotonic() + TIMEOUT))
+        got = dict(port=port,
+                   world1=_collect(p1, "world1", start + TIMEOUT),
+                   ref=_collect([ref], "reference", start + TIMEOUT), D=D)
     finally:
-        for proc in [ref] + p1 + [q for group in p4 for q in group]:
+        for proc in alive:
             if proc.poll() is None:
                 proc.kill()
     return got

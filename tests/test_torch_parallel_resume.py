@@ -3,7 +3,9 @@ gloo process group of 4 CPU processes (``core/parallel.py``,
 ``core/multi.py`` with ``parallel=True``): the kill and rescale matrix of
 the reference's ``tests/test_chaos.py:259-331``.
 
-One module fixture spawns the 4 ranks (each with a 300 s timeout). On the
+One module fixture spawns two groups of 4 ranks, one after the other (the
+dense fits; then the ELL fits and the sharded multi runner), each with
+its own 300 s deadline. On the
 reference's chaos data (``make_sparse(600, 400, 0.04, seed=0)``, C 4,
 sigma2 4, chunk_iters 64, multi5pc; ELL at a lane of 16), dense and ELL,
 the ranks
@@ -30,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -37,7 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300          # seconds, for every subprocess
 
 _RANK = r"""
-import dataclasses, json, os, shutil, sys
+import dataclasses, json, os, shutil, sys, time
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -49,13 +52,14 @@ from repro_torch.launch import chaos, dist
 
 rank, world, init, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
     sys.argv[4]
+parts = sys.argv[5].split(',')
 dist.init(device='cpu', init_method=init, rank=rank, world=world)
 X, y = make_sparse(600, 400, 0.04, seed=0)
 # ell_lane 16: these rows hold ~16 nonzeros, and ELL bits do not depend on
 # the lane budget; the narrower budget keeps the ranks quick
 KW = dict(C=4.0, sigma2=4.0, heuristic='multi5pc', chunk_iters=64,
           eps=1e-3, ell_lane=16, device='cpu')
-res = {}
+res = {'seconds': {}}
 
 
 def bits(a):
@@ -82,7 +86,8 @@ def barrier():
     dist.all_reduce(torch.zeros(1))
 
 
-for fmt in ('dense', 'ell'):
+for fmt in [f for f in ('dense', 'ell') if f in parts]:
+    t0 = time.perf_counter()
     ref = agreed(ParallelSMOSolver(SVMConfig(format=fmt, **KW)).fit(X, y))
     out = dict(iterations=ref.stats.iterations, obj=ref.dual_objective(),
                converged=bool(ref.stats.converged))
@@ -108,6 +113,7 @@ for fmt in ('dense', 'ell'):
             devices=m).fit(X, y))
         out[str(m)] = record(got, ref)
     res[fmt] = out
+    res['seconds'][fmt] = time.perf_counter() - t0
     if fmt == 'ell':
         continue
     # a straggler on rank 0 alone: the verdict is agreed, every rank saves.
@@ -124,45 +130,90 @@ for fmt in ('dense', 'ell'):
     finally:
         chaos.install(None)
     out['watchdog'] = dict(record(got, ref), steps=ck.complete_steps(d))
+    res['seconds'][fmt] = time.perf_counter() - t0
 
-# the sharded multi runner: killed mid-sweep, resumed on the same group
-rng = np.random.default_rng(7)
-Xm = rng.normal(size=(384, 24)).astype(np.float32)
-Xm[rng.random(Xm.shape) < 0.5] = 0.0
-w = rng.normal(size=24)
-s = Xm @ w + 0.4 * rng.normal(size=384)
-ym = np.where(s > np.median(s), 1.0, -1.0).astype(np.float32)
-Y = np.broadcast_to(ym, (4, 384)).copy()
-CS = np.geomspace(0.5, 8.0, 4)
-MKW = dict(C=1.0, sigma2=4.0, eps=1e-3, heuristic='multi5pc', chunk_iters=64,
-           fuse_iters=4, min_buffer=64, selection='wss1', device='cpu')
-mref = MultiProblemDriver(SVMConfig(**MKW), parallel=True).fit_tasks(
-    Xm, Y, C=CS)
-d = os.path.join(tmp, 'multi')
-mcfg = SVMConfig(checkpoint_dir=d, **MKW)
-with chaos.inject(chaos.FaultPlan(
-        kill_at_dispatch=mref[0].stats.dispatches // 2)):
-    try:
-        MultiProblemDriver(mcfg, parallel=True).fit_tasks(Xm, Y, C=CS)
-        raise SystemExit('multi kill did not fire')
-    except chaos.InjectedKill:
-        pass
-got = MultiProblemDriver(dataclasses.replace(mcfg, resume=True),
-                         parallel=True).fit_tasks(Xm, Y, C=CS)
-for m in got:
-    agreed(m)
-res['multi'] = dict(
-    resumed_from=got[0].stats.resumed_from,
-    iterations=[r['iterations'] for r in got[0].stats.per_problem],
-    ref_iterations=[r['iterations'] for r in mref[0].stats.per_problem],
-    bitwise=[bool(np.array_equal(bits(a.alpha), bits(b.alpha)))
-             for a, b in zip(got, mref)],
-    obj=[[a.dual_objective(), b.dual_objective()]
-         for a, b in zip(got, mref)])
+
+def multi():
+    # the sharded multi runner: killed mid-sweep, resumed on the same group
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    Xm = rng.normal(size=(384, 24)).astype(np.float32)
+    Xm[rng.random(Xm.shape) < 0.5] = 0.0
+    w = rng.normal(size=24)
+    s = Xm @ w + 0.4 * rng.normal(size=384)
+    ym = np.where(s > np.median(s), 1.0, -1.0).astype(np.float32)
+    Y = np.broadcast_to(ym, (4, 384)).copy()
+    CS = np.geomspace(0.5, 8.0, 4)
+    MKW = dict(C=1.0, sigma2=4.0, eps=1e-3, heuristic='multi5pc',
+               chunk_iters=64, fuse_iters=4, min_buffer=64, selection='wss1',
+               device='cpu')
+    mref = MultiProblemDriver(SVMConfig(**MKW), parallel=True).fit_tasks(
+        Xm, Y, C=CS)
+    d = os.path.join(tmp, 'multi')
+    mcfg = SVMConfig(checkpoint_dir=d, **MKW)
+    with chaos.inject(chaos.FaultPlan(
+            kill_at_dispatch=mref[0].stats.dispatches // 2)):
+        try:
+            MultiProblemDriver(mcfg, parallel=True).fit_tasks(Xm, Y, C=CS)
+            raise SystemExit('multi kill did not fire')
+        except chaos.InjectedKill:
+            pass
+    got = MultiProblemDriver(dataclasses.replace(mcfg, resume=True),
+                             parallel=True).fit_tasks(Xm, Y, C=CS)
+    for m in got:
+        agreed(m)
+    res['multi'] = dict(
+        resumed_from=got[0].stats.resumed_from,
+        iterations=[r['iterations'] for r in got[0].stats.per_problem],
+        ref_iterations=[r['iterations'] for r in mref[0].stats.per_problem],
+        bitwise=[bool(np.array_equal(bits(a.alpha), bits(b.alpha)))
+                 for a, b in zip(got, mref)],
+        obj=[[a.dual_objective(), b.dual_objective()]
+             for a, b in zip(got, mref)])
+    res['seconds']['multi'] = time.perf_counter() - t0
+
+
+if 'multi' in parts:
+    multi()
 if rank == 0:
     print(json.dumps(res))
 dist.destroy()
 """
+
+
+# the groups of 4 ranks, one after the other, each under its own deadline
+_GROUPS = ("dense", "ell,multi")
+
+
+def _group(parts, tmp, env):
+    """Rank 0's JSON for ``parts``; a timeout, or a rank that exits with an
+    error, fails with the group, the rank and its stderr."""
+    init = "file://" + str(tmp / f"pg-{parts}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, str(r), "4", init, str(tmp), parts],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for r in range(4)]
+    deadline = time.monotonic() + TIMEOUT
+    try:
+        outs = []
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                tails = [q.communicate()[1][-1500:] for q in procs[r:]]
+                pytest.fail(f"{parts}: rank {r} still running at the "
+                            f"group's {TIMEOUT} s deadline; stderr of ranks "
+                            f"{r}..: {tails}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"{parts}: rank {r} failed:\n{err[-3000:]}"
+    return json.loads(outs[0][0].strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
@@ -170,20 +221,12 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("par_resume")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
-    init = "file://" + str(tmp / "pg")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, str(r), "4", init, str(tmp)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT) for r in range(4)]
-    try:
-        outs = [p.communicate(timeout=TIMEOUT) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-3000:]}"
-    return json.loads(outs[0][0].strip().splitlines()[-1])
+    got = {"seconds": {}}
+    for parts in _GROUPS:
+        res = _group(parts, tmp, env)
+        got["seconds"].update(res.pop("seconds"))
+        got.update(res)
+    return got
 
 
 @pytest.mark.parametrize("fmt", ["dense", "ell"])
