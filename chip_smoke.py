@@ -59,8 +59,12 @@ entry points a user calls:
   greedy decode), llama3-8b and phi3.5-moe at 2 layers in fp32 against
   the unsharded step's logits and tokens, llama3-8b at 4 layers and
   phi3.5-moe at 2 in bf16, ms a prefill, ms a decode step and peak memory
-  a rank beside the unsharded step's, and the fp32 tp train step and
-  prefill with ``seq_parallel`` against without it (``[serve-lm-tp]``);
+  a rank beside the unsharded step's, the fp32 tp train step and
+  prefill with ``seq_parallel`` against without it, and zamba2-1.2b and
+  xlstm-125m as ``[train-lm-tp]`` cuts them: fp32 against the unsharded
+  step's exact (fp64) logits on (1, 2) and at one row on a (2, 1) mesh
+  of the same ranks (zamba2's shared KV cache split by positions over
+  'data'), bf16 ms and peak a rank on (1, 2) (``[serve-lm-tp]``);
   and the
   dry-run of every (arch x shape) cell on both production meshes on this
   machine's CPU, beside the later phases (``[dryrun]``);
@@ -2049,13 +2053,27 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
     * ``seq_parallel``: the fp32 tp train step (``TRAIN_BATCH`` x
       ``TRAIN_SEQ``) and the fp32 prefill at ``SERVE_TP_GATE`` layers with
       it against without it, from the same state;
+    * zamba2-1.2b and xlstm-125m at full width, cut in depth
+      (``TP_FAMILIES``): the fp32 gate on the (1, 2) tp mesh (their
+      Mamba2 layers, shared block, mLSTM and sLSTM blocks split by
+      heads), and at one row on a (2, 1) mesh of the same two ranks
+      (zamba2's shared cache then splits its positions over 'data', and
+      its decode combines the two blocks' softmax), the logits held to
+      the unsharded step's exact (fp64) ones, as ``[train-lm-tp]`` holds
+      these families' steps, within ``SERVE_TP_TOL`` more than the fp32
+      unsharded step's own distance from them (zamba2's fp32 prefill
+      amplifies rounding: no fp32 step is within the tolerance of the
+      exact value); bf16 ms and peak on (1, 2) beside the unsharded
+      step's;
     * every call's ``dist.calls`` against its plan, and the prefill's
-      flash launches a rank (one a layer)."""
+      flash launches a rank (one a layer; one a zamba2 shared-block
+      invocation)."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import cuda
     from repro_torch.launch import dist, train_lib
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharding as shd
     from repro_torch.models import transformer
     from repro_torch.models.api import build
@@ -2083,7 +2101,7 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
         model = build(cfg)
         free()
         torch.cuda.reset_peak_memory_stats()
-        cache = model.init_cache(cfg, B, L + n, device=dev)
+        cache = model.init_cache(cfg, prompts.shape[0], L + n, device=dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
         lg, _ = model.forward(p, cfg, {"tokens": prompts}, cache=cache)
@@ -2104,17 +2122,18 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
         del p, cache
         return res
 
-    def sharded(cfg, prompts, feed=None, n=N):
-        """The same through ``MeshServe`` on this rank's blocks: logits
-        over the whole vocabulary, tokens, ms, peak, flash launches of the
-        prefill, and whether every call's collectives met its plan."""
-        specs = train_lib.shardings_for(cfg, mesh, {})[0]
-        pb = shd.shard_tree(fresh(cfg), specs, mesh)
-        pre = train_lib.make_prefill_step(cfg, mesh)
-        dec = train_lib.make_serve_step(cfg, mesh)
+    def sharded(cfg, prompts, feed=None, n=N, on=mesh):
+        """The same through ``MeshServe`` on this rank's blocks of the mesh
+        ``on``: logits over the whole vocabulary, tokens, ms, peak, flash
+        launches of the prefill, and whether every call's collectives met
+        its plan."""
+        specs = train_lib.shardings_for(cfg, on, {})[0]
+        pb = shd.shard_tree(fresh(cfg), specs, on)
+        pre = train_lib.make_prefill_step(cfg, on)
+        dec = train_lib.make_serve_step(cfg, on)
         free()
         torch.cuda.reset_peak_memory_stats()
-        cache = pre.init_cache(B, L + n, device=dev)
+        cache = pre.init_cache(prompts.shape[0], L + n, device=dev)
         batch = {"tokens": prompts}
         cuda.reset_launches()
         dist.calls.clear()
@@ -2125,14 +2144,16 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
         torch.cuda.synchronize()
         ms_pre = (time.perf_counter() - t) * 1e3
         flash = cuda.launches["flash_attention"]
-        ok = dict(dist.calls) == train_lib.plan_calls(pre.plan(batch))
+        ok = dict(dist.calls) == train_lib.plan_calls(
+            pre.plan(batch, max_len=L + n))
         res = dict(prefill=lg, decode=[], tokens=[tok], ms_pre=ms_pre,
                    flash=flash, split=sorted(pre.roles))
         ms = 0.0
         for i in range(n):
             x = tok[:, None] if feed is None else feed[:, i: i + 1]
             b = {"tokens": x}
-            plan = train_lib.plan_calls(dec.plan(b, pos=cache["pos"]))
+            plan = train_lib.plan_calls(dec.plan(b, pos=cache["pos"],
+                                                 max_len=L + n))
             dist.calls.clear()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2145,9 +2166,34 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
             res["tokens"].append(tok)
         res.update(ms_dec=ms * 1e3 / n, calls_ok=bool(ok),
                    peak=torch.cuda.max_memory_allocated() / 2**30,
-                   cache_block=list(cache["k"].shape))
+                   cache_block=list(cache["k"].shape) if "k" in cache
+                   else {k: list((v[0] if type(v) is tuple else v).shape)
+                         for k, v in cache.items()
+                         if k not in ("pos", "len")})
         del pb, cache
         return res
+
+    def exact(cfg, prompts, feed):
+        """The unsharded step's logits on an fp64 copy of the seeded fp32
+        weights and cache (``common.upcast`` keeps every fp32 accumulation
+        in fp64; the attention plain, as the kernel has no fp64), fed
+        ``feed``: the prefill's, then each decode step's last position."""
+        model = build(cfg)
+        f64 = lambda t: shd.map_with_path(
+            lambda _, x: x.double() if torch.is_tensor(x) else x, t)
+        p = f64(fresh(cfg))
+        cache = f64(model.init_cache(cfg, prompts.shape[0], L + N,
+                                     device=dev))
+        with plain_attention():
+            lg, _ = model.forward(p, cfg, {"tokens": prompts}, cache=cache)
+            out = [lg]
+            for i in range(N):
+                lg, cache = model.decode(p, cfg, cache,
+                                         {"tokens": feed[:, i: i + 1]})
+                out.append(lg[:, -1])
+        del p, cache
+        free()
+        return out
 
     @contextlib.contextmanager
     def routes(record):
@@ -2164,30 +2210,41 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
         finally:
             transformer._route = route
 
-    def gate(cfg):
-        """The fp32 gate of ``cfg`` (see the docstring). Where an MoE
-        layer routes a token to other experts in the two runs (top-k near
-        a tie, flipped by rounding), that token and the later positions of
-        its sequence (their capacity slots and attention depend on it) are
-        counted and left out of the logits' comparison, and its row out of
-        the decode steps' after it."""
-        prompts = inputs(cfg)
+    def gate(cfg, n_rows=B, on=mesh, fp64=False):
+        """The fp32 gate of ``cfg`` (see the docstring) on the first
+        ``n_rows`` prompts and the mesh ``on``. Where an MoE layer routes a
+        token to other experts in the two runs (top-k near a tie, flipped
+        by rounding), that token and the later positions of its sequence
+        (their capacity slots and attention depend on it) are counted and
+        left out of the logits' comparison, and its row out of the decode
+        steps' after it. With ``fp64`` the logits are held to the
+        unsharded step's exact ones (:func:`exact`): each within
+        ``SERVE_TP_TOL`` more than the fp32 unsharded step's own distance
+        from them. Where the function amplifies fp32 rounding (zamba2's
+        prefill: 1.8e-4 of max |logit| at 7 layers for the unsharded step
+        too), no fp32 step is within the tolerance of the exact value,
+        and two of them differ by as much again."""
+        prompts = inputs(cfg)[:n_rows]
         r1, r2 = [], []
         with routes(r1):
             one = unsharded(cfg, prompts)
         feed = torch.stack(one["tokens"][:N], dim=1)   # its greedy inputs
         free()
         with routes(r2):
-            got = sharded(cfg, prompts, feed)
+            got = sharded(cfg, prompts, feed, on=on)
         want_lg = [one["prefill"]] + one["decode"]
         got_lg = [vocab(x, got["split"])
                   for x in [got["prefill"]] + got["decode"]]
+        held_to, own = want_lg, [0.0] * len(want_lg)
+        if fp64:
+            held_to = exact(cfg, prompts, feed)
+            own = [rel_err(a, b) for a, b in zip(want_lg, held_to)]
         n = cfg.n_layers if cfg.is_moe else 0
-        flip = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        flip = torch.zeros((n_rows, L), dtype=torch.bool, device=dev)
         for x, y in zip(r1[:n], r2[:n]):
             flip |= (x != y).any(-1)
         first = torch.where(flip.any(1), flip.float().argmax(1),
-                            torch.full((B,), L, device=dev))
+                            torch.full((n_rows,), L, device=dev))
         keep = [torch.arange(L, device=dev)[None] < first[:, None]]
         rows = ~flip.any(1)
         for i in range(N):
@@ -2196,7 +2253,7 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
                 rows &= ~(x != y).any(-1)[:, 0]
             keep.append(rows.clone())
         errs = []
-        for a, b, k in zip(got_lg, want_lg, keep):
+        for a, b, k in zip(got_lg, held_to, keep):
             d = torch.where(k[..., None], (a - b).abs(), 0.0)
             errs.append(float(d.max() / b.abs().max()))
         ties, off = 0, 0
@@ -2212,17 +2269,19 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
                 ties += int(near.sum())
                 off += int((~near).sum())
         res = dict(err_prefill=errs[0], err_decode=max(errs[1:]),
-                   ties=ties, off=off, calls_ok=got["calls_ok"],
+                   own_prefill=own[0], own_decode=max(own[1:]),
+                   fp64=fp64, ties=ties, off=off, calls_ok=got["calls_ok"],
                    flash=got["flash"], split=got["split"],
                    cache_block=got["cache_block"],
                    flips=int(sum(int((x != y).any(-1).sum())
                                  for x, y in zip(r1, r2))),
                    left_out=int((~keep[0]).sum()),
                    rows_left_out=int((~keep[-1]).sum()),
-                   ok=bool(max(errs) <= SERVE_TP_TOL and off == 0
+                   ok=bool(all(e <= SERVE_TP_TOL + o
+                               for e, o in zip(errs, own)) and off == 0
                            and got["calls_ok"]
-                           and int((~keep[0]).sum()) <= B * L // 2))
-        del one, got, want_lg, got_lg
+                           and int((~keep[0]).sum()) <= n_rows * L // 2))
+        del one, got, want_lg, got_lg, held_to
         free()
         return res
 
@@ -2328,6 +2387,21 @@ def serve_tp_rank(torch, tdist, dev, mesh, fresh, free, secs) -> dict:
     del steps, a, b, pre
     free()
     secs["serve seq_parallel"] = time.perf_counter() - t0
+
+    # zamba2 and xlstm-125m: the fp32 gates on (1, 2) and at one row on
+    # (2, 1), then bf16 ms and peak on (1, 2)
+    mesh21 = meshlib.make_mesh((2, 1), ("data", "model"))
+    for arch, n_layers in TP_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.full_config(arch),
+                                  n_layers=n_layers)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        out[f"gate {arch}"] = gate(f32, fp64=True)
+        out[f"gate {arch} b1"] = gate(f32, n_rows=1, on=mesh21, fp64=True)
+        secs[f"serve fp32 {arch}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[f"bf16 {arch}"] = timed(cfg)
+        secs[f"serve bf16 {arch}"] = time.perf_counter() - t0
     return out
 
 
@@ -2541,6 +2615,9 @@ def serve_lm_tp(recs, card) -> dict:
     """``[serve-lm-tp]``'s report and gates, from the two ranks' records
     (:func:`serve_tp_rank`); returns the prefills' flash launches a rank
     for the kernels line."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.api import build
     phase("serve-lm-tp")
     bad, flash = [], {}
     for r, rec in enumerate(recs):
@@ -2599,6 +2676,53 @@ def serve_lm_tp(recs, card) -> dict:
               f"{card}", flush=True)
         if not sp["ok"]:
             bad.append(f"rank {r} seq_parallel")
+        for arch, layers in TP_FAMILIES:
+            cfg = dataclasses.replace(configs.full_config(arch),
+                                      n_layers=layers)
+            want = build(cfg)._group_struct(cfg)[0] \
+                if cfg.family == "hybrid" else 0
+            for key, rows, on in (("", LM_BATCH, "(1, 2)"),
+                                  (" b1", 1, "(2, 1)")):
+                g = sv[f"gate {arch}{key}"]
+                print(f"[serve-lm-tp] rank {r} {arch} full width, {layers} "
+                      f"layers, fp32, {rows} x {LM_PROMPT} prompt + "
+                      f"{LM_NEW} decode steps on {on}, split over 'model': "
+                      f"{g['split']}; cache blocks {g['cache_block']}; "
+                      f"prefill logits off the unsharded step's exact (fp64) "
+                      f"ones by {g['err_prefill']:.3e} of max |logit|, "
+                      f"decode steps by {g['err_decode']:.3e} at most (the "
+                      f"fp32 unsharded step's own {g['own_prefill']:.3e} / "
+                      f"{g['own_decode']:.3e}; each <= it + "
+                      f"{SERVE_TP_TOL}); "
+                      f"greedy tokens against the fp32 unsharded step's "
+                      f"differ at "
+                      f"{g['ties'] + g['off']} (near ties {g['ties']}); "
+                      f"flash a prefill {g['flash']} (want {want}); "
+                      f"collectives == plan: {g['calls_ok']}; gate: "
+                      f"{g['ok']}; card {card}", flush=True)
+                flash.setdefault(f"rank {r}", {})[f"{arch} fp32 {on}"] = \
+                    dict(layers=layers, flash_a_prefill=g["flash"])
+                if not (g["ok"] and g["flash"] == want):
+                    bad.append(f"rank {r} fp32 {arch} {on}")
+            t = sv[f"bf16 {arch}"]
+            one = recs[0]["serve"][f"bf16 {arch}"]["unsharded"]
+            flash[f"rank {r}"][f"{arch} bf16 (1, 2)"] = dict(
+                layers=layers, flash_a_prefill=t["flash"])
+            print(f"[serve-lm-tp] rank {r} {arch} full width, {layers} "
+                  f"layers, bf16, {LM_BATCH} x {LM_PROMPT} + {LM_NEW} greedy "
+                  f"steps on (1, 2): prefill {t['ms_pre']:.1f} ms, decode "
+                  f"{t['ms_dec']:.2f} ms a step, peak {t['peak']:.2f} GiB a "
+                  f"rank; the unsharded step (rank 0 alone) "
+                  f"{one['ms_pre']:.1f} ms, {one['ms_dec']:.2f} ms, "
+                  f"{one['peak']:.2f} GiB; flash a prefill {t['flash']} "
+                  f"(want {want}); collectives == plan: {t['calls_ok']}; "
+                  f"finite: {t['finite']}; tokens of row 0 {t['sample']}; "
+                  f"seconds fp32 "
+                  f"{rec['seconds'].get(f'serve fp32 {arch}', 0.0):.1f}, "
+                  f"bf16 {rec['seconds'].get(f'serve bf16 {arch}', 0.0):.1f}"
+                  f"; card {card}", flush=True)
+            if not (t["calls_ok"] and t["finite"] and t["flash"] == want):
+                bad.append(f"rank {r} bf16 {arch}")
     if bad:
         fail(f"[serve-lm-tp] gates failed: {bad}")
     return flash

@@ -21,23 +21,21 @@ no compiled program, so each cell is priced from what the port would do:
   as the reference computes it;
 * the collectives: the step's own plan, the list that tests hold its
   ``dist.calls`` to: ``MeshStep.plan`` for a train cell, ``MeshServe.plan``
-  for a prefill or decode cell of the transformer families (a decode cell
-  reading a cache filled to ``seq_len - 1``), priced per chip by the ring
-  model. zamba2 and xLSTM do not serve on a mesh yet (ROADMAP item 14e):
-  their serving cells keep the price of one gather of every whole
-  parameter a step;
+  for a prefill or decode cell of every family (a decode cell reading a
+  cache of ``seq_len`` positions filled to ``seq_len - 1``), priced per
+  chip by the ring model;
 * FLOPs, on the single-pod mesh, by the reference's scheme: models of one
   and two repeat units (and the hybrid's tail), differenced and
   extrapolated to full depth, times ``accum``. Each is a forward (and for
   a train cell a backward, through remat as configured) at the cell's
   full width, full sequence and one rank's microbatch, on ``meta``
   tensors under ``torch.utils.flop_counter.FlopCounterMode``, so it also
-  proves that every cell's shapes flow through the step. A train cell,
-  and a serving cell of the transformer families, under tp runs with this
-  rank's 'model' blocks (``local_shapes``; a decode cell with this rank's
-  block of the cache) inside ``common.model_parallel`` with no process
-  group, so it counts a rank's own split products and its collectives
-  only give shapes (the plan prices them). The count is of matrix
+  proves that every cell's shapes flow through the step. A cell under tp
+  runs with this rank's 'model' blocks (``local_shapes``; a decode cell
+  with this rank's block of the cache, in ``MeshServe.context``) inside
+  ``common.model_parallel`` with no process group, so it counts a rank's
+  own split products and its collectives only give shapes (the plan
+  prices them). The count is of matrix
   products (what ``FlopCounterMode`` counts); on meta the attention takes
   its plain path.
 
@@ -172,25 +170,17 @@ def model_flops(cfg, shape) -> float:
         * tokens
 
 
-def _serves_on_mesh(cfg) -> bool:
-    return cfg.family in train_lib._TRANSFORMER
-
-
 def collective_plan(cfg, shape, mesh, accum: int) -> list:
-    """The collectives of one step of the cell: the train step's plan, the
-    serving step's (decode from a cache filled to ``seq_len - 1``), or for
-    a serving cell of a family that does not serve on a mesh (ROADMAP item
-    14e) one all-gather of each split dim of each whole parameter."""
+    """The collectives of one step of the cell: the train step's plan, or
+    the serving step's (a prefill that fills no cache; a decode from a
+    cache of ``seq_len`` positions filled to ``seq_len - 1``)."""
     batch = configs.input_specs(cfg, shape)
     if shape.kind == "train":
         step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh,
                                   accum_steps=accum)
         return step.plan(batch)
-    if _serves_on_mesh(cfg):
-        return train_lib.MeshServe(cfg, mesh, shape.kind).plan(
-            batch, pos=shape.seq_len - 1 if shape.kind == "decode" else 0)
-    return train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh).gather_plan(
-        whole=True)
+    return train_lib.MeshServe(cfg, mesh, shape.kind).plan(
+        batch, pos=shape.seq_len - 1 if shape.kind == "decode" else 0)
 
 
 def local_rows(cfg, shape, mesh, accum: int) -> int:
@@ -210,10 +200,9 @@ def local_rows(cfg, shape, mesh, accum: int) -> int:
 def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
     """FLOPs of one rank's pass over ``rows`` rows on meta tensors: the
     loss's forward and backward (train), the prefill step, or one decode
-    step against a cache filled to ``seq_len - 1``. Given the ``mesh``, a
-    train cell's pass, and a serving cell's of the transformer families,
-    takes the sharded step's 'model' blocks (and a decode cell this rank's
-    block of the cache)."""
+    step against a cache filled to ``seq_len - 1``. Given the ``mesh``, the
+    pass takes the sharded step's 'model' blocks (a decode cell this
+    rank's block of the cache, in the serving step's contexts)."""
     model = build(cfg)
     params = model.init(cfg, common.MetaDraw())
     sub = dataclasses.replace(shape, global_batch=rows)
@@ -223,17 +212,21 @@ def meta_flops(cfg, shape, rows: int, mesh=None) -> float:
     if mesh is not None and shape.kind == "train":
         step = train_lib.MeshStep(cfg, adamw.AdamWConfig(), mesh)
         sp = step._seq(shape.seq_len, step.layout(shape.global_batch)[1])
-    elif mesh is not None and _serves_on_mesh(cfg):
+        if step.tp:
+            ctx = common.model_parallel(None, step.n_model, 0,
+                                        step.seq_roles if sp else step.roles,
+                                        seq=sp)
+    elif mesh is not None:
         step = train_lib.MeshServe(cfg, mesh, shape.kind)
-        sp = step._seq(batch[next(iter(batch))].shape[1],
-                       step.row_axes(shape.global_batch))
+        n = shape.global_batch
+        sp = step._seq(batch[next(iter(batch))].shape[1], step.row_axes(n))
+        specs = train_lib.serve_shardings(cfg, mesh, n, shape.seq_len)[0] \
+            if shape.kind == "decode" else None
+        ctx = step.context(n, specs, sp, live=False)
     if step is not None and step.tp:
         params = adamw.tree_like(params, [
             torch.empty(s, dtype=x.dtype, device="meta")
             for s, x in zip(step.local_shapes(), adamw.leaves(params))])
-        ctx = common.model_parallel(None, step.n_model, 0,
-                                    step.seq_roles if sp else step.roles,
-                                    seq=sp)
     with ctx, FlopCounterMode(display=False) as fc:
         if shape.kind == "train":
             flat = [w.requires_grad_() for w in adamw.leaves(params)]

@@ -1,8 +1,8 @@
 """Step builders (twin of ``repro.launch.train_lib``): the loss, the
 train step with gradient accumulation (on one device or on a mesh), the
 specs of a sharded state (``shardings_for``, ``serve_shardings``), the
-prefill step and the greedy decode step (on one device, or for the
-transformer families on a mesh: :class:`MeshServe`). PyTorch runs
+prefill step and the greedy decode step (on one device, or on a mesh:
+:class:`MeshServe`). PyTorch runs
 eagerly, so each builder returns a plain function or callable (the
 reference returns what it jit-compiles).
 
@@ -203,7 +203,7 @@ _SLSTM = ({"slstm.wx": "heads", "slstm.r": "heads"},
 
 
 # the families whose forward has the reference's constrain_hidden (where
-# ``seq_parallel`` acts) and whose serving step runs on a mesh
+# ``seq_parallel`` acts)
 _TRANSFORMER = ("dense", "moe", "vlm", "audio")
 # the leaves a transformer layer uses in part under seq_parallel (the norms
 # run on this rank's block of L): their gradients are summed over 'model'
@@ -359,8 +359,9 @@ class _MeshModel:
                     per_layer: bool = False, remat: bool = True) -> list:
         """The plan's all-gathers of the parameters, ``calls`` times: one a
         split dim of each leaf, of the block gathered so far; a split
-        leaf's 'model' dim stays its block unless ``whole`` (the gathers
-        that price the recurrent families' serving cells). ``per_layer``:
+        leaf's 'model' dim stays its block unless ``whole`` (every whole
+        parameter: what a step that runs the whole model on every rank
+        would gather). ``per_layer``:
         of each unit (a layer of a stack, whose stacked dims are not split;
         a top-level leaf), every unit once a forward, and a unit under
         remat again in its recompute (``remat``: a pass that records
@@ -942,12 +943,19 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     return serve_step
 
 
+# the cache leaves that may split a dim other than their heads over 'model'
+# while their block's computation runs whole over it: an mLSTM memory by
+# dhk, whose readout q·C is then summed over 'model'
+# (xlstm._mlstm_decode_step)
+_PARTIAL = ("m_C", "t_C")
+
+
 class MeshServe(_MeshModel):
-    """Prefill (``kind`` 'prefill') or one greedy decode step ('decode') of
-    the transformer families on a live mesh, the program of the
-    reference's serving cells (its dry-run lowers them with the parameters
-    in their specs under ``cfg.layout``, the batch in its batch specs and
-    the cache in ``cache_specs``):
+    """Prefill (``kind`` 'prefill') or one greedy decode step ('decode') on
+    a live mesh, the program of the reference's serving cells (its dry-run
+    lowers them with the parameters in their specs under ``cfg.layout``,
+    the batch in its batch specs and the cache in ``cache_specs``), for
+    every family:
 
     * the batch is the global batch; a rank reads its rows (split over the
       batch axes where they divide it, ``batch_specs``' block, else all of
@@ -955,16 +963,30 @@ class MeshServe(_MeshModel):
     * the parameters are this rank's blocks (``shardings_for``'s specs): a
       layer gathers its 'data' blocks as it runs and frees them after it
       (``common.fsdp_blocks``, forward only), ``embed``, ``ln_f`` and
-      ``unembed`` at their use; under the tp layout the 'model' axis
-      splits as :class:`MeshStep`'s does (``roles``): attention by heads
-      (by head_dim where they do not divide), the FFN by its width, MoE by
-      experts under both dispatches, ``unembed`` by vocabulary. No rank
-      holds a whole stacked leaf;
-    * the cache is this rank's block under ``serve_shardings``' specs
-      (:meth:`init_cache`): its rows, and its kv heads or its slice of
-      head_dim; prefill writes it, decode reads and writes it in place
-      (from a head_dim slice the attention logits are partial sums, summed
-      over 'model' before the softmax);
+      ``unembed`` at their use, zamba2's shared block once a call; under
+      the tp layout the 'model' axis splits as :class:`MeshStep`'s does
+      (``roles``): attention by heads (by head_dim where they do not
+      divide), the FFN by its width, MoE by experts under both
+      dispatches, a Mamba2 layer, an mLSTM block and an sLSTM block by
+      heads, ``unembed`` by vocabulary. No rank holds a whole stacked
+      leaf;
+    * the cache is this rank's block of every leaf under
+      ``serve_shardings``' specs (:meth:`init_cache`); prefill writes it,
+      decode reads and writes it in place, a layer at a time. A KV cache
+      holds its rows and its kv heads or its slice of head_dim (from a
+      slice the attention logits are partial sums, summed over 'model'
+      before the softmax); zamba2's shared cache at a batch that does not
+      split holds its block of the positions over the batch axes (each
+      rank's softmax maxima, sums and weighted v are combined over them,
+      the new row written by the rank that holds its position). A
+      recurrent state holds its heads' block; a conv state its block of
+      the channels, gathered over 'model' a layer to convolve (the rank
+      writes its block of the new state from the gathered in-projection's
+      whole row); an mLSTM memory split by dhk (its heads do not divide
+      'model') its rows of C, whose readout is summed over 'model'. A
+      state whose spec leaves its rows whole while the batch splits holds
+      every row: a rank computes its own and gathers the others' over the
+      batch axes after each write;
     * under a vocabulary split the greedy token is the (value, index)
       maximum across 'model', the lowest index winning ties: the token of
       the unsharded ``torch.argmax``;
@@ -975,18 +997,12 @@ class MeshServe(_MeshModel):
     -> tokens`` (prefill), ``serve(params, cache, batch) -> (tokens,
     cache)`` (decode); :meth:`logits` gives this rank's logits.
     :meth:`plan` lists every collective of one call, in
-    :meth:`MeshStep.plan`'s format. zamba2 and xLSTM raise
-    ``NotImplementedError``: ROADMAP item 14e."""
+    :meth:`MeshStep.plan`'s format."""
 
     def __init__(self, cfg: ModelConfig, mesh, kind: str):
         if kind not in ("prefill", "decode"):
             raise ValueError(f"kind must be 'prefill' or 'decode', got "
                              f"{kind!r}")
-        if cfg.family not in _TRANSFORMER:
-            raise NotImplementedError(
-                f"{cfg.name}: serving the {cfg.family} family on a mesh is "
-                f"ROADMAP item 14e (its decode state needs head splits of "
-                f"its own); serve it on one device (no mesh)")
         super().__init__(cfg, mesh)
         self.kind = kind
         self.bax = shd.batch_axes_for(mesh, cfg.layout)
@@ -1015,37 +1031,142 @@ class MeshServe(_MeshModel):
             return x
         return dist.all_gather_rows(x.contiguous(), 0, self.mesh.group(axes))
 
+    @staticmethod
+    def _parts(specs: dict, shapes: dict) -> list:
+        """(leaf, spec, meta tensor) of each part of every cache leaf but
+        ``pos`` (the four of the sLSTM's ``s_state`` tuple under its
+        name)."""
+        out = []
+        for key, x in shapes.items():
+            if key == "pos":
+                continue
+            if isinstance(x, tuple):
+                out += [(key, s, t) for s, t in zip(specs[key], x)]
+            else:
+                out.append((key, specs[key], x))
+        return out
+
     def cache_blocks(self, batch: int, max_len: int) -> dict:
-        """{'k', 'v'}: (shape, dtype) of this rank's block of the cache of
-        a global batch of ``batch`` rows and ``max_len`` positions. The
-        cache's rows must split as the batch's do, and a cache split over
-        'model' needs the attention split over it too."""
+        """{leaf: (shape, dtype)} of this rank's block of every leaf of the
+        cache of a global batch of ``batch`` rows and ``max_len``
+        positions (a list of them for a tuple leaf, the sLSTM's
+        ``s_state``). Raises ``ValueError`` where this rank's blocks are
+        not what its computation reads and writes: a leaf's rows must
+        split as the batch's do, or (a recurrent state) be whole; an
+        attention cache split over 'model' needs the attention split over
+        it, and one whose positions split over the batch axes a batch that
+        does not split and its kv heads whole on the rank's head_dim; a
+        recurrent state split over 'model' needs its layer split by heads
+        and the split on its heads (or, an mLSTM memory, on dhk with its
+        block whole)."""
         specs, shapes = serve_shardings(self.cfg, self.mesh, batch, max_len)
-        spec = specs["k"]
-        if set(shd.entry_axes(spec[1])) != set(self.row_axes(batch)):
+        rows = set(self.row_axes(batch))
+        out = {}
+        for key, spec, x in self._parts(specs, shapes):
+            self._check(key, spec, rows)
+            blk = (shd.block_shape(spec, tuple(x.shape), self.mesh), x.dtype)
+            if isinstance(shapes[key], tuple):
+                out.setdefault(key, []).append(blk)
+            else:
+                out[key] = blk
+        return out
+
+    def _check(self, key: str, spec, rows: set) -> None:
+        rdim, follows = self.model.CACHE[key]
+        held = set(shd.entry_axes(spec[rdim]))
+        attn = follows == "wo"
+        if held != rows and (held or attn):
             raise ValueError(
-                f"the cache's rows split over {shd.entry_axes(spec[1])} "
-                f"({spec}) and the batch's over {self.row_axes(batch)} "
-                f"(layout {self.cfg.layout}): a rank would not hold its "
-                f"rows' cache")
-        if "model" in shd.spec_axes(spec) and self.n_model > 1 \
-                and "wo" not in self.roles:
+                f"the cache's rows split over {tuple(held)} ({key} {spec}) "
+                f"and the batch's over {tuple(rows)} (layout "
+                f"{self.cfg.layout}): a rank would not hold its rows' cache")
+        model = [i - rdim for i, axs in shd.sharded_dims(spec)
+                 if "model" in axs] if self.n_model > 1 else []
+        if attn:
+            if model and "wo" not in self.roles:
+                raise ValueError(
+                    f"the cache splits over 'model' ({key} {spec}) and the "
+                    f"attention does not (split: {sorted(self.roles)})")
+            if self._seq_axes({key: spec}) and 3 in model:
+                raise ValueError(
+                    f"{key} {spec}: the cache splits its positions over the "
+                    f"batch axes and its head_dim over 'model'; its decode "
+                    f"would sum partial logits of blocks of positions")
+            return
+        if follows is None:              # gathered over 'model' a layer
+            return
+        split = follows in self.roles
+        if model != ([1] if split else []) and not (
+                key in _PARTIAL and model == [2] and not split):
             raise ValueError(
-                f"the cache splits over 'model' ({spec}) and the attention "
-                f"does not (split: {sorted(self.roles)})")
-        return {k: (shd.block_shape(specs[k], tuple(shapes[k].shape),
-                                    self.mesh), shapes[k].dtype)
-                for k in ("k", "v")}
+                f"cache[{key!r}] {spec} splits over 'model' on its dims "
+                f"{model} (after the rows) and its layer computes "
+                f"{'a block of its heads' if split else 'all its heads'} "
+                f"(split: {sorted(self.roles)})")
+
+    def _seq_axes(self, specs: "dict | None") -> tuple:
+        """The axes that split an attention cache's positions (zamba2's
+        shared cache at a batch that does not split), or ()."""
+        for key in ("k", "ak"):
+            if specs is not None and key in specs:
+                axs = shd.entry_axes(specs[key][self.model.CACHE[key][0] + 1])
+                if math.prod(self.mesh.sizes[a] for a in axs) > 1:
+                    return axs
+        return ()
 
     def init_cache(self, batch: int, max_len: int,
                    device: "torch.device | str" = "cuda") -> dict:
         """This rank's block of an empty cache (position 0): no rank makes
-        the whole cache."""
-        out = {k: torch.zeros(shape, dtype=dt, device=device)
-               for k, (shape, dt) in self.cache_blocks(batch,
-                                                       max_len).items()}
-        out["pos"] = 0
+        the whole cache. ``len`` keeps the whole cache's positions (a
+        block of them may be all a rank holds)."""
+        zero = lambda b: torch.zeros(b[0], dtype=b[1], device=device)
+        out = {k: tuple(map(zero, b)) if isinstance(b, list) else zero(b)
+               for k, b in self.cache_blocks(batch, max_len).items()}
+        out.update(pos=0, len=max_len)
         return out
+
+    def _cache_specs(self, n: int, cache: dict) -> dict:
+        """The specs of ``cache``, this rank's blocks of the cache of a
+        global batch of ``n`` rows (from :meth:`init_cache`), after
+        checking every block's shape."""
+        if "len" not in cache:
+            raise ValueError("a MeshServe call needs this rank's block of "
+                             "the cache from its init_cache")
+        for k, blk in self.cache_blocks(n, cache["len"]).items():
+            parts = isinstance(blk, list)
+            got = [tuple(t.shape) for t in (cache[k] if parts else [cache[k]])]
+            if got != [tuple(b[0]) for b in (blk if parts else [blk])]:
+                raise ValueError(f"cache[{k!r}] is {got}; this rank's "
+                                 f"block is {blk}")
+        return serve_shardings(self.cfg, self.mesh, n, cache["len"])[0]
+
+    def context(self, n: int, specs: "dict | None" = None, sp: bool = False,
+                live: bool = True) -> contextlib.ExitStack:
+        """The contexts a call on a global batch of ``n`` rows runs in,
+        with the cache of ``specs`` (None: none): the 'model' axis
+        (``common.model_parallel`` with ``roles``, or the ``seq_roles``
+        under seq_parallel, ``sp``; with nothing split it still gives the
+        cache's collectives their group), and the batch axes that split
+        the rows or the shared cache's positions
+        (``common.cache_axes``). Not ``live``: with no process group (the
+        dry-run's meta pass), as the rank at coordinate 0."""
+        sizes = self.mesh.sizes
+        coord = self.mesh.coord if live else dict.fromkeys(sizes, 0)
+        group = self.mesh.group if live else (lambda axes: None)
+        ctx = contextlib.ExitStack()
+        if self.n_model > 1:
+            ctx.enter_context(common.model_parallel(
+                group(("model",)), self.n_model, coord["model"],
+                self.seq_roles if sp else self.roles, seq=sp))
+        seq = self._seq_axes(specs)
+        axes = seq or self.row_axes(n)
+        size, idx = 1, 0
+        for a in axes:
+            size, idx = size * sizes[a], idx * sizes[a] + coord[a]
+        if size > 1:
+            ctx.enter_context(common.cache_axes(group(axes), size, idx,
+                                                bool(seq)))
+        return ctx
 
     def _fetch(self, tree: dict, path: str, idx: tuple) -> dict:
         """``common.fsdp_blocks``' fetch: a unit's blocks gathered over
@@ -1066,32 +1187,22 @@ class MeshServe(_MeshModel):
                cache: "dict | None" = None) -> tuple:
         """(this rank's rows' logits, the cache): the last dim this rank's
         block of the vocabulary where ``unembed`` is split over 'model'.
-        Prefill fills an empty ``cache`` (this rank's block); decode needs
-        one."""
+        Prefill fills an empty ``cache`` (this rank's block, from
+        :meth:`init_cache`); decode needs one."""
         n, seq = next(iter(batch.values())).shape[:2]
         axes = self.row_axes(n)
         mine = self.rows(n)
         mb = {k: x[mine] for k, x in batch.items()}
-        if cache is not None:
-            want = self.cache_blocks(n, cache["k"].shape[2])
-            for k, (shape, _) in want.items():
-                if tuple(cache[k].shape) != tuple(shape):
-                    raise ValueError(f"cache[{k!r}] is {tuple(cache[k].shape)}"
-                                     f"; this rank's block is {shape}")
+        specs = None if cache is None else self._cache_specs(n, cache)
         sp = self._seq(seq, axes)
-        with torch.no_grad(), contextlib.ExitStack() as ctx:
-            if self.tp:
-                ctx.enter_context(common.model_parallel(
-                    self.mesh.group(("model",)), self.n_model,
-                    self.mesh.coord["model"],
-                    self.seq_roles if sp else self.roles, seq=sp))
-            ctx.enter_context(common.fsdp_blocks(self._fetch))
-            if self.kind == "prefill":
-                logits, _ = self.model.forward(params, self.cfg, mb,
-                                               cache=cache)
-            else:
-                logits, cache = self.model.decode(params, self.cfg, cache,
-                                                  mb)
+        with torch.no_grad(), self.context(n, specs, sp):
+            with common.fsdp_blocks(self._fetch):
+                if self.kind == "prefill":
+                    logits, _ = self.model.forward(params, self.cfg, mb,
+                                                   cache=cache)
+                else:
+                    logits, cache = self.model.decode(params, self.cfg,
+                                                      cache, mb)
         return logits, cache
 
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:
@@ -1119,37 +1230,59 @@ class MeshServe(_MeshModel):
         return self.greedy(logits), cache
 
     # ----------------------------------------------------------- the plan
-    def plan(self, batch_shapes: dict, pos: int = 0) -> list:
+    def plan(self, batch_shapes: dict, pos: int = 0,
+             max_len: "int | None" = None) -> list:
         """Every collective one call makes on this mesh, in
-        :meth:`MeshStep.plan`'s format, given the global batch's shapes
-        and, for decode, the cache position it reads (the logits summed
-        over a head_dim-split cache grow with it). Needs no process
-        group."""
+        :meth:`MeshStep.plan`'s format, given the global batch's shapes,
+        the whole cache's positions ``max_len`` (a prefill's None: it
+        fills no cache; a decode's default ``pos + 1``) and, for decode,
+        the position it reads (the logits summed over a head_dim-split
+        cache grow with it). Needs no process group."""
         sizes = self.mesh.sizes
         n, seq = tuple(next(iter(batch_shapes.values())).shape)[:2]
         axes = self.row_axes(n)
         rows = n // math.prod(sizes[a] for a in axes)
+        decode = self.kind == "decode"
+        if decode and max_len is None:
+            max_len = pos + 1
+        specs, shapes = (None, None) if max_len is None else \
+            serve_shardings(self.cfg, self.mesh, n, max_len)
         out = self.gather_plan(1, per_layer=True, remat=False)
+
+        def add(op, axs, nbytes, calls, what):
+            if calls:
+                out.append(dict(op=op, axes=tuple(axs),
+                                group=math.prod(sizes[a] for a in axs),
+                                bytes=int(nbytes), calls=int(calls),
+                                what=what))
+
         if self.tp:
-            part = self.kind == "decode" and "model" in shd.entry_axes(
-                serve_shardings(self.cfg, self.mesh, n, pos + 1)[0]["k"][-1])
-            for op, nbytes, calls, what in self._serve_tp_plan(
-                    rows, seq, self._seq(seq, axes), part, pos):
-                if calls:
-                    out.append(dict(op=op, axes=("model",),
-                                    group=self.n_model, bytes=int(nbytes),
-                                    calls=int(calls), what=what))
+            part = decode and "k" in specs and "model" in shd.entry_axes(
+                specs["k"][-1])
+            for e in self._serve_tp_plan(rows, seq, self._seq(seq, axes),
+                                         part, pos):
+                add(e[0], ("model",), *e[1:])
+        if specs is not None:
+            for e in self._cache_plan(specs, shapes, n, rows, decode):
+                add(*e)
         return out
 
     def _serve_tp_plan(self, rows: int, seq: int, sp: bool, part: bool,
                        pos: int) -> list:
         """(helper, bytes, calls, what) of the 'model' collectives of one
         call on ``rows`` x ``seq`` (forward only); ``part``: decode from a
-        head_dim slice of the cache, reading ``pos + 1`` rows."""
+        head_dim slice of the cache, reading ``pos + 1`` rows. The
+        attention and FFN run once a layer of a transformer and once an
+        invocation of zamba2's shared block; a Mamba2 layer and an mLSTM
+        block gather their in-projection, sum their gated norm's squares
+        and reduce their out-projection; an sLSTM block sums its norm's
+        squares and gathers its heads, and reduces its FFN."""
+        from repro_torch.models import xlstm, zamba
         from repro_torch.models.transformer import dtype_of
         cfg, m, roles = self.cfg, self.n_model, self.roles
-        e, L, H, hd = dtype_of(cfg).itemsize, cfg.n_layers, cfg.n_heads, \
-            cfg.hd
+        e, H, hd = dtype_of(cfg).itemsize, cfg.n_heads, cfg.hd
+        L = {"hybrid": zamba._group_struct(cfg)[0], "ssm": 0}.get(
+            cfg.family, cfg.n_layers)
         tok = rows * seq
         act = tok * cfg.d_model * e
         blk = act // m
@@ -1180,10 +1313,72 @@ class MeshServe(_MeshModel):
             out += [("all_gather", blk, L, "sp ffn input"),
                     ("reduce_scatter", act, L, "sp ffn")] if sp \
                 else [("all_reduce", act, L, "tp ffn")]
+        blocks = []
+        if "w_in" in roles:
+            di, N, Hm, _, _ = zamba._dims(cfg)
+            blocks.append(("mamba", cfg.n_layers, 2 * di + 2 * N + Hm))
+        if "mlstm.w_up" in roles:
+            G, M, tail = xlstm._group_struct(cfg)
+            blocks.append(("mlstm", G * M + tail, 4 * cfg.d_model))
+        for what, n, width in blocks:
+            out += [("all_gather", tok * width // m * e, n,
+                     f"tp {what} in-projection"),
+                    ("all_reduce", tok * 4, n, f"tp {what} norm"),
+                    ("all_reduce", act, n, f"tp {what}")]
+        n_s = xlstm._group_struct(cfg)[0] if cfg.family == "ssm" else 0
+        if "slstm.wx" in roles:
+            out += [("all_reduce", tok * 4, n_s, "tp slstm norm"),
+                    ("all_gather", blk, n_s, "tp slstm")]
+        if "slstm.w_gate" in roles:
+            out.append(("all_reduce", act, n_s, "tp slstm ffn"))
         if sp:
             out.append(("all_gather", blk, 1, "sp logits input"))
         if "unembed" in roles:
             out.append(("all_gather", 2 * rows * 4, 1, "tp greedy token"))
+        return out
+
+    def _cache_plan(self, specs: dict, shapes: dict, n: int, rows: int,
+                    decode: bool) -> list:
+        """(helper, axes, bytes, calls, what) of the collectives of the
+        cache of ``specs`` and ``shapes`` in one call on this rank's
+        ``rows`` of a global batch of ``n``, each a layer (a unit of a
+        stacked leaf): the rows of a state whose block holds every row
+        while the batch splits, gathered over the batch axes after each
+        write; and in decode a conv state's 'model' blocks gathered, an
+        mLSTM memory split by dhk's readout summed over 'model', and the
+        combine over the batch axes of a shared-cache block of positions
+        (its softmax maxima, then its sums and weighted v)."""
+        out = []
+        row_axes = self.row_axes(n)
+        split = math.prod(self.mesh.sizes[a] for a in row_axes) > 1
+        seq = self._seq_axes(specs)
+        for key, spec, x in self._parts(specs, shapes):
+            rdim, follows = self.model.CACHE[key]
+            units = math.prod(x.shape[:rdim])
+            uspec, ushape = spec[rdim:], tuple(x.shape[rdim:])
+            blk = list(shd.block_shape(uspec, ushape, self.mesh))
+            blk[0] = rows
+            nbytes = math.prod(blk) * x.dtype.itemsize
+            model = self.n_model > 1 and "model" in shd.spec_axes(uspec)
+            if split and not shd.entry_axes(uspec[0]) and follows != "wo":
+                out.append(("all_gather", row_axes, nbytes, units,
+                            f"rows of {key}"))
+            if not decode:
+                continue
+            if follows is None and model:
+                out.append(("all_gather", ("model",), nbytes, units,
+                            f"tp {key} blocks"))
+            if key in _PARTIAL and model and "mlstm.wq" not in self.roles:
+                out.append(("all_reduce", ("model",),
+                            rows * ushape[1] * ushape[3] * 4, units,
+                            f"tp {key} dhk readout"))
+            if key in ("k", "ak") and seq:
+                hq = self.cfg.n_heads // (self.n_model if "wo" in self.roles
+                                          else 1)
+                out += [("all_reduce", seq, rows * hq * 4, units,
+                         f"seq {key} maxima"),
+                        ("all_reduce", seq, rows * hq * (ushape[-1] + 1) * 4,
+                         units, f"seq {key} sums")]
         return out
 
 

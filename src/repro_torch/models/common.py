@@ -257,6 +257,84 @@ def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, model_rank() * n, n)
 
 
+# ------------------------------------------- the serving cache's batch axes
+_CACHE_AXES = None       # (process group or None, size, index, seq) inside
+                         # cache_axes
+
+
+@contextlib.contextmanager
+def cache_axes(group, size: int, index: int, seq: bool = False):
+    """Within: a serving step on a mesh whose batch axes are the ``size``
+    ranks of ``group``, this one ``index`` among them. A state leaf whose
+    block holds every row of a batch that splits over them is read at this
+    rank's rows (:func:`state_rows`) and written from every rank's
+    (:func:`put_state`); with ``seq`` (a batch that does not split) the
+    shared attention cache's positions split over them instead
+    (:func:`seq_start`). With ``group`` None the collectives only give
+    their results' shapes (the dry-run's meta pass)."""
+    global _CACHE_AXES
+    old = _CACHE_AXES
+    _CACHE_AXES = (group, size, index, seq)
+    try:
+        yield
+    finally:
+        _CACHE_AXES = old
+
+
+def state_rows(c: torch.Tensor, rows: int) -> torch.Tensor:
+    """The state a layer computes from, of this rank's ``rows`` rows (dim
+    0), out of its cache block ``c``: ``c`` itself where it holds just
+    those, else (``c`` holds every row of the batch, which splits over
+    :func:`cache_axes`) this rank's block of them (a view)."""
+    if c.shape[0] == rows:
+        return c
+    return c.narrow(0, _CACHE_AXES[2] * rows, rows)
+
+
+def put_state(c: torch.Tensor, x: torch.Tensor) -> None:
+    """Write a layer's new state ``x`` as it was computed (this rank's rows
+    on dim 0; its 'model' block of a dim, or all of it) into its cache
+    block ``c`` in place: of a dim that ``c`` holds a 'model' block of and
+    ``x`` whole, this rank's block; rows that ``c`` holds whole while the
+    batch splits, every rank's, gathered over :func:`cache_axes`."""
+    for d in range(1, x.dim()):
+        if c.shape[d] < x.shape[d]:
+            x = model_block(x, d)
+    if c.shape[0] > x.shape[0]:
+        group, size = _CACHE_AXES[:2]
+        if group is None:
+            x = torch.cat([x] * size, 0)
+        else:
+            from repro_torch.launch import dist
+            x = dist.all_gather_rows(x.contiguous(), 0, group)
+    c.copy_(x)
+
+
+def seq_start(n: int) -> "int | None":
+    """The first position of this rank's block (of ``n`` positions) of the
+    shared attention cache where :func:`cache_axes` splits its positions,
+    else None."""
+    if _CACHE_AXES is None or not _CACHE_AXES[3]:
+        return None
+    return _CACHE_AXES[2] * n
+
+
+def seq_len(n: int) -> int:
+    """The positions of the whole attention cache whose block on this rank
+    holds ``n``."""
+    return n if seq_start(n) is None else n * _CACHE_AXES[1]
+
+
+def seq_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x`` reduced (``op`` 'sum' or 'max') over the ranks that split the
+    attention cache's positions (:func:`cache_axes`)."""
+    group = _CACHE_AXES[0]
+    if group is None:
+        return x
+    from repro_torch.launch import dist
+    return dist.all_reduce(x, op, group)
+
+
 def seq_parallel() -> bool:
     """Whether the residual stream is this rank's block of L over 'model'
     (inside :func:`model_parallel` with ``seq``)."""

@@ -21,7 +21,9 @@ are those of the unsharded model. The FFN's reduce comes after the remat
 block, so a recompute does not repeat it. A decode step does the same,
 and a KV cache holds this rank's block of it (``launch.sharding``'s
 ``cache_specs``: its kv heads, or its slice of head_dim, whose attention
-logits are partial sums over 'model', summed before the softmax).
+logits are partial sums over 'model', summed before the softmax; zamba2's
+shared cache at a batch that does not split, its block of the positions
+over the batch axes, whose softmax is combined over them).
 
 With ``seq_parallel`` in the context (the reference's ``constrain_hidden``
 with L over 'model') the residual stream between the products is this
@@ -58,6 +60,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the stacks of per-layer weights: name -> (stacked leading dims, whether a
 # layer runs under common.remat); the sharded step gathers a layer at a time
 STACKS = {"layers": (1, True)}
+# the cache's leaves: name -> (the dim of the batch's rows, the leaf whose
+# 'model' split the cache's computation follows); the sharded serving step
+# reads it
+CACHE = {"k": (1, "wo"), "v": (1, "wo")}
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -157,6 +163,20 @@ def _cache_part(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         if t.shape[dim] != c.shape[dim]:
             t = common.model_block(t, dim)
     return t
+
+
+def _put_rows(c: torch.Tensor, t: torch.Tensor, at: int) -> None:
+    """Write ``t`` (B, n, ...) at positions ``at`` .. ``at + n - 1`` of the
+    cache block ``c`` (B, S, ...) in place: where the cache's positions
+    split over the batch axes (``common.seq_start``), the part of them
+    that falls in this rank's block."""
+    s0 = common.seq_start(c.shape[1])
+    if s0 is None:
+        c[:, at: at + t.shape[1]] = t
+        return
+    lo, hi = max(at, s0), min(at + t.shape[1], s0 + c.shape[1])
+    if lo < hi:
+        c[:, lo - s0: hi - s0] = t[:, lo - at: hi - at]
 
 
 def _kv_heads(cfg: ModelConfig, t: torch.Tensor, h_loc: int) -> torch.Tensor:
@@ -280,8 +300,8 @@ def _block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     q, kk, v = _qkv(cfg, p, x, positions)
     if kv_out is not None:                       # prefill fills the cache
         kc, vc = kv_out
-        kc[:, : kk.shape[1]] = _cache_part(kk, kc)
-        vc[:, : v.shape[1]] = _cache_part(v, vc)
+        _put_rows(kc, _cache_part(kk, kc), 0)
+        _put_rows(vc, _cache_part(v, vc), 0)
     attn = common.attention(q, *_attn_kv(cfg, q, kk, v), causal=True)
     if common.split_role("wo") == "head_dim":
         attn = common.model_block(attn, 3)
@@ -371,22 +391,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "pos": 0}
 
 
+def _softmax_v(logits: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
+               seq: bool = False) -> torch.Tensor:
+    """softmax(``logits`` (B, Hkv, g, 1, n)) times ``v`` (B, n, Hkv, d),
+    in fp32 (fp64 where they are), the probabilities rounded to the
+    cache's ``dtype`` first, as in the reference. With ``seq`` the n keys
+    are this rank's block of the cache's positions (``common.seq_start``):
+    each rank's maxima, sums of exponentials and exponential-weighted v
+    are combined over the batch axes, as an online softmax does (one max
+    and one sum all-reduce; the probabilities are not rounded, as no rank
+    has them)."""
+    if not seq:
+        pr = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhgqk,bkhd->bqhgd",
+                            common.upcast(pr.to(dtype)), common.upcast(v))
+    if logits.shape[-1]:
+        mx = logits.amax(dim=-1)
+    else:                                         # no key of this block
+        mx = torch.full(logits.shape[:-1], float("-inf"),
+                        dtype=logits.dtype, device=logits.device)
+    mx = common.seq_reduce(mx, "max")
+    e = torch.exp(logits - mx[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", e, common.upcast(v))
+    s = e.sum(-1).permute(0, 3, 1, 2)[..., None]           # (B, 1, Hkv, g, 1)
+    both = common.seq_reduce(torch.cat([o, s], dim=-1), "sum")
+    return both[..., :-1] / both[..., -1:]
+
+
 def _decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                      pos: int) -> torch.Tensor:
+                      pos: int, seq: bool = False) -> torch.Tensor:
     """q: (B, 1, H, hd); kc/vc: (B, L, Hkv, hd); keys > pos do not count
     (the rows past ``pos`` are not read). Cache operands, products
     accumulated in fp32 (upcast, exact), probabilities rounded to the
-    cache's type before the second product, as in the reference."""
+    cache's type before the second product, as in the reference; with
+    ``seq`` the cache block is this rank's block of the positions
+    (:func:`_softmax_v`)."""
     B, _, Hkv, hd = kc.shape
     H = q.shape[2]
     g = H // Hkv
     qg = q.reshape(B, 1, Hkv, g, hd)
     k, v = kc[:, : pos + 1], vc[:, : pos + 1]
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", common.upcast(qg),
+                          common.upcast(k))
     logits = logits * hd ** -0.5
-    pr = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(vc.dtype).float(),
-                       v.float())
+    out = _softmax_v(logits, v, vc.dtype, seq)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -407,12 +455,10 @@ def _decode_attention_part(cfg: ModelConfig, q: torch.Tensor,
     H = q.shape[2]
     qg = common.model_block(q, 3).reshape(B, 1, Hkv, H // Hkv, dc)
     k, v = kc[:, : pos + 1], vc[:, : pos + 1]
-    logits = common.sum_model(torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                                           k.float()))
+    logits = common.sum_model(torch.einsum(
+        "bqhgd,bkhd->bhgqk", common.upcast(qg), common.upcast(k)))
     logits = logits * cfg.hd ** -0.5
-    pr = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(vc.dtype).float(),
-                       v.float())
+    out = _softmax_v(logits, v, vc.dtype)
     out = out.reshape(B, 1, H, dc).to(q.dtype)
     if common.split_role("wo") == "head_dim":
         return out
@@ -433,9 +479,13 @@ def _decode_layer(cfg: ModelConfig, p: dict, kc: torch.Tensor,
     x = common.rms_norm(h, p["ln1"])
     posv = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
     q, kk, v = _qkv(cfg, p, x, posv)
-    kc[:, pos] = _cache_part(kk, kc)[:, 0]         # in place
-    vc[:, pos] = _cache_part(v, vc)[:, 0]
-    if kc.shape[3] < q.shape[3]:                   # a head_dim slice
+    _put_rows(kc, _cache_part(kk, kc), pos)       # in place
+    _put_rows(vc, _cache_part(v, vc), pos)
+    s0 = common.seq_start(kc.shape[1])
+    if s0 is not None:                             # this rank's positions
+        n = min(max(pos + 1 - s0, 0), kc.shape[1])
+        attn = _decode_attention(q, kc, vc, n - 1, seq=True)
+    elif kc.shape[3] < q.shape[3]:                 # a head_dim slice
         attn = _decode_attention_part(cfg, q, kc, vc, pos)
     else:
         attn = _decode_attention(q, kc, vc, pos)
@@ -456,5 +506,4 @@ def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     for i in range(cfg.n_layers):
         h = _decode_layer(cfg, common.at(params["layers"], i), cache["k"][i],
                           cache["v"][i], h, pos, ("layers", i))
-    return _logits(params, h), {"k": cache["k"], "v": cache["v"],
-                                "pos": pos + 1}
+    return _logits(params, h), dict(cache, pos=pos + 1)

@@ -15,7 +15,12 @@ different m, so a prefill-filled state and a decode-built one agree in
 C·exp(m) and n·exp(m), not in raw C. The chunk scan runs over the batch
 and head axes at once and returns its end state, so ``forward`` fills a
 decode cache in the prefill pass (``cache=``): each mLSTM layer's end
-(C, n, m) and each sLSTM layer's end (c, n, h, m).
+(C, n, m) and each sLSTM layer's end (c, n, h, m). On a mesh
+(``launch.train_lib.MeshServe``) a state is this rank's block: its heads',
+or an mLSTM memory's rows of dhk where 'model' does not divide the heads
+(its readout summed over 'model', :func:`_mlstm_decode_step`); a state
+that holds every row of a split batch is read at this rank's rows and
+written from every rank's (``common.state_rows`` / ``put_state``).
 
 The parameter tree is the reference's: ``m_groups`` (G, M, ...),
 ``s_groups`` (G, ...), ``m_tail`` (tail, ...), ``embed``, ``unembed``,
@@ -39,6 +44,13 @@ STACKS = {"m_groups": (2, True), "s_groups": (1, False),
 # (common.split_role): ``w_up`` / ``w_down`` are the fused [x | z] and down
 # projections of an mLSTM block, and an sLSTM block's FFN
 ROLE_SCOPES = {"m_groups": "mlstm", "m_tail": "mlstm", "s_groups": "slstm"}
+# the cache's leaves: name -> (the dim of the batch's rows, the leaf whose
+# 'model' split the state's computation follows: an mLSTM block's or an
+# sLSTM block's heads); the sharded serving step reads it
+CACHE = {"m_C": (2, "mlstm.wq"), "m_n": (2, "mlstm.wq"),
+         "m_m": (2, "mlstm.wq"), "s_state": (1, "slstm.wx"),
+         "t_C": (1, "mlstm.wq"), "t_n": (1, "mlstm.wq"),
+         "t_m": (1, "mlstm.wq")}
 
 
 # ----------------------------------------------------------- mLSTM core
@@ -92,15 +104,22 @@ def _mlstm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _mlstm_decode_step(C, n, m_prev, q, k, v, ig, lf) -> tuple:
     """One-token mLSTM recurrence over leading dims: C (..., dhk, dhv),
     n / q / k (..., dhk), v (..., dhv), m_prev / ig / lf (...). Returns
-    (C, n, m, h (..., dhv))."""
+    (C, n, m, h (..., dhv)). Where C is this rank's 'model' block of dhk
+    (its rows of the memory), its rows are updated from its slice of k
+    and the readout q·C is summed over 'model' before the denominator (n
+    and m whole)."""
     scale = q.shape[-1] ** -0.5
     m_new = torch.maximum(lf + m_prev, ig)
     fp = torch.exp(lf + m_prev - m_new)
     ip = torch.exp(ig - m_new)
+    part = C.shape[-2] < k.shape[-1]
+    qc, kc = (common.model_block(q, -1), common.model_block(k, -1)) \
+        if part else (q, k)
     C = fp[..., None, None] * C + ip[..., None, None] * (
-        k[..., :, None] * v[..., None, :])
+        kc[..., :, None] * v[..., None, :])
     n = fp[..., None] * n + ip[..., None] * k
-    num = (q[..., None, :] @ C)[..., 0, :] * scale
+    num = (qc[..., None, :] @ C)[..., 0, :]
+    num = (common.sum_model(num) if part else num) * scale
     den = torch.maximum((q * n).sum(-1).abs() * scale, torch.exp(-m_new))
     return C, n, m_new, num / den[..., None]
 
@@ -184,12 +203,16 @@ def _mlstm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
 
 
 def _mlstm_decode_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                        C, n, m) -> tuple:
-    """One token h (B, 1, d) from (C (B, H, dh, dh), n, m)."""
+                        C, n, m, unit=None) -> tuple:
+    """One token h (B, 1, d) from (C (B, H, dh, dh), n, m); returns (the
+    block's output before its 'model' reduce, the new (C, n, m)), as
+    :func:`_mlstm_block` does."""
+    if unit is not None:
+        p = common.weights(p, *unit)
     q, k, v, ig, lf, z = _mlstm_in(p, h, "bld,dhk->bhk")
     C, n, m, hh = _mlstm_decode_step(C, n, m, q, k, v, ig[..., 0],
                                      lf[..., 0])
-    return h + _mlstm_out(p, h, hh[:, :, None], z), (C, n, m)
+    return _mlstm_out(p, h, hh[:, :, None], z), (C, n, m)
 
 
 # ---------------------------------------------------------- sLSTM block
@@ -347,7 +370,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
             h = h + common.from_model(out, "mlstm.w_down")
         if cache is not None:
             for b, st in zip(_bufs(cache, keys), state):
-                b[idx].copy_(st)
+                common.put_state(b[idx], st)
     if cache is not None:
         cache["pos"] = h.shape[1]
     return transformer._logits(params, h), torch.zeros(
@@ -381,15 +404,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     """One decode step. batch: {'tokens': (B, 1)}. Returns (logits (B, 1,
-    V), cache): the same tensors, written in place, with ``pos + 1``."""
-    h = params["embed"][batch["tokens"].long()]
-    for kind, lp, keys, idx, _ in _schedule(cfg, params):
-        bufs = _bufs(cache, keys)
-        state = tuple(b[idx] for b in bufs)
+    V), cache): the same tensors, written in place, with ``pos + 1``.
+    Its weights come as :func:`forward`'s do (``common.weights``); a
+    block's state is read at this rank's rows and written back into the
+    cache's blocks (``common.state_rows``, ``common.put_state``)."""
+    h = transformer._embed_in(params, cfg, batch)
+    for kind, lp, keys, idx, unit in _schedule(cfg, params):
+        bufs = tuple(b[idx] for b in _bufs(cache, keys))
+        state = tuple(common.state_rows(b, h.shape[0]) for b in bufs)
         if kind == "s":
-            h, state = _slstm_block(cfg, lp, h, state)
+            h, state = _slstm_block(cfg, lp, h, state, unit)
         else:
-            h, state = _mlstm_decode_block(cfg, lp, h, *state)
+            out, state = _mlstm_decode_block(cfg, lp, h, *state, unit=unit)
+            h = h + common.from_model(out, "mlstm.w_down")
         for b, st in zip(bufs, state):
-            b[idx].copy_(st)
+            common.put_state(b, st)
     return transformer._logits(params, h), dict(cache, pos=cache["pos"] + 1)

@@ -20,6 +20,15 @@ block is that layer, without QKV bias or experts, which no hybrid config
 sets.
 Prefill attention goes through ``common.attention`` (the flash kernel on
 the card). Caches are written in place, as the transformer's are.
+
+On a mesh (``launch.train_lib.MeshServe``) a cache leaf is this rank's
+block: a Mamba layer's SSD state its heads', its conv state its 'model'
+block of the channels (gathered for the convolution; the block of the
+new state comes from the gathered in-projection's whole row), the shared
+cache its kv heads, or at a batch that does not split its block of the
+positions (``transformer._decode_layer``); a state that holds every row
+of a split batch is read at this rank's rows and written from every
+rank's (``common.state_rows`` / ``put_state``).
 """
 from __future__ import annotations
 
@@ -32,6 +41,12 @@ from repro_torch.models.api import ModelConfig
 # the stacks of Mamba layers: name -> (stacked leading dims, whether a layer
 # runs under common.remat); the sharded step gathers a layer at a time
 STACKS = {"groups": (2, True), "tail": (1, True)}
+# the cache's leaves: name -> (the dim of the batch's rows, the leaf whose
+# 'model' split the state's computation follows: the SSD state a Mamba2
+# layer's heads, the shared cache the attention; the conv state none, as
+# a layer gathers its 'model' blocks); the sharded serving step reads it
+CACHE = {"ak": (1, "wo"), "av": (1, "wo"), "g_conv": (2, None),
+         "g_ssm": (2, "w_in"), "t_conv": (1, None), "t_ssm": (1, "w_in")}
 
 
 def _dims(cfg: ModelConfig) -> tuple:
@@ -88,18 +103,32 @@ def _ssd_chunk_scan(xdt: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     return torch.cat(ys, dim=-2), S
 
 
+def _conv_tail(state: "torch.Tensor | None", x: torch.Tensor,
+               K: int) -> "torch.Tensor | None":
+    """The conv state after x (B, L, C): its last K - 1 inputs, from the
+    inputs before it (``state``, zeros when None); None where K is 1."""
+    if K == 1:
+        return None
+    L = x.shape[1]
+    if L >= K - 1:
+        return x[:, L - (K - 1):]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    return torch.cat([state[:, L:], x], dim=1)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: "torch.Tensor | None" = None) -> tuple:
+                 state: "torch.Tensor | None" = None) -> torch.Tensor:
     """Depthwise causal conv. x: (B, L, C); w: (K, C); state: (B, K-1, C),
-    the inputs before x (zeros when None). Returns (out, the last K - 1
-    inputs)."""
+    the inputs before x (zeros when None); the state after x is
+    :func:`_conv_tail`'s."""
     K = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, K - 1, 0))
     else:
         xp = torch.cat([state, x], dim=1)
-    out = sum(xp[:, i: i + x.shape[1], :] * w[i] for i in range(K))
-    return out, (xp[:, -(K - 1):, :] if K > 1 else None)
+    return sum(xp[:, i: i + x.shape[1], :] * w[i] for i in range(K))
 
 
 # ------------------------------------------------------------ mamba block
@@ -124,11 +153,11 @@ def _init_mamba(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def _mamba_split(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
-    """(z, x, B, C, dt) of the in-projection of norm(h). Where ``w_in`` is
-    split over 'model' its blocks of columns do not fall on heads: each
-    rank takes its block of the product, the blocks are gathered, and it
-    keeps its heads' z, x and dt (the heads of its ``a_log`` block) and
-    the whole B and C."""
+    """(z, dt, the conv input [x | B | C]) of the in-projection of
+    norm(h). Where ``w_in`` is split over 'model' its blocks of columns do
+    not fall on heads: each rank takes its block of the product, the
+    blocks are gathered, and it keeps its heads' z and dt (the heads of
+    its ``a_log`` block) and the whole conv input."""
     di, N, H, P, _ = _dims(cfg)
     x = common.rms_norm(h, p["ln"])
     if common.split_role("w_in") is None:
@@ -137,10 +166,9 @@ def _mamba_split(cfg: ModelConfig, p: dict, h: torch.Tensor) -> tuple:
         zx = common.gather_model(common.to_model(x, "w_in") @ p["w_in"], -1)
         hn = p["a_log"].shape[0]
         h0 = common.model_rank() * hn
-    lo, n, dt0 = h0 * P, hn * P, 2 * di + 2 * N + h0
-    return (zx[..., lo: lo + n], zx[..., di + lo: di + lo + n],
-            zx[..., 2 * di: 2 * di + N],
-            zx[..., 2 * di + N: 2 * di + 2 * N], zx[..., dt0: dt0 + hn])
+    dt0 = 2 * di + 2 * N + h0
+    return (zx[..., h0 * P: (h0 + hn) * P], zx[..., dt0: dt0 + hn],
+            zx[..., di: 2 * di + 2 * N])
 
 
 def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -148,11 +176,12 @@ def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  ssm_state: "torch.Tensor | None" = None,
                  single_step: bool = False, unit=None) -> tuple:
     """One Mamba2 layer over h (B, L, d): chunkwise over L, or one step
-    from (``conv_state``, ``ssm_state`` (B, H, N, P)) with
-    ``single_step``. Returns (block(h) before its 'model' reduce, conv
-    state, end SSD state): the caller adds ``common.from_model(out,
-    'w_out')`` to h, outside the remat block, so that a recompute does not
-    repeat the reduce.
+    from (``conv_state`` (B, K - 1, conv channels, or this rank's 'model'
+    block of them: gathered), ``ssm_state`` (B, H, N, P)) with
+    ``single_step``. Returns (block(h) before its 'model' reduce, the
+    conv state after h over every channel, end SSD state): the caller
+    adds ``common.from_model(out, 'w_out')`` to h, outside the remat
+    block, so that a recompute does not repeat the reduce.
     Given its ``unit`` (path and layer index), ``p`` are the layer's
     blocks, gathered here (``common.weights``), inside the remat.
 
@@ -165,17 +194,23 @@ def _mamba_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
         p = common.weights(p, *unit)
     B, L, _ = h.shape
     di_all, N, _, P, _ = _dims(cfg)
-    z, xin, Bc, Cc, dtr = _mamba_split(cfg, p, h)
+    z, dtr, xbc = _mamba_split(cfg, p, h)
     di = z.shape[-1]                           # this rank's heads' width
     H = di // P
     split = common.split_role("w_in") is not None
-    conv_w, ln_h = p["conv_w"], p["ln_h"]
+    if conv_state is not None and conv_state.shape[-1] < xbc.shape[-1]:
+        conv_state = common.join_model(conv_state, -1)
+    new_conv = _conv_tail(conv_state, xbc, cfg.ssm_conv)
+    # the channels this rank convolves: its heads' x and the whole B and C
+    mine = lambda t: t
+    ln_h = p["ln_h"]
     if split:
         lo = common.model_rank() * di
-        conv_w = torch.cat([conv_w[:, lo: lo + di], conv_w[:, di_all:]], 1)
+        mine = lambda t: torch.cat([t[..., lo: lo + di], t[..., di_all:]],
+                                   -1)
         ln_h = common.model_block(ln_h, 0)
-    conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
+    conv_out = _causal_conv(mine(xbc), mine(p["conv_w"]),
+                            None if conv_state is None else mine(conv_state))
     conv_out = F.silu(conv_out)
     xin = conv_out[..., :di]
     Bc = common.upcast(conv_out[..., di: di + N])
@@ -261,7 +296,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     L = h.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=h.device)[None]
     if cache is not None and (cache["pos"] != 0 or (
-            "ak" in cache and cache["ak"].shape[2] < L)):
+            "ak" in cache and common.seq_len(cache["ak"].shape[2]) < L)):
         raise ValueError(f"prefill needs an empty cache of >= {L} rows, "
                          f"got pos {cache['pos']}")
     for item in _schedule(cfg, params):
@@ -279,8 +314,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         h = h + common.from_model(out, "w_out")
         if cache is not None:
             if conv is not None:
-                cache[kc][idx].copy_(conv)
-            cache[ks][idx].copy_(S)
+                common.put_state(cache[kc][idx], conv)
+            common.put_state(cache[ks][idx], S)
     if cache is not None:
         cache["pos"] = L
     return transformer._logits(params, h), torch.zeros(
@@ -313,22 +348,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, batch: dict):
     """One decode step. batch: {'tokens': (B, 1)}. Returns (logits (B, 1,
-    V), cache): the same tensors, written in place, with ``pos + 1``."""
-    h = params["embed"][batch["tokens"].long()]
+    V), cache): the same tensors, written in place, with ``pos + 1``.
+    Its weights come as :func:`forward`'s do (``common.weights``); a
+    Mamba layer's states are read at this rank's rows and written back
+    into the cache's blocks (``common.state_rows``, ``common.put_state``).
+    """
+    h = transformer._embed_in(params, cfg, batch)
     pos = cache["pos"]
-    if "ak" in cache and pos >= cache["ak"].shape[2]:
+    if "ak" in cache and pos >= common.seq_len(cache["ak"].shape[2]):
         raise ValueError(f"KV cache full ({pos} rows)")
+    shared = None
     for item in _schedule(cfg, params):
         if isinstance(item, int):
-            h = transformer._decode_layer(cfg, params["shared_attn"],
-                                          cache["ak"][item],
+            if shared is None:
+                shared = common.weights(params["shared_attn"], "shared_attn")
+            h = transformer._decode_layer(cfg, shared, cache["ak"][item],
                                           cache["av"][item], h, pos)
             continue
-        lp, (kc, ks, idx), _ = item
-        out, conv, S = _mamba_block(cfg, lp, h, cache[kc][idx],
-                                    cache[ks][idx], single_step=True)
-        h = h + out
-        if conv is not None:
-            cache[kc][idx].copy_(conv)
-        cache[ks][idx].copy_(S)
+        lp, (kc, ks, idx), unit = item
+        conv, ssm = cache[kc][idx], cache[ks][idx]
+        out, new_conv, S = _mamba_block(
+            cfg, lp, h, common.state_rows(conv, h.shape[0]),
+            common.state_rows(ssm, h.shape[0]), True, unit)
+        h = h + common.from_model(out, "w_out")
+        if new_conv is not None:
+            common.put_state(conv, new_conv)
+        common.put_state(ssm, S)
     return transformer._logits(params, h), dict(cache, pos=pos + 1)

@@ -16,10 +16,11 @@
   FLOPs), zamba2-1.2b and xlstm-125m x long_500k; the FLOPs'
   extrapolation from 1 and 2 repeat units against a direct full-depth
   pass; the CLI on one cell;
-* the serving cells of the transformer families priced from
-  ``MeshServe.plan`` and a rank's blocks (llama3-8b x prefill_32k /
-  decode_32k and phi3.5-moe x decode_32k against the whole-parameter
-  gathers they were priced by before), each such cell's meta pass, and a
+* the serving cells priced from ``MeshServe.plan`` and a rank's blocks
+  (llama3-8b x prefill_32k / decode_32k, phi3.5-moe x decode_32k and
+  zamba2-1.2b's and xlstm-125m's prefill_32k, decode_32k and long_500k
+  against the whole-parameter gathers they were priced by before), each
+  transformer serving cell's meta pass and zamba2's prefill's, and a
   ``seq_parallel`` override's own collectives.
 """
 import dataclasses
@@ -462,6 +463,78 @@ def test_a_seq_parallel_override_prices_its_own_collectives():
     with pytest.raises(ValueError, match="name 'model' twice"):
         dryrun.run_cell("llama3-8b", "train_4k", False, verbose=False,
                         cost_tier=False, overrides={"seq_parallel": True})
+
+
+# (cell, the parent's link GiB a chip, priced by one gather of every whole
+# parameter with every rank running the whole model); the most of it a
+# decode cell's may be now (xlstm-125m's mLSTM runs whole, its weights
+# gathered over 'model'); the serving step's collectives its plan must list
+RECURRENT = {
+    ("zamba2-1.2b", "prefill_32k"): (2.171, None, {"tp mamba in-projection",
+                                                   "tp attention"}),
+    ("zamba2-1.2b", "decode_32k"): (2.171, 1 / 4, {"tp g_conv blocks",
+                                                   "tp mamba", "tp ffn"}),
+    ("zamba2-1.2b", "long_500k"): (2.171, 1 / 4, {"tp t_conv blocks",
+                                                  "seq ak maxima",
+                                                  "seq ak sums"}),
+    ("xlstm-125m", "prefill_32k"): (0.360, None, {"tp slstm ffn"}),
+    ("xlstm-125m", "decode_32k"): (0.360, 0.7, {"tp m_C dhk readout",
+                                                "rows of m_n", "rows of m_m",
+                                                "rows of s_state"}),
+    ("xlstm-125m", "long_500k"): (0.360, 0.7, {"tp slstm ffn"})}
+
+
+@pytest.mark.parametrize("arch,shape", list(RECURRENT))
+def test_recurrent_serving_cells_price_the_sharded_serving_step(arch, shape):
+    """zamba2's and xLSTM's serving cells on 16x16 (and 2x16x16) are
+    priced from ``MeshServe.plan``: a layer's 'data' blocks gathered as it
+    runs, no gather of a whole parameter (over 'model' only the leaves the
+    step runs whole: ``conv_w``, xlstm-125m's mLSTM and sLSTM, whose 4
+    heads 16 does not divide; never a split leaf), and the step's own
+    collectives: the Mamba2 layers' and the shared block's under tp, a
+    decode's conv-state blocks gathered over 'model', long_500k's shared
+    cache combined over 'data' (its positions split there), xlstm-125m's
+    memory C split by dhk (4 heads on 16) with its readout summed and its
+    whole n, m and sLSTM state's rows gathered. A decode cell's links a
+    chip fall: zamba2's below a quarter of the whole gather's, xLSTM's
+    less (its mLSTM weights gathered over 'model')."""
+    link0, most, whats = RECURRENT[(arch, shape)]
+    cfg, sh = dryrun.cell_config(arch, shape)
+    for mp in (False, True):
+        rec = dryrun.run_cell(arch, shape, mp, verbose=False,
+                              cost_tier=False)
+        assert rec["status"] == "ok", rec
+        mesh = production_axes(multi_pod=mp)
+        serve = train_lib.MeshServe(cfg, mesh, sh.kind)
+        plan = dryrun.collective_plan(cfg, sh, mesh, 1)
+        assert plan == serve.plan(configs.input_specs(cfg, sh),
+                                  pos=sh.seq_len - 1 if sh.kind == "decode"
+                                  else 0)
+        params = [e for e in plan if e["what"] == "params"]
+        assert params == serve.gather_plan(1, per_layer=True, remat=False)
+        whole = serve.gather_plan(whole=True)
+        assert plan != whole
+        over = lambda es: sum(e["bytes"] * e["group"] * e["calls"]
+                              for e in es if "model" in e["axes"])
+        assert over(params) < over(whole)
+        assert whats <= {e["what"] for e in plan}, sorted(
+            {e["what"] for e in plan})
+        if most is not None:
+            assert rec["link_bytes_per_chip"] / 2**30 < most * link0, rec[
+                "link_bytes_per_chip"]
+
+
+def test_meta_pass_counts_a_zamba2_serving_ranks_flops():
+    """One group of zamba2-1.2b (6 Mamba layers and the shared block) x
+    prefill_32k on 16x16: a rank's meta pass counts about a sixteenth of
+    the unsharded pass (its Mamba heads and attention heads)."""
+    cfg, shape = dryrun.cell_config("zamba2-1.2b", "prefill_32k",
+                                    {"n_layers": 6})
+    mesh = production_axes()
+    rows = dryrun.local_rows(cfg, shape, mesh, 1)
+    split = dryrun.meta_flops(cfg, shape, rows, mesh)
+    whole = dryrun.meta_flops(cfg, shape, rows)
+    assert whole / 16 <= split <= whole / 8, split / whole
 
 
 SERVING = [(a, s) for a in configs.ARCH_IDS

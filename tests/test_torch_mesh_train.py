@@ -27,7 +27,9 @@ init and token batches, some targets masked unevenly across the ranks):
   step each, against 3 straight steps: ``tests/test_distributed.py``),
   ``launch.train --mesh 2,2`` with a save and a resume, a step on
   (1, 4) whose forward's leaves and matrix-product FLOPs are recorded,
-  and a per-layer fsdp step on (2, 2) whose gathered blocks are;
+  a per-layer fsdp step on (2, 2) whose gathered blocks are, and the
+  sharded serving step of every family (``MeshServe``) against the
+  reference's serving forward and decode;
 * and a group of 1 rank: every mesh, layout and option bitwise equal to
   the unsharded step.
 
@@ -63,7 +65,7 @@ ARCHS = {"dense": "llama3-8b", "moe": "phi3.5-moe-42b-a6.6b",
          "xlstm": "xlstm-125m", "xlstm-96": "xlstm-125m",
          "dense-sp": "llama3-8b", "moe-sp": "phi3.5-moe-42b-a6.6b",
          "moe-serve": "phi3.5-moe-42b-a6.6b",
-         "moe-einsum-serve": "phi3.5-moe-42b-a6.6b"}
+         "moe-einsum-serve": "phi3.5-moe-42b-a6.6b", "xlstm-dh": "xlstm-125m"}
 # xlstm-96: d_model 96, so that the sLSTM FFN (128 wide; 85 at the smoke
 # width, which no 'model' > 1 divides) splits over 'model' too
 OVERRIDES = {"moe-einsum": {"moe_impl": "einsum"},
@@ -78,7 +80,12 @@ OVERRIDES = {"moe-einsum": {"moe_impl": "einsum"},
              # both packages: tests/test_torch_moe.py)
              "moe-serve": {"capacity_factor": 2.0},
              "moe-einsum-serve": {"capacity_factor": 2.0,
-                                  "moe_impl": "einsum"}}
+                                  "moe_impl": "einsum"},
+             # one mLSTM head, which 'model' 2 does not divide: the memory
+             # C splits its dhk over 'model', n and m stay whole (and the
+             # sLSTM state), each rank holding every row of a batch that
+             # splits over 'data'
+             "xlstm-dh": {"n_heads": 1, "n_kv_heads": 1}}
 MESH22 = ((2, 2), ("data", "model"))
 MESH14 = ((1, 4), ("data", "model"))
 POD = ((2, 2, 1), ("pod", "data", "model"))
@@ -110,7 +117,14 @@ SERVE = {"dense": ("dense", MESH22), "dense-1x4": ("dense", MESH14),
          "moe": ("moe-serve", MESH22),
          "moe-einsum": ("moe-einsum-serve", MESH22),
          "yi": ("yi", MESH22), "audio": ("audio", MESH22),
-         "dense-sp": ("dense-sp", MESH22)}
+         "dense-sp": ("dense-sp", MESH22),
+         "zamba": ("zamba", MESH22), "zamba-1x4": ("zamba", MESH14),
+         "zamba-b1": ("zamba", MESH22), "xlstm-96": ("xlstm-96", MESH22),
+         "xlstm-dh": ("xlstm-dh", MESH22)}
+# the rows of a serving case's batches, where not all B: zamba-b1's one row
+# does not split over 'data', so its shared attention cache splits its
+# positions over 'data' and its Mamba states take their (None, ...) specs
+SERVE_ROWS = {"zamba-b1": 1}
 N_DEC = 4
 
 
@@ -189,14 +203,15 @@ for name, (key, (shape, axes), layout, accum, once, codec) in CASES.items():
 # the prompt one token at a time (the reference example's way), then
 # N_DEC decode steps; each jitted with the serving cells' shardings
 from repro.models.api import build
-SERVE, N_DEC = %(serve)r, %(n_dec)r
+SERVE, SERVE_ROWS, N_DEC = %(serve)r, %(rows)r, %(n_dec)r
 for name, (key, (shape, axes)) in SERVE.items():
     cfg = dataclasses.replace(configs.smoke_config(ARCHS[key]), layout='tp',
                               **OVERRIDES.get(key, {}))
     mesh = meshlib.make_mesh(shape, axes,
                              devices=jax.devices()[:int(np.prod(shape))])
     model = build(cfg)
-    b0, b1 = D[key]['batches'][:2]
+    b0, b1 = ({k: v[:SERVE_ROWS.get(name)] for k, v in b.items()}
+              for b in D[key]['batches'][:2])
     k = 'embeds' if 'embeds' in b0 else 'tokens'
     B, L = b0[k].shape[:2]
     psh, _, bsh, _ = train_lib.shardings_for(cfg, mesh, {k: b0[k]})
@@ -223,7 +238,7 @@ for name, (key, (shape, axes)) in SERVE.items():
     out['serve-' + name] = dict(prefill=logits, decode=steps)
 pickle.dump(out, open(sys.argv[2], 'wb'))
 """ % dict(cases=CASES, steps=STEPS, ocfg=OCFG, archs=ARCHS,
-           over=OVERRIDES, serve=SERVE, n_dec=N_DEC)
+           over=OVERRIDES, serve=SERVE, rows=SERVE_ROWS, n_dec=N_DEC)
 
 
 # the common head of every port process: a gloo group, and helpers that
@@ -245,7 +260,7 @@ rank, world = int(rank), int(world)
 dist.init(device='cpu', init_method=init, rank=rank, world=world)
 D = pickle.load(open(inputs, 'rb'))
 CASES, OCFG, ARCHS, OVERRIDES = %(cases)r, %(ocfg)r, %(archs)r, %(over)r
-SERVE, N_DEC = %(serve)r, %(n_dec)r
+SERVE, SERVE_ROWS, N_DEC = %(serve)r, %(rows)r, %(n_dec)r
 res = {}
 
 def setup(key, shape, axes, layout):
@@ -284,7 +299,7 @@ def run_step(step, pb, ob, b, r=None):
     plan = train_lib.plan_calls(step.plan(b))
     return o, dict(calls=calls, plan=plan)
 """ % dict(cases=CASES, ocfg=OCFG, archs=ARCHS, over=OVERRIDES,
-           serve=SERVE, n_dec=N_DEC)
+           serve=SERVE, rows=SERVE_ROWS, n_dec=N_DEC)
 
 _TAIL = """
 if rank == 0:
@@ -512,13 +527,20 @@ res['moe-sp'] = got
 
 # serving (MeshServe): prefill over the prompt into this rank's block of
 # the cache, then N_DEC decode steps; the logits and tokens of the whole
-# batch, and on every rank: its cache block against its block of the
-# unsharded step's cache, the shape of every weight a layer fetched
+# batch, and on every rank: its block of every cache leaf against its block
+# of the unsharded step's cache, the shape of every weight a layer fetched
 # against its unit's block, and dist.calls against the plan
 from repro_torch.models.api import build
+
+def parts(c):
+    # the tensors (or specs) of a cache, a tuple leaf's parts in order
+    return [t for k in sorted(c) if k not in ('pos', 'len')
+            for t in (c[k] if type(c[k]) is tuple else (c[k],))]
+
 for name, (key, (shape, axes)) in SERVE.items():
     cfg, mesh, ps, _ = setup(key, shape, axes, 'tp')
-    b0, b1 = D[key]['batches'][:2]
+    b0, b1 = ({k: v[:SERVE_ROWS.get(name)] for k, v in b.items()}
+              for b in D[key]['batches'][:2])
     k = 'embeds' if 'embeds' in b0 else 'tokens'
     prompt = {k: torch.tensor(b0[k])}
     B, L = prompt[k].shape[:2]
@@ -556,11 +578,13 @@ for name, (key, (shape, axes)) in SERVE.items():
     dist.calls.clear()
     lg, cache = pre.logits(pb, prompt, cache)
     tok = pre.greedy(lg)
-    ok = dict(dist.calls) == train_lib.plan_calls(pre.plan(prompt))
+    ok = dict(dist.calls) == train_lib.plan_calls(
+        pre.plan(prompt, max_len=L + N_DEC))
     rec = dict(prefill=joined(lg).numpy(), decode=[],
                tokens=[joined(tok).tolist()], roles=sorted(pre.roles))
     for b in steps:
-        plan = train_lib.plan_calls(dec.plan(b, pos=cache['pos']))
+        plan = train_lib.plan_calls(dec.plan(b, pos=cache['pos'],
+                                             max_len=L + N_DEC))
         dist.calls.clear()
         lg, cache = dec.logits(pb, b, cache)
         tok = dec.greedy(lg)
@@ -568,15 +592,32 @@ for name, (key, (shape, axes)) in SERVE.items():
         rec['decode'].append(joined(lg).numpy())
         rec['tokens'].append(joined(tok).tolist())
     model = build(cfg)
+    f64 = lambda t: shd.map_with_path(
+        lambda _, x: x.double() if torch.is_tensor(x) else x, t)
+    if cfg.family in ('hybrid', 'ssm'):
+        # the same prefill and decode steps on an fp64 copy of the weights
+        # and the cache, on both sides: zamba2's and xLSTM's fp32 rounding
+        # is amplified (the unsharded fp32 step's own shared K / V are up
+        # to 2e-5 of their max from the fp64 function's), so their blocks
+        # are held to the unsharded step's in fp64
+        p, pb = f64(p), f64(pb)
+        cache = f64(pre.init_cache(B, L + N_DEC, device='cpu'))
+        cache = pre.logits(pb, prompt, cache)[1]
+        for b in steps:
+            cache = dec.logits(pb, b, cache)[1]
     full = model.init_cache(cfg, B, L + N_DEC, device='cpu')
+    if cfg.family in ('hybrid', 'ssm'):
+        full = f64(full)
     model.forward(p, cfg, prompt, cache=full)
     for b in steps:
         _, full = model.decode(p, cfg, full, b)
     cs, _ = train_lib.serve_shardings(cfg, mesh, B, L + N_DEC)
-    cerr = max(float((cache[c] - shd.shard(full[c], cs[c], mesh)).abs()
-                     .max()) for c in ('k', 'v'))
-    c_ok = all(tuple(cache[c].shape) == shd.block_shape(
-        cs[c], tuple(full[c].shape), mesh) for c in ('k', 'v'))
+    mine, specs, whole = parts(cache), parts(cs), parts(full)
+    cerr = max(float((a - shd.shard(w, s_, mesh)).abs().max())
+               for a, s_, w in zip(mine, specs, whole))
+    c_ok = len(mine) == len(whole) and all(
+        tuple(a.shape) == shd.block_shape(s_, tuple(w.shape), mesh)
+        for a, s_, w in zip(mine, specs, whole))
     f_ok = all(got == want[path] for path, got in fetched)
     mine = torch.tensor([cerr, float(c_ok), float(f_ok), len(fetched),
                          float(ok), float(cache['pos'])],
@@ -691,6 +732,43 @@ for key in ('dense', 'moe'):
                       want)
     out1[f'sp-{key}'] = dict(bitwise=bool(ok),
                              calls=calls['calls'] == calls['plan'])
+# zamba2 and xLSTM's MeshServe on (1, 1): bitwise the unsharded steps, every
+# leaf of the cache too
+for key in ('zamba', 'xlstm'):
+    cfg, mesh, ps, os_ = setup(key, (1, 1), ('data', 'model'), 'tp')
+    model = build(cfg)
+    b0, b1 = D[key]['batches'][:2]
+    prompt = {'tokens': torch.tensor(b0['tokens'])}
+    steps = [{'tokens': torch.tensor(b1['tokens'][:, i:i + 1])}
+             for i in range(N_DEC)]
+    B, L = prompt['tokens'].shape
+    p = convert.lm_params(D[key]['init'], 'cpu')
+    pb = shd.shard_tree(p, ps, mesh)
+    pre = train_lib.make_prefill_step(cfg, mesh)
+    dec = train_lib.make_serve_step(cfg, mesh)
+    c1 = model.init_cache(cfg, B, L + N_DEC, device='cpu')
+    c2 = pre.init_cache(B, L + N_DEC, device='cpu')
+    want, _ = model.forward(p, cfg, prompt, cache=c1)
+    dist.calls.clear()
+    got, c2 = pre.logits(pb, prompt, c2)
+    ok = torch.equal(got, want) and torch.equal(
+        pre.greedy(got), train_lib.make_prefill_step(cfg)(p, prompt))
+    cl = dict(dist.calls) == train_lib.plan_calls(
+        pre.plan(prompt, max_len=L + N_DEC))
+    for b in steps:
+        plan = train_lib.plan_calls(dec.plan(b, pos=c2['pos'],
+                                             max_len=L + N_DEC))
+        want, c1 = model.decode(p, cfg, c1, b)
+        dist.calls.clear()
+        got, c2 = dec.logits(pb, b, c2)
+        ok &= torch.equal(got, want) and torch.equal(
+            dec.greedy(got), torch.argmax(want[:, -1, :], dim=-1))
+        cl &= dict(dist.calls) == plan
+    ten = lambda c: shd.leaves({k: v for k, v in c.items()
+                                if k not in ('pos', 'len')})
+    ok &= sorted(c1) == sorted(k for k in c2 if k != 'len') and all(
+        torch.equal(x, y) for x, y in zip(ten(c1), ten(c2)))
+    out1[f'serve-{key}'] = dict(bitwise=bool(ok), calls=bool(cl))
 res['world1'] = out1
 """ + _TAIL
 
@@ -862,15 +940,22 @@ def test_seq_parallel_step_matches_the_step_without_it(runs):
 def test_sharded_serving_matches_reference(runs, case):
     """``MeshServe`` on 4 ranks (tp: attention by heads, by head_dim for
     yi-34b and for llama3-8b's kv heads on (1, 4), the FFN by width, MoE by
-    experts under both dispatches, the vocabulary; musicgen's embeds) against
-    the reference's forward and decode jitted with the serving cells'
+    experts under both dispatches, the vocabulary; musicgen's embeds;
+    zamba2's Mamba2 layers and shared block and xLSTM's mLSTM and sLSTM
+    blocks by heads, on (2, 2) and (1, 4); zamba2 at one row, whose shared
+    cache splits its positions over 'data'; xLSTM with one head, whose
+    memory splits its dhk over 'model' and whose whole n, m and sLSTM
+    state hold every row of a batch split over 'data') against the
+    reference's forward and decode jitted with the serving cells'
     shardings: prefill logits and each decode step's within 1e-4 (the
     reference's cache built by one-token decode over the prompt, the
     port's by the prefill), and the greedy tokens equal. Every rank holds
-    its ``cache_specs`` block of the cache (its block of the unsharded
-    step's cache within 1e-5), every weight a layer fetches is its unit's
-    block (a split leaf's 'model' block, never a whole stacked leaf), and
-    ``dist.calls`` equals the plan at every step."""
+    its ``cache_specs`` block of every cache leaf (its block of the
+    unsharded step's cache within 1e-5; zamba2 and xLSTM both steps run
+    again on an fp64 copy, as their fp32 rounding is amplified), every
+    weight a layer fetches is its unit's block (a split leaf's 'model'
+    block, never a whole stacked leaf), and ``dist.calls`` equals the
+    plan at every step."""
     ref = _get(runs, "ref", "serve-" + case)
     got = _get(runs, "free", "serve-" + case)
     np.testing.assert_allclose(got["prefill"], ref["prefill"], rtol=1e-4,
@@ -904,16 +989,6 @@ def test_seq_parallel_prefill_matches_the_prefill_without_it(runs):
         cfg, meshlib.axes(*MESH22), "prefill").plan(prompt)
         if e["what"].startswith(("sp ", "tp "))]
     assert "all_reduce" not in ops and "reduce_scatter" in ops
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
-def test_recurrent_families_do_not_serve_on_a_mesh_yet(arch):
-    cfg = configs.smoke_config(arch)
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
-            train_lib.MeshServe(cfg, meshlib.axes(*MESH22), kind)
-    with pytest.raises(NotImplementedError, match="14e"):
-        train_lib.make_serve_step(cfg, meshlib.axes(*MESH22))
 
 
 def test_seq_parallel_follows_the_references_constraint():
@@ -1100,7 +1175,8 @@ def test_per_layer_path_gathers_no_whole_stacked_leaf(runs):
 
 
 @pytest.mark.parametrize("what", ["dense-tp", "dense-fsdp", "moe",
-                                  "int8-residual", "serve", "sp"])
+                                  "int8-residual", "serve", "sp",
+                                  "serve-zamba", "serve-xlstm"])
 def test_one_rank_mesh_is_bitwise_the_unsharded_step(runs, what):
     w1 = _get(runs, "world1", "world1")
     keys = [k for k in w1 if k.startswith(what)]
